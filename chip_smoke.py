@@ -175,7 +175,9 @@ def phase_kernels(calc, batch, n_real_edge):
             return torch.zeros(N + 1, D, device=dev).index_add_(
                 0, idx_long, msg)
 
-        b_ms, b_by = bound_ms(4 * (E * D + E + N * D), live * D)
+        # only the live edges' rows are read: the kernel stops at
+        # offs[N], the first sentinel edge
+        b_ms, b_by = bound_ms(4 * (live * D + E + N * D), live * D)
         cases.append(dict(
             shape=f'E={E} D={D} N={N}', max_abs_err=err,
             ms=cuda_ms(lambda: scatter.segment_sum_cuda(msg, dst, N)),
@@ -190,7 +192,9 @@ def phase_kernels(calc, batch, n_real_edge):
         x = randn(E, layout.dim_x)
         sh = randn(E, layout.dim_sh)
         w = randn(E, layout.dim_w)
-        leg_bytes = 4 * E * (layout.dim_x + layout.dim_sh + layout.dim_w)
+        # x/sh/w rows of padded edges are never needed: the agg sum ends
+        # at the last live edge and multi's outputs there are zero
+        leg_bytes = 4 * live * (layout.dim_x + layout.dim_sh + layout.dim_w)
 
         got = agg_cuda(x, sh, w, dst, layout, N)
         want = agg_plain(x, sh, w, dst, layout, N)

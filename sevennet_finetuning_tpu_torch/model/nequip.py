@@ -36,7 +36,7 @@ from ..ops.gate import GateSpec, apply_gate, gate_spec
 from ..ops.linear import LinearSpec, apply_linear, linear_spec
 from ..ops.mlp import mlp_apply
 from ..ops.radial import bessel_basis, poly_cutoff, xplor_cutoff
-from ..ops.scatter import aggregate_messages, gather_rows, scatter_rows
+from ..ops.scatter import gather_rows, scatter_rows, segment_sum_sorted
 from ..ops.spherical import spherical_harmonics
 from ..ops.tensor_product import TensorProductSpec, uvu_tp_spec
 from ..ops.util import safe_norm
@@ -375,7 +375,7 @@ def energy_network(
     cap('onehot_to_feature_x', x)
 
     # --- interaction blocks (collate batches are dst-sorted) ---
-    src_perm = data.get(K.EDGE_SRC_PERM)
+    src_perm = data[K.EDGE_SRC_PERM]
     for blk in spec.blocks:
         x = _run_one_block(blk, p, x, onehot, emb, edge_attr,
                            edge_src, edge_dst, n_node, cap, src_perm)
@@ -391,8 +391,8 @@ def energy_network(
     batch = data[K.BATCH]
     batch_ids = torch.where(data[K.NODE_MASK] > 0, batch,
                             torch.full_like(batch, n_graph))
-    out[K.PRED_TOTAL_ENERGY] = aggregate_messages(
-        atomic_e[:, None], batch_ids, n_graph, True)[:, 0]
+    out[K.PRED_TOTAL_ENERGY] = segment_sum_sorted(
+        atomic_e[:, None], batch_ids, n_graph)[:, 0]
     return out
 
 
@@ -411,8 +411,8 @@ def apply_model(model: NequIP,
 
     # idx[0] is ascending by the collate contract; the src-side scatter
     # rides the kernel via the precomputed src-sort permutation
-    pf = aggregate_messages(fij, idx[0], n_node, True)
-    nf = scatter_rows(fij, idx[1], n_node, perm=data.get(K.EDGE_SRC_PERM))
+    pf = segment_sum_sorted(fij, idx[0], n_node)
+    nf = scatter_rows(fij, idx[1], n_node, data[K.EDGE_SRC_PERM])
     out[K.PRED_FORCE] = pf - nf
 
     # per-edge virial, Voigt (xx, yy, zz, xy, yz, zx), summed per graph
@@ -428,6 +428,6 @@ def apply_model(model: NequIP,
     batch_of_edge = torch.where(
         dst < n_node, data[K.BATCH][_clamp(dst, n_node)],
         torch.full_like(dst, n_graph))
-    virial = aggregate_messages(voigt, batch_of_edge, n_graph, True)
+    virial = segment_sum_sorted(voigt, batch_of_edge, n_graph)
     out[K.PRED_STRESS] = -virial / data[K.CELL_VOLUME][:, None]
     return {k: v.detach() for k, v in out.items()}

@@ -8,18 +8,15 @@ on CPU tensors.  Destinations >= n (the padding sentinel) are dropped.
 
 - ``segment_sum_sorted``: the kernel as an autograd Function; its
   backward is the gather ``ct[dst]`` with zeros at the sentinel.
-- ``aggregate_messages``: the dispatching entry of the model.
 - ``scatter_rows``: scatter-add by an unsorted index given the static
-  permutation that sorts it (collate's ``EDGE_SRC_PERM``): permute, then
-  the sorted kernel.
+  permutation that sorts it (collate's ``EDGE_SRC_PERM``, required):
+  permute, then the sorted kernel.
 - ``gather_rows``: ``x[idx]`` (clamped, as a JAX gather) whose backward is
   ``scatter_rows``, which DROPS the cotangents of out-of-range (padded)
   rows; exact for the model because EDGE_MASK zeroes padded messages.
 """
 
 from __future__ import annotations
-
-from typing import Optional
 
 import torch
 
@@ -88,19 +85,10 @@ def segment_sum_sorted(msg: torch.Tensor, dst: torch.Tensor,
     return SegmentSumSorted.apply(msg, dst, n_rows)
 
 
-def aggregate_messages(msg: torch.Tensor, dst: torch.Tensor, n_node: int,
-                       sorted_dst: bool) -> torch.Tensor:
-    if sorted_dst:
-        return segment_sum_sorted(msg, dst, n_node)
-    return segment_sum_plain(msg, dst, n_node)
-
-
 def scatter_rows(values: torch.Tensor, idx: torch.Tensor, n_rows: int,
-                 perm: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``out[idx[e]] += values[e]`` for unsorted ``idx``; with ``perm``
-    (idx[perm] ascending) the sum runs on the sorted kernel."""
-    if perm is None:
-        return segment_sum_plain(values, idx, n_rows)
+                 perm: torch.Tensor) -> torch.Tensor:
+    """``out[idx[e]] += values[e]`` for unsorted ``idx``, given ``perm``
+    with idx[perm] ascending: the sum runs on the sorted kernel."""
     perm = perm.long()
     return segment_sum_sorted(values[perm], idx[perm], n_rows)
 
@@ -119,9 +107,8 @@ class GatherRows(torch.autograd.Function):
 
 
 def gather_rows(x: torch.Tensor, idx: torch.Tensor,
-                perm: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``x[idx]`` (out-of-range idx clamps to the last row); with ``perm``
-    the backward drops out-of-range cotangents and rides the kernel."""
-    if perm is None:
-        return x[idx.clamp(max=x.shape[0] - 1).long()]
+                perm: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` (out-of-range idx clamps to the last row); ``perm``
+    sorts ``idx``, so the backward drops out-of-range cotangents and
+    rides the kernel."""
     return GatherRows.apply(x, idx, perm)

@@ -49,7 +49,7 @@ class _Unpickler(pickle.Unpickler):
             f'checkpoint references {module}.{name}, which is not loaded')
 
 
-def load_checkpoint(path: str) -> Dict:
+def load_checkpoint(path: str) -> dict:
     """Load a pickle checkpoint of the JAX package, optimizer state
     dropped."""
     with open(path, 'rb') as f:
