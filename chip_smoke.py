@@ -3,19 +3,22 @@
 
     python3 chip_smoke.py
 
-Drives ``sevennet_finetuning_tpu_torch`` (never JAX) through five phases
+Drives ``sevennet_finetuning_tpu_torch`` (never JAX) through six phases
 and exits non-zero if any fails:
 
 1. build   -- compile every CUDA kernel of ``csrc/`` (one nvcc each, in
               parallel) and print the build time;
 2. kernels -- call each kernel's wrapper at main-path shapes (a batch-8
               collate of ft900.extxyz; the conv layouts of blocks 0, 1
-              and 4 of SevenNet-0; segment sums at D = 1, 6 and 480) and
-              hold it against its plain PyTorch version:
+              and 4 of SevenNet-0; segment sums at D = 1, 6 and 480; the
+              double backward's gagg of 3 terms and gmulti of 6 jobs in 3
+              groups, and without its sh group; cg_multi with one job
+              each of xn, shn, wn, and with xn + wn) and hold it against
+              its plain PyTorch version:
               max|kernel - plain| <= 2e-6 * max|plain|.  Times come from
               CUDA events after warm-up; the bound is the larger of bytes
               over 3.35 TB/s and fp32 operations over 67 TFLOP/s (H100
-              SXM data sheet);
+              SXM data sheet), counted at the live edges;
 3. serve   -- ``Calculator.from_checkpoint`` on the in-repo SevenNet-0
               checkpoint answers each structure of ft.extxyz; results are
               held against the committed JAX-CPU golden file (energy rel
@@ -25,11 +28,29 @@ and exits non-zero if any fails:
 4. batch   -- ``apply_model`` on one batch-8 collate of ft900.extxyz:
               ms per batch and edges/s;
 5. profile -- torch.profiler over one request and one batch-8 forward:
-              device busy share and device time by kernel.
+              device busy share and device time by kernel;
+6. train   -- the reEWC fine-tune ``Trainer`` on SevenNet-0 at full width
+              and depth (recipe of experiments/ft_reewc_900, constant LR
+              1e-4): 2 steps on the 12-atom structure of ft.extxyz against
+              ``golden/train_ft12_jax_cpu.npz`` (loss terms and every
+              leaf's first-step gradient), then 3 rehearsal iterations at
+              batch 8 against ``golden/train_ft900_jax_cpu.npz`` (per-step
+              loss terms, every leaf's first-step gradient and the
+              rehearsal epoch's metrics); every train
+              step must launch agg 5, multi 10, gagg 5, gmulti 5 and
+              segment-sum 13 times.  Prints ms per step and per rehearsal
+              iteration, edges/s, peak memory and the device busy share.
 
 Before the last line it prints the card's name and power limit and a
 JSON line with every kernel's numbers; the last line is
 ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --f64-reference
+
+builds the kernels and then only takes the train phase's first six batch-8
+steps twice, in float32 on the card and in float64 on the host CPU, and
+prints how far the card's and the JAX-CPU golden's loss trajectories and
+first-step gradients lie from the float64 ones (several minutes of CPU).
 """
 
 import json
@@ -44,6 +65,11 @@ CKPT = ROOT / 'experiments/ft_reewc_900/conv_out/checkpoint_best.pth'
 FT = ROOT / 'experiments/ft_reewc/data/ft.extxyz'
 FT900 = ROOT / 'experiments/ft_reewc_900/data/ft900.extxyz'
 GOLDEN = PKG / 'golden/ft_extxyz_jax_cpu.npz'
+GOLDEN_FT12 = PKG / 'golden/train_ft12_jax_cpu.npz'
+GOLDEN_FT900 = PKG / 'golden/train_ft900_jax_cpu.npz'
+REPLAY900 = ROOT / 'experiments/ft_reewc_900/data/replay900.extxyz'
+FISHER = ROOT / 'experiments/ft_reewc/fisher_out/fisher_sevenn.pt'
+OPT_PARAMS = ROOT / 'experiments/ft_reewc/fisher_out/opt_params_sevenn.pt'
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12        # H100 SXM data sheet, non-tensor fp32
@@ -60,7 +86,50 @@ SOURCES = {
     'cg_multi': dict(
         source='sevennet_finetuning_tpu_torch/csrc/cg_multi.cu',
         replaces='sevennet_finetuning_tpu/ops/fused_conv_bwd_kernel.py:478'),
+    'cg_gagg': dict(
+        source='sevennet_finetuning_tpu_torch/csrc/cg_gagg.cu',
+        replaces='sevennet_finetuning_tpu/ops/fused_conv_agg_kernel.py:330'),
+    'cg_gmulti': dict(
+        source='sevennet_finetuning_tpu_torch/csrc/cg_gmulti.cu',
+        replaces='sevennet_finetuning_tpu/ops/fused_conv_bwd_kernel.py:650'),
 }
+# launches of one reEWC train step (PERF.md explains each count)
+TRAIN_CENSUS = {'cg_agg': 5, 'cg_multi': 10, 'cg_gagg': 5, 'cg_gmulti': 5,
+                'segment_sum': 13}
+TRAIN_TERMS = ('Total', 'Energy', 'Force', 'Stress', 'EWC')
+# per-step loss: the first step within 1e-4 of the JAX total (float32 sums
+# in another order through the double backward); later steps within
+# TRAJ_TOL -- adam's first step moves every leaf by about +-lr whatever the
+# size of its gradient, so a gradient element that is zero up to rounding
+# may move either way in the two packages (PERF.md gives the measurement)
+STEP0_TOL = 1e-4
+TRAJ_TOL = 5e-2
+# first-step gradients, per leaf, relative to the leaf's max|g|: on the
+# 12-atom structure 1e-3 (float32 sums in another order through the double
+# backward).  At batch 8 the gradient of the converged checkpoint is a sum
+# over eight structures whose contributions largely cancel (max|g| 1e-7 to
+# 1e-4), so the same absolute rounding is a larger share of it.  The
+# float64 run (--f64-reference, PERF.md) puts every other leaf of the card
+# within 1.2e-2 of float64 and of the JAX golden within 2.1e-2, and card
+# against JAX within 9.2e-3 but for the three leaves named below: 2e-2
+GRAD_TOL = {'ft12': 1e-3, 'ft900': 2e-2}
+# leaves with their own limit, each about twice its card-vs-JAX reading.
+# ft12: the atomic-energy shift's gradient is the per-atom energy residual,
+# which float32 resolves to ~1e-2 relative.  ft900 (readings against
+# float64 as card / JAX): the last denominator's gradient (max|g| 2e-7) is
+# rounding, 0.16 / 0.21, card vs JAX 6.5e-2; the energy scale 1.2e-2 /
+# 2.9e-2, card vs JAX 2.6e-2; the energy readout 6.0e-3 / 2.1e-2, card vs
+# JAX 2.1e-2 -- the JAX golden is the one farther from float64
+GRAD_TOL_LEAF = {
+    'ft12': {('rescale_atomic_energy', 'shift'): 2e-2},
+    'ft900': {('4_convolution', 'denominator'): 1e-1,
+              ('rescale_atomic_energy', 'scale'): 5e-2,
+              ('reduce_hidden_to_energy', 'w0'): 4e-2}}
+# each raw loss term (not weighted by its share of the total) at the
+# checkpoint's parameters, batch 8: within 2e-3 of its JAX value (readings
+# up to 4.7e-4, the energy term's float32 residual; ft12's 12-atom energy
+# term is too small to resolve and is held by the total-weighted check)
+RAW_TERM_TOL = 2e-3
 
 
 def log(*args):
@@ -141,11 +210,12 @@ def phase_kernels(calc, batch, n_real_edge):
     from sevennet_finetuning_tpu_torch import keys as K
     from sevennet_finetuning_tpu_torch.ops import scatter
     from sevennet_finetuning_tpu_torch.ops.cg_tables import (
-        agg_table, multi_table)
+        agg_table, gagg_table, gmulti_table, multi_table)
     from sevennet_finetuning_tpu_torch.ops.fused_conv import layout_from_spec
     from sevennet_finetuning_tpu_torch.ops.fused_conv_agg import (
         agg_cuda, agg_plain)
     from sevennet_finetuning_tpu_torch.ops.fused_conv_multi import (
+        _JOB_LEGS, gagg_cuda, gagg_plain, gmulti_cuda, gmulti_plain,
         multi_cuda, multi_plain)
 
     dev = calc.device
@@ -185,8 +255,8 @@ def phase_kernels(calc, batch, n_real_edge):
             library_ms=cuda_ms(library), bound_ms=b_ms, bound_by=b_by))
     rows['segment_sum'] = cases
 
-    # --- agg / multi at the layouts of blocks 0, 1 and 4 ---
-    agg_cases, multi_cases = [], []
+    # --- agg / multi / gagg / gmulti at the layouts of blocks 0, 1, 4 ---
+    agg_cases, multi_cases, gagg_cases, gmulti_cases = [], [], [], []
     for t in (0, 1, 4):
         layout = layout_from_spec(calc.spec.blocks[t].conv_tp)
         x = randn(E, layout.dim_x)
@@ -194,7 +264,14 @@ def phase_kernels(calc, batch, n_real_edge):
         w = randn(E, layout.dim_w)
         # x/sh/w rows of padded edges are never needed: the agg sum ends
         # at the last live edge and multi's outputs there are zero
-        leg_bytes = 4 * live * (layout.dim_x + layout.dim_sh + layout.dim_w)
+        dims = {'x': layout.dim_x, 'sh': layout.dim_sh, 'w': layout.dim_w}
+        leg_bytes = 4 * live * sum(dims.values())
+
+        def job_leg_bytes(jobs):
+            # the legs the jobs read: xn needs sh and w, shn x and w, wn x
+            # and sh (cg_multi.cu stages all three whatever the jobs)
+            return 4 * live * sum(dims[leg] for leg in
+                                  {leg for j in jobs for leg in _JOB_LEGS[j]})
 
         got = agg_cuda(x, sh, w, dst, layout, N)
         want = agg_plain(x, sh, w, dst, layout, N)
@@ -220,7 +297,7 @@ def phase_kernels(calc, batch, n_real_edge):
         err = compare(f'cg_multi block {t} {jobs}', got, want)
         tab = multi_table(layout, jobs)
         b_ms, b_by = bound_ms(
-            leg_bytes + 4 * E + 4 * N * layout.dim_msg
+            job_leg_bytes(jobs) + 4 * E + 4 * N * layout.dim_msg
             + 4 * E * sum(tab.out_dims) + 16 * tab.terms.shape[0],
             live * 4 * tab.terms.shape[0])
         multi_cases.append(dict(
@@ -231,8 +308,89 @@ def phase_kernels(calc, batch, n_real_edge):
             plain_ms=cuda_ms(lambda: multi_plain(ybar, x, sh, w, dst, jobs,
                                                  layout, N), iters=5),
             library_ms=None, bound_ms=b_ms, bound_by=b_by))
+
+        # single-job multi: the counterpart of bwd_pallas (row 4); then
+        # xn + wn, the outer backward's jobs without the shn cotangent that
+        # the train step computes but does not need
+        for sub, label in ((('xn',), 'single job xn'),
+                           (('shn',), 'single job shn'),
+                           (('wn',), 'single job wn'),
+                           (('xn', 'wn'), 'jobs xn+wn (no shn)')):
+            got = multi_cuda(ybar, x, sh, w, dst, sub, layout, N)
+            want = multi_plain(ybar, x, sh, w, dst, sub, layout, N)
+            err = compare(f'cg_multi block {t} {sub}', got, want)
+            tab = multi_table(layout, sub)
+            b_ms, b_by = bound_ms(
+                job_leg_bytes(sub) + 4 * E + 4 * N * layout.dim_msg
+                + 4 * E * sum(tab.out_dims) + 16 * tab.terms.shape[0],
+                live * 4 * tab.terms.shape[0])
+            multi_cases.append(dict(
+                shape=f'block {t} {label}: E={E} N={N}',
+                max_abs_err=err,
+                ms=cuda_ms(lambda: multi_cuda(ybar, x, sh, w, dst, sub,
+                                              layout, N)),
+                plain_ms=cuda_ms(lambda: multi_plain(
+                    ybar, x, sh, w, dst, sub, layout, N), iters=5),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by))
+
+        # the double backward at this block: cotangents of xn / shn / wn
+        cx = randn(E, layout.dim_x)
+        cs = randn(E, layout.dim_sh)
+        cw = randn(E, layout.dim_w)
+        pool = [x, sh, w, cx, cs, cw]
+        pool_dims = tuple(p.shape[1] for p in pool)
+
+        def pool_bytes(used):
+            # the live rows of the pool arrays that the terms / jobs read
+            return 4 * live * sum(pool_dims[i] for i in set(used))
+
+        terms = ((0, 1, 5), (0, 4, 2), (3, 1, 2))
+        got = gagg_cuda(pool, dst, terms, layout, N)
+        want = gagg_plain(pool, dst, terms, layout, N)
+        err = compare(f'cg_gagg block {t}', got, want)
+        n_terms = int(gagg_table(layout, terms, pool_dims)[0][-1])
+        b_ms, b_by = bound_ms(
+            pool_bytes(i for term in terms for i in term)
+            + 4 * E + 4 * N * layout.dim_msg + 16 * n_terms,
+            live * (4 * n_terms + 3 * layout.dim_msg))
+        gagg_cases.append(dict(
+            shape=f'block {t} 3 terms: E={E} N={N}', max_abs_err=err,
+            ms=cuda_ms(lambda: gagg_cuda(pool, dst, terms, layout, N)),
+            plain_ms=cuda_ms(lambda: gagg_plain(pool, dst, terms, layout, N),
+                             iters=5),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by))
+
+        # CGNodeMulti.backward's jobs; then without the sh group, whose
+        # cotangent the train step computes but does not need
+        full = ((('x', 1, 5, 'x'), ('x', 4, 2, 'x'), ('sh', 0, 5, 'sh'),
+                 ('sh', 3, 2, 'sh'), ('w', 0, 4, 'w'), ('w', 3, 1, 'w')),
+                ('x', 'sh', 'w'))
+        no_sh = (tuple(j for j in full[0] if j[3] != 'sh'), ('x', 'w'))
+        for label, (jobs, groups) in (('6 jobs x/sh/w', full),
+                                      ('4 jobs x/w (no sh)', no_sh)):
+            got = gmulti_cuda(ybar, pool, dst, jobs, groups, layout, N)
+            want = gmulti_plain(ybar, pool, dst, jobs, groups, layout, N)
+            err = compare(f'cg_gmulti block {t} {label}', got, want)
+            gidx = {g: i for i, g in enumerate(groups)}
+            tab = gmulti_table(layout, tuple((m, b, c, gidx[g])
+                                             for m, b, c, g in jobs),
+                               len(groups), pool_dims)
+            b_ms, b_by = bound_ms(
+                pool_bytes(i for _, b, c, _ in jobs for i in (b, c))
+                + 4 * E + 4 * N * layout.dim_msg
+                + 4 * E * sum(tab.out_dims) + 16 * tab.terms.shape[0],
+                live * 4 * tab.terms.shape[0])
+            gmulti_cases.append(dict(
+                shape=f'block {t} {label}: E={E} N={N}', max_abs_err=err,
+                ms=cuda_ms(lambda: gmulti_cuda(ybar, pool, dst, jobs, groups,
+                                               layout, N)),
+                plain_ms=cuda_ms(lambda: gmulti_plain(
+                    ybar, pool, dst, jobs, groups, layout, N), iters=5),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by))
     rows['cg_agg'] = agg_cases
     rows['cg_multi'] = multi_cases
+    rows['cg_gagg'] = gagg_cases
+    rows['cg_gmulti'] = gmulti_cases
 
     for name, cases in rows.items():
         for c in cases:
@@ -361,6 +519,355 @@ def phase_profile(calc, batch):
             log(f'  {ms:9.4f} ms {count:5d}x  {key[:90]}')
 
 
+def new_trainer(device='cuda', dtype=None):
+    """A Trainer on SevenNet-0 from the checkpoint under the reEWC recipe
+    the golden files were made with (constant LR 1e-4)."""
+    from sevennet_finetuning_tpu_torch.train.checkpoint import (
+        load_pytree, model_from_checkpoint)
+    from sevennet_finetuning_tpu_torch.train.recipe import (
+        reewc_recipe_config)
+    from sevennet_finetuning_tpu_torch.train.trainer import Trainer
+
+    model, config = model_from_checkpoint(str(CKPT), device=device)
+    if dtype is not None:
+        model = model.to(dtype)
+    return Trainer(model, reewc_recipe_config(config, FISHER, OPT_PARAMS),
+                   fisher=load_pytree(str(FISHER)),
+                   opt_params=load_pytree(str(OPT_PARAMS)), device=device)
+
+
+def check_terms(label, got, gold, i, weights, tol, raw_tol=None):
+    """The step's total within tol; each weighted term within tol of the
+    total; with raw_tol, each term within raw_tol of its own JAX value."""
+    total = abs(float(gold['Total'][i]))
+    errs = {k: abs(float(got[k]) - float(gold[k][i])) * weights.get(k, 1.0)
+            / total for k in TRAIN_TERMS}
+    worst = max(errs.values())
+    # each term against its own JAX value: a small term (stress at weight
+    # 0.01, EWC) carries little of the total
+    raw = {k: abs(float(got[k]) / float(gold[k][i]) - 1)
+           for k in TRAIN_TERMS[1:]}
+    raw_limit = '' if raw_tol is None else f' (limit {raw_tol:g})'
+    log(f'  {label} step {i}: total {float(got["Total"]):.9e} (JAX '
+        f'{float(gold["Total"][i]):.9e}), worst rel err {worst:.2e} '
+        f'({max(errs, key=errs.get)}; limit {tol:g}); per term rel '
+        + ', '.join(f'{k} {v:.2e}' for k, v in raw.items()) + raw_limit)
+    if worst > tol:
+        raise AssertionError(f'{label} step {i} loss terms disagree with '
+                             f'the golden file: {errs}')
+    if raw_tol is not None and max(raw.values()) > raw_tol:
+        raise AssertionError(f'{label} step {i} raw loss terms disagree '
+                             f'with the golden file: {raw}')
+    return worst
+
+
+def check_grads(label, trainer, gold):
+    """The last step's gradient of every leaf against the golden file's
+    first-step gradient: within GRAD_TOL x max|g| of the leaf (the leaves
+    of GRAD_TOL_LEAF within their own limit).  Also counts elements whose
+    sign differs (|g| > 1e-8 on either side)."""
+    import numpy as np
+
+    errs, flips, n, sq_err, sq = [], 0, 0, 0.0, 0.0
+    for key in gold.files:
+        if not key.startswith('grad/'):
+            continue
+        _, g, name = key.split('/')
+        want = gold[key]
+        got = trainer.params[g][name].grad.cpu().numpy()
+        scale = max(float(np.abs(want).max()), 1e-30)
+        rel = float(np.abs(got - want).max()) / scale
+        tol = GRAD_TOL_LEAF[label].get((g, name), GRAD_TOL[label])
+        errs.append((rel, tol, g, name, scale))
+        sq_err += float(np.sum((got.astype(np.float64) - want) ** 2))
+        sq += float(np.sum(want.astype(np.float64) ** 2))
+        big = (np.abs(want) > 1e-8) | (np.abs(got) > 1e-8)
+        flips += int((big & (np.sign(want) != np.sign(got))).sum())
+        n += want.size
+    errs.sort(key=lambda e: -e[0] / e[1])
+    log(f'  {label} first-step gradients of {n} parameters: relative L2 '
+        f'error {(sq_err / sq) ** 0.5:.2e}; {flips} elements above 1e-8 '
+        'differ in sign; worst leaves (rel err / limit):')
+    for rel, tol, g, name, scale in errs[:6]:
+        log(f'    {g}/{name}: {rel:.2e} / {tol:g} (max|g| {scale:.3e})')
+    bad = [e for e in errs if e[0] > e[1]]
+    if bad:
+        raise AssertionError(f'{label} first-step gradients disagree with '
+                             f'the golden file: {bad}')
+
+
+def ft900_batches(trainer, gold):
+    """The golden file's batches on the trainer's device: batch-8 loaders
+    over the first 24 structures of ft900.extxyz and replay900.extxyz,
+    unshuffled; returns (loader, memloader, train batches, memory
+    batches)."""
+    from sevennet_finetuning_tpu_torch import keys as K
+    from sevennet_finetuning_tpu_torch.data.dataset import (
+        GraphDataset, Loader)
+    from sevennet_finetuning_tpu_torch.data.readers import read_extxyz
+
+    spec = trainer.spec
+    tm = dict(spec.type_map)
+    loader = Loader(GraphDataset.from_structures(
+        read_extxyz(str(FT900))[:24], spec.cutoff, tm), BATCH)
+    memloader = Loader(GraphDataset.from_structures(
+        read_extxyz(str(REPLAY900))[:24], spec.cutoff, tm), BATCH)
+    if loader.n_edge != int(gold['n_edge_slots']):
+        raise AssertionError(f'edge slots {loader.n_edge} != golden '
+                             f'{int(gold["n_edge_slots"])}')
+    tb = [trainer.place_batch(b) for b in loader]
+    mb = [trainer.place_batch(b) for b in memloader]
+    real = [int(b[K.EDGE_MASK].sum()) for pair in zip(tb, mb) for b in pair]
+    if real != [int(v) for v in gold['real_edges']]:
+        raise AssertionError(f'real edges {real} != golden '
+                             f'{list(gold["real_edges"])}')
+    return loader, memloader, tb, mb
+
+
+def step_census(trainer, batch, acc):
+    """One train step with the launch counts set to 0 just before it and
+    read just after; returns (acc, terms, counts, ms)."""
+    import torch
+
+    from sevennet_finetuning_tpu_torch.ops import _cuda
+
+    torch.cuda.synchronize()
+    _cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    acc, terms = trainer.train_step(batch, acc)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = {k: _cuda.LAUNCHES[k] for k in _cuda.SOURCES}
+    if counts != TRAIN_CENSUS:
+        raise AssertionError(f'train step launches {counts}, expected '
+                             f'{TRAIN_CENSUS}')
+    return acc, terms, counts, ms
+
+
+def phase_train():
+    """The reEWC train step at full width against the JAX-CPU goldens;
+    returns the launch counts of one train step."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sevennet_finetuning_tpu_torch import keys as K
+    from sevennet_finetuning_tpu_torch.data.dataset import (
+        GraphDataset, Loader)
+    from sevennet_finetuning_tpu_torch.data.readers import read_extxyz
+    from sevennet_finetuning_tpu_torch.model.nequip import apply_model
+    from sevennet_finetuning_tpu_torch.ops import _cuda
+    from sevennet_finetuning_tpu_torch.train.metrics import init_accumulators
+
+    # --- 2 steps on the 12-atom structure: terms and first-step grads ---
+    trainer = new_trainer()
+    spec = trainer.spec
+    tm = dict(spec.type_map)
+    weights = {ls.name: ls.weight for ls in trainer.loss_specs}
+    gold = np.load(GOLDEN_FT12)
+    s12 = [s for s in read_extxyz(str(FT)) if len(s) == 12]
+    b12 = trainer.place_batch(next(iter(Loader(
+        GraphDataset.from_structures(s12, spec.cutoff, tm), 1))))
+    acc = init_accumulators(trainer.metric_specs, trainer.device)
+    for i in range(2):
+        acc, terms, _, _ = step_census(trainer, b12, acc)
+        check_terms('ft12', terms, gold, i, weights, STEP0_TOL)
+        if i == 0:
+            check_grads('ft12', trainer, gold)
+
+    # --- 3 rehearsal iterations at batch 8 ---
+    gold = np.load(GOLDEN_FT900)
+    trainer = new_trainer()
+    loader, memloader, tb, mb = ft900_batches(trainer, gold)
+    order = [b for pair in zip(tb, mb) for b in pair]
+    real = [int(b[K.EDGE_MASK].sum()) for b in order]
+    # every batch's loss at the checkpoint's parameters
+    for i, b in enumerate(order):
+        out = apply_model(trainer.model, b)
+        with torch.no_grad():
+            total, terms = trainer.loss_fn(trainer.params, out)
+        check_terms('ft900 eval', dict(terms, Total=total),
+                    {k: gold[f'eval/{k}'] for k in TRAIN_TERMS}, i, weights,
+                    STEP0_TOL, RAW_TERM_TOL)
+    accs = [init_accumulators(trainer.metric_specs, trainer.device)
+            for _ in range(2)]
+    for i, b in enumerate(order):
+        accs[i % 2], terms, counts, _ = step_census(trainer, b, accs[i % 2])
+        if i == 0:
+            check_terms('ft900', terms, gold, i, weights, STEP0_TOL,
+                        RAW_TERM_TOL)
+        else:
+            check_terms('ft900', terms, gold, i, weights, TRAJ_TOL)
+        if i == 0:
+            check_grads('ft900', trainer, gold)
+    step_metrics = trainer._finalize(*accs)
+
+    # the user's entry point: one rehearsal epoch from a fresh trainer
+    # gives the same steps on the same device: its metrics equal the step
+    # loop's (the kernels are deterministic); the JAX epoch metrics are
+    # printed beside them
+    trainer_b = new_trainer()
+    torch.cuda.synchronize()
+    _cuda.LAUNCHES.clear()
+    train_m, mem_m = trainer_b.run_one_epoch_rehearsal(loader, memloader)
+    torch.cuda.synchronize()
+    epoch_counts = {k: _cuda.LAUNCHES[k] for k in _cuda.SOURCES}
+    want_counts = {k: 2 * len(tb) * v for k, v in TRAIN_CENSUS.items()}
+    if epoch_counts != want_counts:
+        raise AssertionError(f'rehearsal epoch launches {epoch_counts}, '
+                             f'expected {want_counts}')
+    for kind, got, loop in (('train', train_m, step_metrics[0]),
+                            ('mem', mem_m, step_metrics[1])):
+        for key, v in got.items():
+            want = float(gold[f'{kind}/{key}'])
+            log(f'  rehearsal epoch {kind} {key}: {v:.9e} (step loop '
+                f'{loop[key]:.9e}; JAX {want:.9e}, rel '
+                f'{abs(v - want) / abs(want):.2e})')
+            if abs(v - loop[key]) > 1e-6 * abs(loop[key]):
+                raise AssertionError(f'rehearsal epoch {kind} {key} differs '
+                                     'from the same steps taken one by one')
+
+    # --- timing: more rehearsal iterations on the same batches ---
+    step_ms, iter_ms, peaks = [], [], []
+    for _ in range(3):
+        for t, m in zip(tb, mb):
+            pair = 0.0
+            for b in (t, m):
+                torch.cuda.reset_peak_memory_stats()
+                accs[0], _, _, ms = step_census(trainer, b, accs[0])
+                peaks.append(torch.cuda.max_memory_allocated())
+                step_ms.append(ms)
+                pair += ms
+            iter_ms.append(pair)
+    med_step = sorted(step_ms)[len(step_ms) // 2]
+    med_iter = sorted(iter_ms)[len(iter_ms) // 2]
+    log(f'[train] batch 8, {loader.n_edge} edge slots, real edges per step '
+        f'{real}: median {med_step:.3f} ms per train step, {med_iter:.3f} ms '
+        f'per rehearsal iteration (train + memory step), '
+        f'{3 * sum(real) / sum(step_ms) * 1e3:.1f} edges/s over '
+        f'{len(step_ms)} timed steps; peak memory '
+        f'{max(peaks) / 2**30:.3f} GiB')
+
+    # --- profile: one rehearsal iteration ---
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in (tb[0], mb[0]):
+            accs[0], _ = trainer.train_step(b, accs[0])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.count, _self_device_us(e) / 1e3)
+            for e in prof.key_averages()
+            if str(getattr(e, 'device_type', '')).endswith('CUDA')
+            and _self_device_us(e) > 0]
+    if rows:
+        busy = sum(r[2] for r in rows)
+        log(f'[profile] rehearsal iteration: wall {wall:.3f} ms under the '
+            f'profiler, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%),'
+            f' {sum(r[1] for r in rows)} device ops')
+        for key, count, ms in sorted(rows, key=lambda r: -r[2])[:14]:
+            log(f'  {ms:9.4f} ms {count:5d}x  {key[:90]}')
+    else:
+        log('[profile] rehearsal iteration: device time not measured (the '
+            'profiler recorded no device events)')
+    return counts
+
+
+def _rel_l2(got, want):
+    import numpy as np
+
+    num = sum(float(np.sum((got[k] - want[k]) ** 2)) for k in want)
+    den = sum(float(np.sum(want[k] ** 2)) for k in want)
+    return (num / den) ** 0.5
+
+
+# the runs of f64_reference: (label, device, dtype name)
+F64_RUNS = (('card f32', 'cuda', 'float32'), ('cpu f64', 'cpu', 'float64'))
+
+
+def _leaf_rel(got, want):
+    """max|got - want| / max|want| of one leaf."""
+    import numpy as np
+
+    return float(np.abs(got - want).max()) / max(float(np.abs(want).max()),
+                                                 1e-30)
+
+
+def f64_reference(n_steps=6):
+    """The first ``n_steps`` ft900 rehearsal steps of the train phase (same
+    batches, same recipe), taken in float32 on the card and in float64 on
+    the host CPU (the kernels' plain versions): how far the card's and the
+    JAX-CPU golden's float32 loss terms, step by step, and first-step
+    gradients, leaf by leaf, lie from the float64 ones."""
+    import numpy as np
+    import torch
+
+    from sevennet_finetuning_tpu_torch.train.metrics import init_accumulators
+
+    gold = np.load(GOLDEN_FT900)
+    runs = {'JAX-CPU f32': (
+        [{k: float(gold[k][i]) for k in TRAIN_TERMS}
+         for i in range(n_steps)],
+        {k: gold[k].astype(np.float64) for k in gold.files
+         if k.startswith('grad/')})}
+    for label, device, dtype_name in F64_RUNS:
+        dtype = getattr(torch, dtype_name)
+        torch.set_default_dtype(dtype)
+        t0 = time.perf_counter()
+        trainer = new_trainer(device, dtype)
+        _, _, tb, mb = ft900_batches(trainer, gold)
+        order = [b for pair in zip(tb, mb) for b in pair][:n_steps]
+        acc = init_accumulators(trainer.metric_specs, trainer.device)
+        rows, grads = [], None
+        for b in order:
+            b = {k: v.to(dtype) if v.is_floating_point() else v
+                 for k, v in b.items()}
+            acc, terms = trainer.train_step(b, acc)
+            rows.append({k: float(terms[k]) for k in TRAIN_TERMS})
+            if grads is None:
+                grads = {f'grad/{g}/{n}': p.grad.double().cpu().numpy()
+                         for g, names in trainer.params.items()
+                         for n, p in names.items()}
+        runs[label] = (rows, grads)
+        log(f'[f64] {label}: {n_steps} steps in '
+            f'{time.perf_counter() - t0:.1f} s, totals '
+            f'{[r["Total"] for r in rows]}')
+    torch.set_default_dtype(torch.float32)
+    ref_rows, ref_g = runs['cpu f64']
+    card_rows, card_g = runs['card f32']
+    jax_rows, jax_g = runs['JAX-CPU f32']
+    for label, g in (('card f32', card_g), ('JAX-CPU f32', jax_g)):
+        log(f'[f64] {label} vs cpu f64: first-step gradient relative L2 '
+            f'{_rel_l2(g, ref_g):.3e}')
+    log(f'[f64] card f32 vs JAX-CPU f32: first-step gradient relative L2 '
+        f'{_rel_l2(card_g, jax_g):.3e}')
+
+    # every step's raw loss terms: float64, card and JAX, and the card's
+    # and JAX's relative distance from float64
+    log('[f64] raw loss terms per step: cpu f64 | card f32 (rel to f64) | '
+        'JAX-CPU f32 (rel to f64)')
+    for i, ref in enumerate(ref_rows):
+        for k in TRAIN_TERMS:
+            c, j, r = card_rows[i][k], jax_rows[i][k], ref[k]
+            log(f'  step {i} {k:6s}: {r:.9e} | {c:.9e} '
+                f'({abs(c - r) / abs(r):.2e}) | {j:.9e} '
+                f'({abs(j - r) / abs(r):.2e})')
+
+    # every leaf of the first-step gradient: max-abs error over the
+    # float64 leaf's max|g|, for the card and JAX, and card against JAX as
+    # the train phase's check_grads measures it (over JAX's max|g|)
+    log('[f64] first-step gradient per leaf (max-abs err / max|g|): '
+        'max|g| f64 | card vs f64 | JAX vs f64 | card vs JAX')
+    leaves = []
+    for key in sorted(ref_g):
+        leaves.append((_leaf_rel(card_g[key], jax_g[key]), key,
+                       float(np.abs(ref_g[key]).max()),
+                       _leaf_rel(card_g[key], ref_g[key]),
+                       _leaf_rel(jax_g[key], ref_g[key])))
+    for cj, key, scale, cf, jf in sorted(leaves, reverse=True):
+        log(f'  {key[5:]:36s} {scale:.3e} | {cf:.2e} | {jf:.2e} | {cj:.2e}')
+
+
 def card_line():
     try:
         out = subprocess.run(
@@ -388,27 +895,42 @@ def main():
     log(f'[device] {torch.cuda.get_device_name(0)} | {card} | torch '
         f'{torch.__version__} cuda {torch.version.cuda}')
     phase_build()
+    if sys.argv[1:] == ['--f64-reference']:
+        f64_reference()
+        return 0
     calc = Calculator.from_checkpoint(str(CKPT), device='cuda')
     batch, n_real_edge = batch8(calc)
     rows = phase_kernels(calc, batch, n_real_edge)
-    counts = phase_serve(calc)
+    serve_counts = phase_serve(calc)
     phase_batch(calc, batch, n_real_edge)
     phase_profile(calc, batch)
+    del calc
+    train_counts = phase_train()
 
     # one row per kernel at its interior-block / widest shape; every
-    # measured shape is under "cases"
-    main_case = {'segment_sum': 2, 'cg_agg': 1, 'cg_multi': 1}
+    # measured shape is under "cases".  "launches" is one reEWC train
+    # step's (this slice's main path), "launches_serve" the five serve
+    # requests' total
+    for name in SOURCES:
+        if train_counts.get(name, 0) == 0:
+            raise AssertionError(f'{name} was never launched on the train '
+                                 'path')
+    for name in ('segment_sum', 'cg_agg', 'cg_multi'):
+        if serve_counts.get(name, 0) == 0:
+            raise AssertionError(f'{name} was never launched on the serve '
+                                 'path')
     kernels = []
     for name, cases in rows.items():
-        c = cases[main_case[name]]
+        c = (cases[2] if name == 'segment_sum' else
+             next(c for c in cases if c['shape'].startswith('block 1')))
         kernels.append(dict(
             name=name, route='cuda', **SOURCES[name],
-            launches=counts.get(name, 0), max_abs_err=c['max_abs_err'],
-            ms=c['ms'], plain_ms=c['plain_ms'], bound_ms=c['bound_ms'],
+            launches=train_counts[name],
+            launches_serve=serve_counts.get(name, 0),
+            max_abs_err=c['max_abs_err'], ms=c['ms'],
+            plain_ms=c['plain_ms'], bound_ms=c['bound_ms'],
             bound_by=c['bound_by'], library_ms=c['library_ms'],
             shape=c['shape'], cases=cases))
-        if counts.get(name, 0) == 0:
-            raise AssertionError(f'{name} was never launched on the path')
     print(card, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

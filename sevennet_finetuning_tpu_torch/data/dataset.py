@@ -1,0 +1,249 @@
+"""Dataset container, statistics, and the padded-batch loader.
+
+Port of ``sevennet_finetuning_tpu/data/dataset.py`` for one device:
+label-grouped lists of numpy graphs and a loader that emits statically
+padded batches (capacities computed once per dataset).  The shuffle draws
+from ``np.random.default_rng(seed)`` exactly as the JAX package's loader
+does, so both packages visit the same batches from the same seed.  The
+sharded (data-parallel) branches come with the DDP slice.
+
+Statistics follow the reference:
+- per-atom energy mean / std (shift candidates)
+- force RMS, species-wise force RMS (scale candidates)
+- species reference energies by Ridge(alpha=0.1) regression on
+  compositions (reference: sevenn/train/dataset.py:279-309)
+- average neighbor count (conv denominator)
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from .. import keys as K
+from ..model.graph import bucket_capacity, collate, structure_to_graph
+from .vasp import Structure
+
+
+class GraphDataset:
+    def __init__(self, graphs: Optional[List[Dict]] = None):
+        self.graphs: List[Dict] = list(graphs) if graphs else []
+
+    def __len__(self):
+        return len(self.graphs)
+
+    @staticmethod
+    def from_structures(
+        structures: Sequence[Structure],
+        cutoff: float,
+        type_map: Dict[int, int],
+        label: str = K.LABEL_NONE,
+    ) -> 'GraphDataset':
+        gs = [structure_to_graph(s, cutoff, type_map) for s in structures]
+        for g, s in zip(gs, structures):
+            g[K.USER_LABEL] = s.info.get('label', label)
+        return GraphDataset(gs)
+
+    # ---- statistics -----------------------------------------------------
+    def _per_atom_energies(self) -> List[float]:
+        return [float(g[K.ENERGY][0]) / int(g[K.NUM_ATOMS][0])
+                for g in self.graphs if np.isfinite(g[K.ENERGY][0])]
+
+    def per_atom_energy_mean(self) -> float:
+        return float(np.mean(self._per_atom_energies()))
+
+    def per_atom_energy_std(self) -> float:
+        return float(np.std(self._per_atom_energies()))
+
+    def force_rms(self) -> float:
+        sq = [np.square(g[K.FORCE][np.isfinite(g[K.FORCE])])
+              for g in self.graphs]
+        return float(np.sqrt(np.mean(np.concatenate([s.ravel()
+                                                     for s in sq]))))
+
+    def avg_num_neigh(self) -> float:
+        counts = []
+        for g in self.graphs:
+            counts.extend(np.unique(g[K.EDGE_IDX][0], return_counts=True)[1])
+        return float(np.mean(counts))
+
+    def species_ref_energies(self, num_species: int) -> np.ndarray:
+        """Ridge(alpha=0.1, no intercept) fit of E on composition counts
+        over species present (reference: sevenn/train/dataset.py:279-309)."""
+        c = np.zeros((len(self.graphs), num_species))
+        y = np.zeros(len(self.graphs))
+        for i, g in enumerate(self.graphs):
+            c[i] = np.bincount(g[K.ATOM_TYPE], minlength=num_species)
+            y[i] = g[K.ENERGY][0]
+        present = ~np.all(c == 0, axis=0)
+        cr = c[:, present]
+        A = cr.T @ cr + 0.1 * np.eye(cr.shape[1])
+        coef = np.linalg.solve(A, cr.T @ y)
+        full = np.zeros(num_species)
+        full[present] = coef
+        return full
+
+    def species_force_rms(self, num_species: int) -> np.ndarray:
+        sums = np.zeros(num_species)
+        counts = np.zeros(num_species)
+        for g in self.graphs:
+            for sp in range(num_species):
+                m = g[K.ATOM_TYPE] == sp
+                if m.any():
+                    sums[sp] += np.square(g[K.FORCE][m]).sum()
+                    counts[sp] += m.sum() * 3
+        out = np.sqrt(np.divide(sums, np.maximum(counts, 1)))
+        out[counts == 0] = 1.0
+        return out
+
+    # ---- splitting ------------------------------------------------------
+    def divide(self, ratio: float, seed: int = 0
+               ) -> Tuple['GraphDataset', 'GraphDataset']:
+        """(train, valid) split; valid fraction = ratio (reference:
+        sevenn/train/dataset.py:187-236)."""
+        if ratio > 0.5:
+            raise ValueError('data_divide_ratio must not exceed 0.5')
+        n = len(self.graphs)
+        idx = np.random.default_rng(seed).permutation(n)
+        n_valid = int(n * ratio)
+        if n_valid == 0:
+            raise ValueError(
+                f'validation split is empty ({n} structures x ratio '
+                f'{ratio}); add data, raise data_divide_ratio, or provide '
+                'a validation set')
+        valid = [self.graphs[i] for i in idx[:n_valid]]
+        train = [self.graphs[i] for i in idx[n_valid:]]
+        return GraphDataset(train), GraphDataset(valid)
+
+
+class Loader:
+    """Iterable over statically padded batches, for one device.
+
+    Capacities are fixed at construction (max batch totals + headroom,
+    bucketed) so every batch of an epoch has the same shapes.
+    ``cache=True`` collates every batch once and replays them across
+    epochs: membership is fixed (size-balanced packing), only batch
+    ORDER reshuffles (``epoch_order``); the Trainer puts such batches on
+    the device once.
+    """
+
+    def __init__(
+        self,
+        dataset: GraphDataset,
+        batch_size: int,
+        shuffle: bool = False,
+        seed: int = 0,
+        n_node: Optional[int] = None,
+        n_edge: Optional[int] = None,
+        n_graph: Optional[int] = None,
+        cache: bool = False,
+    ):
+        self.graphs = dataset.graphs
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.rng = np.random.default_rng(seed)
+        self.cache = cache
+        self._cached: Optional[List[Dict]] = None
+
+        # size-balanced packing: with fixed membership (cache=True) the
+        # batches equalize per-batch edge totals (greedy first-fit
+        # decreasing), so the padded capacity shrinks toward the mean
+        self._balanced_order: Optional[np.ndarray] = None
+        if cache and len(self.graphs) > batch_size:
+            self._balanced_order = self._balance_membership()
+
+        if n_node is None or n_edge is None:
+            nodes = np.array([len(g[K.POS]) for g in self.graphs])
+            edges = np.array([g[K.EDGE_IDX].shape[1] for g in self.graphs])
+            if self._balanced_order is not None:
+                # exact maxima over the packed batches: membership is
+                # frozen, so no headroom margin is needed
+                self.n_node = n_node or bucket_capacity(
+                    self._packed_max(nodes), margin=1.0)
+                self.n_edge = n_edge or bucket_capacity(
+                    self._packed_max(edges), margin=1.0, quantum=256)
+            else:
+                self.n_node = n_node or bucket_capacity(
+                    self._worst_batch_total(nodes))
+                self.n_edge = n_edge or bucket_capacity(
+                    self._worst_batch_total(edges))
+        else:
+            self.n_node = n_node
+            self.n_edge = n_edge
+        # n_graph may exceed batch_size so loaders over different sets
+        # share one batch shape (collate pads graph slots)
+        self.n_graph = max(batch_size, n_graph or 0)
+
+    def _balance_membership(self) -> np.ndarray:
+        """Pack graphs into batches of ``batch_size`` equalizing edge
+        totals: sort descending by edge count, give each graph to the
+        non-full batch with the smallest running total.  Returns a
+        permutation whose consecutive ``batch_size`` chunks are the
+        batches."""
+        edges = np.array([g[K.EDGE_IDX].shape[1] for g in self.graphs])
+        n_batches = math.ceil(len(edges) / self.batch_size)
+        slots = np.zeros(n_batches, np.int64)
+        totals = np.zeros(n_batches, np.int64)
+        members: List[List[int]] = [[] for _ in range(n_batches)]
+        for i in np.argsort(-edges):
+            open_b = np.flatnonzero(slots < self.batch_size)
+            j = open_b[np.argmin(totals[open_b])]
+            members[j].append(int(i))
+            slots[j] += 1
+            totals[j] += edges[i]
+        return np.concatenate([np.array(m, np.int64) for m in members])
+
+    def _packed_max(self, vals: np.ndarray) -> int:
+        order = self._balanced_order
+        mx = 0
+        for lo in range(0, len(order), self.batch_size):
+            mx = max(mx, int(vals[order[lo:lo + self.batch_size]].sum()))
+        return max(mx, 1)
+
+    def _worst_batch_total(self, vals: np.ndarray) -> int:
+        """Upper bound of sum(vals[i] for i in batch) over any batch."""
+        if len(vals) == 0:
+            return self.batch_size
+        v = np.sort(vals)[::-1]
+        if len(v) >= self.batch_size:
+            return int(v[:self.batch_size].sum())
+        return int(v.sum() + (self.batch_size - len(v)) * v[0])
+
+    def __len__(self):
+        return math.ceil(len(self.graphs) / self.batch_size)
+
+    def __iter__(self) -> Iterator[Dict]:
+        if self.cache:
+            self.materialize()
+            for i in self.epoch_order():
+                yield self._cached[i]
+            return
+        yield from self._iter_fresh()
+
+    def materialize(self) -> List[Dict]:
+        """Collate every batch once and keep them (membership fixed by the
+        size-balanced packing; ``epoch_order`` reshuffles their order)."""
+        if self._cached is None:
+            self._cached = list(
+                self._iter_fresh(order=self._balanced_order))
+        return self._cached
+
+    def epoch_order(self) -> np.ndarray:
+        """Order in which this epoch visits the materialized batches."""
+        order = np.arange(len(self.materialize()))
+        if self.shuffle:
+            self.rng.shuffle(order)
+        return order
+
+    def _iter_fresh(self, order: Optional[np.ndarray] = None
+                    ) -> Iterator[Dict]:
+        if order is None:
+            order = np.arange(len(self.graphs))
+            if self.shuffle:
+                self.rng.shuffle(order)
+        for i in range(0, len(order), self.batch_size):
+            chunk = [self.graphs[j] for j in order[i:i + self.batch_size]]
+            yield collate(chunk, n_node=self.n_node, n_edge=self.n_edge,
+                          n_graph=self.n_graph)

@@ -44,6 +44,7 @@ def build_model_spec(config: Dict) -> ModelSpec:
     edge = EdgeEmbedSpec(
         cutoff=cutoff,
         bessel_num=bessel_num,
+        bessel_trainable=rb.get('trainable_coeff', True),
         cutoff_function=cf_name,
         poly_cut_p=cf.get(K.POLY_CUT_P, 6),
         cutoff_on=cf.get(K.CUTOFF_ON, None),
@@ -107,6 +108,7 @@ def build_model_spec(config: Dict) -> ModelSpec:
                 act_gate=act_gate,
                 self_connection=self_connection,
                 biases=biases,
+                train_denominator=config.get(K.TRAIN_DENOMINATOR, False),
             )
         )
         irreps_x = blocks[-1].irreps_out
@@ -141,5 +143,6 @@ def build_model_spec(config: Dict) -> ModelSpec:
         readout=readout,
         shift=shift,
         scale=scale,
+        train_shift_scale=config.get(K.TRAIN_SHIFT_SCALE, False),
         use_bias_in_linear=biases,
     )

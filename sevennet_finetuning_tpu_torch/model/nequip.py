@@ -9,7 +9,10 @@ Port of ``sevennet_finetuning_tpu/model/nequip.py`` for the serving path:
   so ``load_jax_params`` copies a JAX parameter dict across one to one;
 - ``energy_network`` computes atomic/total energies from edge vectors;
   ``apply_model`` adds forces and the per-graph virial/stress through one
-  ``torch.autograd.grad`` of the total energy over the edge vectors.
+  ``torch.autograd.grad`` of the total energy over the edge vectors, and
+  returns detached results (serving); ``apply_model_train`` keeps the
+  graph (``create_graph=True``), so a loss on the forces can be
+  differentiated once more for the parameter gradient (training).
 
 The convolution is the fused, dst-sorted branch of the JAX package
 (gather by source, then ``conv_aggregate``).  Other interaction types,
@@ -46,6 +49,7 @@ from ..ops.util import safe_norm
 class EdgeEmbedSpec:
     cutoff: float
     bessel_num: int = 8
+    bessel_trainable: bool = True
     cutoff_function: str = 'poly_cut'      # 'poly_cut' | 'XPLOR'
     poly_cut_p: int = 6
     cutoff_on: Optional[float] = None      # for XPLOR
@@ -71,6 +75,7 @@ class BlockSpec:
     act_radial: str
     si2: LinearSpec
     gate: GateSpec
+    train_denominator: bool = False
 
 
 @dataclass(frozen=True)
@@ -91,6 +96,7 @@ class ModelSpec:
     readout: ReadoutSpec
     shift: Tuple[float, ...]               # len 1 or num_species
     scale: Tuple[float, ...]
+    train_shift_scale: bool = False
     use_bias_in_linear: bool = False
 
     @property
@@ -112,6 +118,7 @@ def build_nequip_block(
     act_gate: Dict[str, str],
     self_connection: str,
     biases: bool,
+    train_denominator: bool = False,
 ) -> BlockSpec:
     """Assemble one interaction block (reference:
     sevenn/nn/interaction_blocks.py:22-86)."""
@@ -144,6 +151,7 @@ def build_nequip_block(
         act_radial=act_radial,
         si2=si2,
         gate=gate,
+        train_denominator=train_denominator,
     )
 
 
@@ -227,6 +235,21 @@ def load_jax_params(model: NequIP, params_np) -> NequIP:
     return model
 
 
+def trainable_mask(spec: ModelSpec) -> Dict[str, Dict[str, bool]]:
+    """Group -> name -> whether the leaf receives optimizer updates (JAX
+    ``trainable_mask``): the Bessel coefficients, the convolution
+    denominators and the atomic-energy shift/scale follow the spec's
+    flags; every other leaf trains."""
+    mask = {group: dict.fromkeys(names, True)
+            for group, names in param_shapes(spec).items()}
+    mask['edge_embedding']['bessel_coeffs'] = spec.edge.bessel_trainable
+    for blk in spec.blocks:
+        mask[f'{blk.t}_convolution']['denominator'] = blk.train_denominator
+    mask['rescale_atomic_energy']['shift'] = spec.train_shift_scale
+    mask['rescale_atomic_energy']['scale'] = spec.train_shift_scale
+    return mask
+
+
 def _linear_w(p) -> list:
     return [p[f'w{i}'] for i in range(len(p))]
 
@@ -235,11 +258,20 @@ def _linear_w(p) -> list:
 # forward
 # ---------------------------------------------------------------------------
 
+# the inverse of EDGE_SRC_PERM, built once per batch by batch_to_torch
+EDGE_SRC_INV_PERM = '_edge_src_inv_perm'
+
+
 def batch_to_torch(batch: Dict[str, np.ndarray],
                    device) -> Dict[str, torch.Tensor]:
-    """A collate batch as tensors on ``device`` (host-only keys dropped)."""
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()
-            if k not in (K.INFO, K.USER_LABEL)}
+    """A collate batch as tensors on ``device`` (host-only keys dropped),
+    with the inverse of the src-sort permutation added."""
+    out = {k: torch.as_tensor(v, device=device) for k, v in batch.items()
+           if k not in (K.INFO, K.USER_LABEL, K.DATA_WEIGHT)}
+    perm = np.asarray(batch[K.EDGE_SRC_PERM])
+    out[EDGE_SRC_INV_PERM] = torch.as_tensor(
+        np.argsort(perm, kind='stable').astype(perm.dtype), device=device)
+    return out
 
 
 def _clamp(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -259,7 +291,7 @@ def compute_edge_vec(data: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def _run_one_block(blk, p, x, onehot, emb, edge_attr, edge_src,
-                   edge_dst, n_node, cap, src_perm):
+                   edge_dst, n_node, cap, src_perm, src_inv):
     t = blk.t
     if blk.self_connection == 'linear':
         sc = apply_linear(blk.sc_spec,
@@ -281,7 +313,7 @@ def _run_one_block(blk, p, x, onehot, emb, edge_attr, edge_src,
     n_w = len(blk.radial_hs) - 1
     w_edge = mlp_apply([conv_p[f'weight_nn_w{i}'] for i in range(n_w)],
                        emb, blk.act_radial)
-    x_src = gather_rows(x, edge_src, src_perm)
+    x_src = gather_rows(x, edge_src, src_perm, src_inv)
     x = conv_aggregate(layout_from_spec(blk.conv_tp), x_src, edge_attr,
                        w_edge, edge_dst, n_node)
     x = x / conv_p['denominator']
@@ -376,9 +408,11 @@ def energy_network(
 
     # --- interaction blocks (collate batches are dst-sorted) ---
     src_perm = data[K.EDGE_SRC_PERM]
+    src_inv = data[EDGE_SRC_INV_PERM]
     for blk in spec.blocks:
         x = _run_one_block(blk, p, x, onehot, emb, edge_attr,
-                           edge_src, edge_dst, n_node, cap, src_perm)
+                           edge_src, edge_dst, n_node, cap, src_perm,
+                           src_inv)
     out[K.NODE_FEATURE] = x
 
     # --- readout + rescale + masked reduce ---
@@ -396,23 +430,17 @@ def energy_network(
     return out
 
 
-def apply_model(model: NequIP,
-                data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Full forward: energies + forces + stress via one autograd.grad of
-    the total energy over edge vectors (reference:
-    sevenn/nn/force_output.py:158-215)."""
+def _forces_and_stress(out, data, edge_vec, fij):
+    """Forces (sum of edge forces at both ends) and the per-graph virial
+    stress from fij = dE/d(edge_vec)."""
     idx = data[K.EDGE_IDX]
     n_node = data[K.POS].shape[0]
     n_graph = data[K.CELL].shape[0]
-    edge_vec = compute_edge_vec(data).detach().requires_grad_(True)
-    with torch.enable_grad():
-        out = energy_network(model, data, edge_vec)
-        fij, = torch.autograd.grad(out[K.PRED_TOTAL_ENERGY].sum(), edge_vec)
-
     # idx[0] is ascending by the collate contract; the src-side scatter
     # rides the kernel via the precomputed src-sort permutation
     pf = segment_sum_sorted(fij, idx[0], n_node)
-    nf = scatter_rows(fij, idx[1], n_node, data[K.EDGE_SRC_PERM])
+    nf = scatter_rows(fij, idx[1], n_node, data[K.EDGE_SRC_PERM],
+                      data[EDGE_SRC_INV_PERM])
     out[K.PRED_FORCE] = pf - nf
 
     # per-edge virial, Voigt (xx, yy, zz, xy, yz, zx), summed per graph
@@ -430,4 +458,31 @@ def apply_model(model: NequIP,
         torch.full_like(dst, n_graph))
     virial = segment_sum_sorted(voigt, batch_of_edge, n_graph)
     out[K.PRED_STRESS] = -virial / data[K.CELL_VOLUME][:, None]
+    return out
+
+
+def apply_model(model: NequIP,
+                data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Full forward for serving: energies + forces + stress via one
+    autograd.grad of the total energy over edge vectors (reference:
+    sevenn/nn/force_output.py:158-215); results are detached."""
+    edge_vec = compute_edge_vec(data).detach().requires_grad_(True)
+    with torch.enable_grad():
+        out = energy_network(model, data, edge_vec)
+        fij, = torch.autograd.grad(out[K.PRED_TOTAL_ENERGY].sum(), edge_vec)
+    out = _forces_and_stress(out, data, edge_vec, fij)
     return {k: v.detach() for k, v in out.items()}
+
+
+def apply_model_train(model: NequIP,
+                      data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Full forward for training: as ``apply_model``, but the force pass
+    keeps its graph (``create_graph=True``) and nothing is detached, so
+    a loss on energies, forces and stress backpropagates to the
+    parameters through a double backward of the convolution (the JAX
+    package's ``value_and_grad`` over ``apply_model``)."""
+    edge_vec = compute_edge_vec(data).detach().requires_grad_(True)
+    out = energy_network(model, data, edge_vec)
+    fij, = torch.autograd.grad(out[K.PRED_TOTAL_ENERGY].sum(), edge_vec,
+                               create_graph=True)
+    return _forces_and_stress(out, data, edge_vec, fij)

@@ -29,7 +29,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
-SOURCES = ('segment_sum', 'cg_agg', 'cg_multi')
+SOURCES = ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg', 'cg_gmulti')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -46,7 +46,23 @@ SIGNATURES = {
     'cg_multi': ('cg_multi_f32',
                  (_P,) * 5 + (_P, _P, _P, _I) + (_P, _P, _I, _I)
                  + (_P, _P, _P, _I, _I, _I) + (_I,) * 7 + (_P,)),
+    # pool pointers / dims and output pointers / dims are host arrays
+    'cg_gagg': ('cg_gagg_f32',
+                (_P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P)),
+    'cg_gmulti': ('cg_gmulti_f32',
+                  (_P, _P, _P, _I) + (_P,) * 5 + (_I,) + (_P, _P, _I, _I)
+                  + (_P, _P, _I) + (_I,) * 4 + (_P,)),
 }
+
+
+def host_ptrs(tensors) -> ctypes.Array:
+    """A host array of the tensors' device pointers (the kernels copy
+    it into a by-value launch argument)."""
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def host_ints(values) -> ctypes.Array:
+    return (ctypes.c_int * len(values))(*values)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

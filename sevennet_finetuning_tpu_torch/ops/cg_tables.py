@@ -18,6 +18,14 @@ tables are built once per ``CGLayout`` from its nonzero Wigner-3j terms
   chunks of at most ``SH_CHUNK``; each chunk is one item writing a
   partial sum, and a second pass adds a column's partials in order --
   a fixed-order reduction, so results do not vary from run to run.
+- gagg (the double backward's ybar cotangent, a sum of agg terms):
+  row = [pool_0 | pool_1 | ...]; a CSR over (msg column, agg term), so
+  the kernel keeps one sum per term and adds them left to right.
+- gmulti (every edge-side cotangent of the double backward): row =
+  [g | pool_0 | pool_1 | ...]; jobs (emit mode, two pool legs, group)
+  write grouped outputs.  An xn or wn item of a group is a list of
+  segments, one per job in job order, each summed on its own and then
+  added; shn columns are chunked as in multi, job after job.
 """
 
 from __future__ import annotations
@@ -135,6 +143,119 @@ def multi_table(layout: CGLayout, jobs: Tuple[str, ...]) -> MultiTable:
         red_out=np.asarray(red_out if red_out else [0], np.int32),
         n_part=n_part,
         out_dims=tuple(getattr(layout, _JOB_DIM[j]) for j in jobs),
+    )
+
+
+def _pool_offsets(pool_dims: Tuple[int, ...], base: int = 0):
+    offs = [base]
+    for d in pool_dims[:-1]:
+        offs.append(offs[-1] + d)
+    return offs
+
+
+@functools.lru_cache(maxsize=None)
+def gagg_table(layout: CGLayout, terms: Tuple[Tuple[int, int, int], ...],
+               pool_dims: Tuple[int, ...]) -> Tuple[np.ndarray, np.ndarray]:
+    """CSR over (msg column, agg term): ``start[col * n_terms + t]`` ..
+    ``start[col * n_terms + t + 1]`` are term t's entries of column col,
+    indexing row = [pool_0 | pool_1 | ...]; ``terms`` are (x, sh, w) pool
+    indices."""
+    start, entries = agg_table(layout)
+    P = _pool_offsets(pool_dims)
+    S0 = layout.dim_x
+    W0 = layout.dim_x + layout.dim_sh
+    cols: List[list] = []
+    for col in range(layout.dim_msg):
+        ents = entries[start[col]:start[col + 1]]
+        coef = ents[:, 3].copy().view(np.float32)
+        for (xi, si, wi) in terms:
+            cols.append([
+                (P[xi] + int(a), P[si] + int(b) - S0, P[wi] + int(c) - W0,
+                 float(cf))
+                for (a, b, c, _), cf in zip(ents, coef)])
+    return _pack(cols)
+
+
+@dataclass(frozen=True)
+class GMultiTable:
+    item_seg: np.ndarray     # [n_items + 1] into the segments
+    seg_start: np.ndarray    # [n_seg + 1] into the terms
+    item_out: np.ndarray     # [n_items]: >= 0 output column, < 0 partial
+    terms: np.ndarray        # [T, 4]
+    red_start: np.ndarray    # [n_red + 1] into the partials
+    red_out: np.ndarray      # [n_red] output column of each reduction
+    n_part: int
+    out_dims: Tuple[int, ...]
+
+
+_EMIT_DIM = {'x': 'dim_x', 'sh': 'dim_sh', 'w': 'dim_w'}
+
+
+@functools.lru_cache(maxsize=None)
+def gmulti_table(layout: CGLayout, jobs: Tuple[Tuple[str, int, int, int], ...],
+                 n_groups: int, pool_dims: Tuple[int, ...]) -> GMultiTable:
+    """Work items for grouped jobs (emit mode, b pool index, c pool index,
+    group index), row = [g | pool_0 | ...]; outputs are the groups'
+    columns concatenated in group order."""
+    P = _pool_offsets(pool_dims, base=layout.dim_msg)
+    emit = [None] * n_groups
+    per_job: List[List[list]] = []
+    for (m, bi, ci, grp) in jobs:
+        if emit[grp] not in (None, m):
+            raise ValueError(f'group {grp} mixes emit modes {emit[grp]}, {m}')
+        emit[grp] = m
+        cols: List[list] = [[] for _ in range(getattr(layout, _EMIT_DIM[m]))]
+        for g, p, k, i, j, c, u in _iter_terms(layout):
+            ga = p.msg_off + k * g.mul + u
+            xo = g.x_off + i * g.mul + u
+            so = g.sh_off + j
+            wo = p.w_off + u
+            if m == 'x':
+                cols[xo].append((P[bi] + so, ga, P[ci] + wo, c))
+            elif m == 'sh':
+                cols[so].append((P[bi] + xo, ga, P[ci] + wo, c))
+            else:
+                cols[wo].append((P[bi] + xo, P[ci] + so, ga, c))
+        per_job.append(cols)
+    if None in emit:
+        raise ValueError('a group has no job')
+
+    segs: List[list] = []
+    item_seg = [0]
+    item_out: List[int] = []
+    red_start = [0]
+    red_out: List[int] = []
+    n_part = 0
+    base = 0
+    for grp, m in enumerate(emit):
+        mine = [per_job[q] for q, job in enumerate(jobs) if job[3] == grp]
+        dim = getattr(layout, _EMIT_DIM[m])
+        for col in range(dim):
+            if m != 'sh':
+                segs.extend(cols[col] for cols in mine)
+                item_seg.append(len(segs))
+                item_out.append(base + col)
+                continue
+            for cols in mine:
+                terms = cols[col]
+                for s in range(0, len(terms), SH_CHUNK):
+                    segs.append(terms[s:s + SH_CHUNK])
+                    item_seg.append(len(segs))
+                    item_out.append(-(n_part + 1))
+                    n_part += 1
+            red_start.append(n_part)
+            red_out.append(base + col)
+        base += dim
+    seg_start, packed = _pack(segs)
+    return GMultiTable(
+        item_seg=np.asarray(item_seg, np.int32),
+        seg_start=seg_start,
+        item_out=np.asarray(item_out, np.int32),
+        terms=packed,
+        red_start=np.asarray(red_start, np.int32),
+        red_out=np.asarray(red_out if red_out else [0], np.int32),
+        n_part=n_part,
+        out_dims=tuple(getattr(layout, _EMIT_DIM[m]) for m in emit),
     )
 
 

@@ -7,13 +7,20 @@ ascending ``dst`` (the collate contract) runs as the CUDA kernel
 on CPU tensors.  Destinations >= n (the padding sentinel) are dropped.
 
 - ``segment_sum_sorted``: the kernel as an autograd Function; its
-  backward is the gather ``ct[dst]`` with zeros at the sentinel.
+  backward is ``gather_zero_oob``, the gather ``ct[dst]`` with zeros at
+  the sentinel, whose own backward is the segment sum again.
 - ``scatter_rows``: scatter-add by an unsorted index given the static
-  permutation that sorts it (collate's ``EDGE_SRC_PERM``, required):
-  permute, then the sorted kernel.
+  permutation that sorts it (collate's ``EDGE_SRC_PERM``) and its
+  inverse (built once per batch by ``model.nequip.batch_to_torch``):
+  permute, then the sorted kernel.  The permutation's backward gathers by
+  the inverse.
 - ``gather_rows``: ``x[idx]`` (clamped, as a JAX gather) whose backward is
   ``scatter_rows``, which DROPS the cotangents of out-of-range (padded)
   rows; exact for the model because EDGE_MASK zeroes padded messages.
+
+Every backward here calls only Functions of this module, so the family
+is closed under ``create_graph=True``: a double backward (the train
+step's force loss) stays on the kernel and runs no accumulating scatter.
 """
 
 from __future__ import annotations
@@ -59,11 +66,32 @@ def _segment_sum(msg, dst, n_rows):
     return segment_sum_plain(msg, dst, n_rows)
 
 
-def gather_zero_oob(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """values[idx] with zero rows where idx >= len(values)."""
+def _gather_zero_oob(values, idx):
     n = values.shape[0]
     out = values[idx.clamp(max=n - 1).long()]
     return out * (idx < n).to(values.dtype)[:, None]
+
+
+class GatherZeroOOB(torch.autograd.Function):
+    """values[idx] (ascending idx) with zero rows where idx >= n; the
+    backward is the sorted segment sum over the same index."""
+
+    @staticmethod
+    def forward(ctx, values, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = values.shape[0]
+        return _gather_zero_oob(values, idx)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (idx,) = ctx.saved_tensors
+        return segment_sum_sorted(ct, idx, ctx.n_rows), None
+
+
+def gather_zero_oob(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """values[idx] with zero rows where idx >= len(values); ``idx``
+    ascending (its backward rides the sorted kernel)."""
+    return GatherZeroOOB.apply(values, idx)
 
 
 class SegmentSumSorted(torch.autograd.Function):
@@ -85,30 +113,46 @@ def segment_sum_sorted(msg: torch.Tensor, dst: torch.Tensor,
     return SegmentSumSorted.apply(msg, dst, n_rows)
 
 
+class PermuteRows(torch.autograd.Function):
+    """values[perm]; the backward gathers by the inverse permutation."""
+
+    @staticmethod
+    def forward(ctx, values, perm, inv):
+        ctx.save_for_backward(perm, inv)
+        return values[perm.long()]
+
+    @staticmethod
+    def backward(ctx, ct):
+        perm, inv = ctx.saved_tensors
+        return PermuteRows.apply(ct, inv, perm), None, None
+
+
 def scatter_rows(values: torch.Tensor, idx: torch.Tensor, n_rows: int,
-                 perm: torch.Tensor) -> torch.Tensor:
+                 perm: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
     """``out[idx[e]] += values[e]`` for unsorted ``idx``, given ``perm``
-    with idx[perm] ascending: the sum runs on the sorted kernel."""
-    perm = perm.long()
-    return segment_sum_sorted(values[perm], idx[perm], n_rows)
+    with idx[perm] ascending and its inverse ``inv``: the sum runs on the
+    sorted kernel."""
+    return segment_sum_sorted(PermuteRows.apply(values, perm, inv),
+                              idx[perm.long()], n_rows)
 
 
 class GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, idx, perm):
-        ctx.save_for_backward(idx, perm)
+    def forward(ctx, x, idx, perm, inv):
+        ctx.save_for_backward(idx, perm, inv)
         ctx.n_rows = x.shape[0]
         return x[idx.clamp(max=x.shape[0] - 1).long()]
 
     @staticmethod
     def backward(ctx, ct):
-        idx, perm = ctx.saved_tensors
-        return scatter_rows(ct, idx, ctx.n_rows, perm), None, None
+        idx, perm, inv = ctx.saved_tensors
+        return (scatter_rows(ct, idx, ctx.n_rows, perm, inv),
+                None, None, None)
 
 
-def gather_rows(x: torch.Tensor, idx: torch.Tensor,
-                perm: torch.Tensor) -> torch.Tensor:
+def gather_rows(x: torch.Tensor, idx: torch.Tensor, perm: torch.Tensor,
+                inv: torch.Tensor) -> torch.Tensor:
     """``x[idx]`` (out-of-range idx clamps to the last row); ``perm``
-    sorts ``idx``, so the backward drops out-of-range cotangents and
-    rides the kernel."""
-    return GatherRows.apply(x, idx, perm)
+    sorts ``idx`` and ``inv`` inverts it, so the backward drops
+    out-of-range cotangents and rides the kernel."""
+    return GatherRows.apply(x, idx, perm, inv)

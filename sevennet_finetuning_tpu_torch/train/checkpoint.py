@@ -1,14 +1,17 @@
 """Checkpoint loading (pickle checkpoints written by the JAX package).
 
-Port of ``load_checkpoint`` / ``model_from_checkpoint`` of
-``sevennet_finetuning_tpu/train/checkpoint.py``, pickle branch only.
+Port of ``load_checkpoint`` / ``model_from_checkpoint`` / ``load_pytree``
+of ``sevennet_finetuning_tpu/train/checkpoint.py``, pickle branch only.
 
 A checkpoint's ``optimizer_state_dict`` holds optax classes
 (``optax.schedules._inject.InjectStatefulHyperparamsState``,
 ``ScaleByAdamState``, ...): a plain ``pickle.load`` would import jax and
 optax.  ``_Unpickler`` resolves only the numpy globals an array needs and
 maps every jax/optax global to an inert stub, so serving needs neither.  The
-optimizer state is then dropped; the training slice reads it again.
+optimizer state is then dropped: the port does not read optax state
+(a fine-tune resets its optimizer).  ``load_pytree`` reads the Fisher /
+anchor-parameter pickles (``fisher_sevenn.pt``, ``opt_params_sevenn.pt``:
+nested dicts of numpy arrays) through the same unpickler.
 """
 
 from __future__ import annotations
@@ -61,6 +64,12 @@ def load_checkpoint(path: str) -> dict:
         blob = _Unpickler(f).load()
     blob['optimizer_state_dict'] = None
     return blob
+
+
+def load_pytree(path: str):
+    """A pickled pytree of numpy arrays (Fisher / anchor parameters)."""
+    with open(path, 'rb') as f:
+        return _Unpickler(f).load()
 
 
 def model_from_checkpoint(path: str, device=None):

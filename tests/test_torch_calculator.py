@@ -5,6 +5,10 @@ jax-free import check.
 Tolerances: energy rel 2e-6; forces and stress max-abs rel 1e-5 (float32
 sums taken in another order over ~4,300 edges and five layers).
 
+``test_port_imports_no_jax`` serves a structure and takes a reEWC train
+step on the CPU in a fresh interpreter, then checks that neither jax,
+optax nor the JAX package was imported.
+
 The golden file (energies, forces and stress for every structure of
 ft.extxyz, computed by the JAX Calculator on the CPU) is what
 ``chip_smoke.py`` holds the GPU run against.  Regenerate it with
@@ -25,6 +29,8 @@ ROOT = Path(__file__).resolve().parent.parent
 CKPT = ROOT / 'experiments/ft_reewc_900/conv_out/checkpoint_best.pth'
 FT = ROOT / 'experiments/ft_reewc/data/ft.extxyz'
 GOLDEN = ROOT / 'sevennet_finetuning_tpu_torch/golden/ft_extxyz_jax_cpu.npz'
+FISHER = ROOT / 'experiments/ft_reewc/fisher_out/fisher_sevenn.pt'
+OPT_PARAMS = ROOT / 'experiments/ft_reewc/fisher_out/opt_params_sevenn.pt'
 
 torch.set_num_threads(2)
 
@@ -84,6 +90,20 @@ def test_port_imports_no_jax():
         f's = read_extxyz({str(FT)!r})[4]\n'
         'r = calc.calculate(s)\n'
         'assert r["forces"].shape == (len(s), 3)\n'
+        # a reEWC train step on the CPU: trainer, loss, adam, Fisher files
+        'from sevennet_finetuning_tpu_torch.data.dataset import '
+        'GraphDataset, Loader\n'
+        'from sevennet_finetuning_tpu_torch.train.checkpoint import '
+        'load_pytree, model_from_checkpoint\n'
+        'from sevennet_finetuning_tpu_torch.train.trainer import Trainer\n'
+        f'model, cfg = model_from_checkpoint({str(CKPT)!r}, device="cpu")\n'
+        'cfg["continue"] = {"fisher_information": "f", "opt_params": "o", '
+        '"ewc_lambda": 1e5}\n'
+        f'tr = Trainer(model, cfg, fisher=load_pytree({str(FISHER)!r}), '
+        f'opt_params=load_pytree({str(OPT_PARAMS)!r}), device="cpu")\n'
+        'ds = GraphDataset.from_structures([s], 5.0, dict(model.spec.type_map))\n'
+        'm = tr.run_one_epoch(Loader(ds, 1), is_train=True)\n'
+        'assert m["TotalLoss_None"] > 0, m\n'
         'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
         '("jax", "jaxlib", "optax") or m.split(".")[0] == '
         '"sevennet_finetuning_tpu")\n'

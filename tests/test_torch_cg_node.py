@@ -41,8 +41,7 @@ from sevennet_finetuning_tpu_torch.ops.fused_conv import (
     e3nn_to_stride, layout_from_spec, stride_to_e3nn)
 from sevennet_finetuning_tpu_torch.ops.fused_conv_agg import (
     agg_plain, conv_aggregate, node_mode_plain)
-from sevennet_finetuning_tpu_torch.ops.fused_conv_multi import (
-    cg_node_multi, multi_plain)
+from sevennet_finetuning_tpu_torch.ops.fused_conv_multi import multi_plain
 from sevennet_finetuning_tpu_torch.ops.tensor_product import uvu_tp_spec
 
 torch.set_num_threads(2)
@@ -180,17 +179,6 @@ def test_cg_node_agg_grads_match_jax_vjp(name, live):
         _close(g, w)
 
 
-def test_multi_backward_is_for_the_training_slice():
-    _, t_spec = _specs(SMALL)
-    tl = layout_from_spec(t_spec)
-    t = _t(_data(tl, E=9, N=4))
-    ybar = t['ybar'].clone().requires_grad_(True)
-    out = cg_node_multi(ybar, t['x'], t['sh'], t['w'], t['dst'],
-                        jobs=('xn', 'wn'), layout=tl, n_node=4)
-    with pytest.raises(NotImplementedError, match='training slice'):
-        torch.autograd.grad(out[0].sum(), ybar)
-
-
 def test_segment_sum_and_gather_rows_sentinels():
     rng = np.random.default_rng(3)
     E, N, D = 40, 9, 5
@@ -214,7 +202,8 @@ def test_segment_sum_and_gather_rows_sentinels():
     perm = torch.from_numpy(np.argsort(src, kind='stable').astype(np.int32))
     x = torch.from_numpy(rng.normal(size=(N, D)).astype(np.float32))
     x.requires_grad_(True)
-    y = scatter.gather_rows(x, torch.from_numpy(src), perm)
+    inv = torch.from_numpy(np.argsort(perm.numpy()).astype(np.int32))
+    y = scatter.gather_rows(x, torch.from_numpy(src), perm, inv)
     _close(y, x.detach().numpy()[np.minimum(src, N - 1)])
     cy = torch.from_numpy(rng.normal(size=(E, D)).astype(np.float32))
     gx, = torch.autograd.grad(y, x, cy)
