@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives ``sevennet_finetuning_tpu_torch`` (never JAX) through six phases
+Drives ``sevennet_finetuning_tpu_torch`` (never JAX) through seven phases
 and exits non-zero if any fails:
 
 1. build   -- compile every CUDA kernel of ``csrc/`` (one nvcc each, in
@@ -13,7 +13,8 @@ and exits non-zero if any fails:
               and 4 of SevenNet-0; segment sums at D = 1, 6 and 480; the
               double backward's gagg of 3 terms and gmulti of 6 jobs in 3
               groups, and without its sh group; cg_multi with one job
-              each of xn, shn, wn, and with xn + wn) and hold it against
+              each of xn, shn, wn, and with xn + wn; the per-edge cg_quad
+              in each mode msg / x / sh / w) and hold it against
               its plain PyTorch version:
               max|kernel - plain| <= 2e-6 * max|plain|.  Times come from
               CUDA events after warm-up; the bound is the larger of bytes
@@ -39,7 +40,20 @@ and exits non-zero if any fails:
               rehearsal epoch's metrics); every train
               step must launch agg 5, multi 10, gagg 5, gmulti 5 and
               segment-sum 13 times.  Prints ms per step and per rehearsal
-              iteration, edges/s, peak memory and the device busy share.
+              iteration, edges/s, peak memory and the device busy share;
+7. unsorted -- SevenNet-0 at full width and depth on the batch-8 collate
+              with every edge slot permuted (numpy seed 0), through the
+              public ``run_blocks(edges_sorted=False)``: node features,
+              energies, fij = dE/d edge_vec and a create_graph=True
+              parameter gradient of a fixed random-weighted loss on fij.
+              Held against ``golden/unsorted_ft900_jax_cpu.npz`` (energy
+              rel <= 2e-6, fij max-abs rel <= 1e-4) and against the sorted
+              path on the same graph (features <= 1e-5 x max, fij <= 1e-4
+              x max, every leaf's gradient <= 1e-3 x max|g|, the
+              convolution denominators' 2e-3); one pass must
+              launch cg_quad msg 19 / x 20 / sh 19 / w 19, segment-sum 20
+              and none of agg, multi, gagg, gmulti.  Prints ms per forward
+              plus fij, sorted and unsorted, and peak memory.
 
 Before the last line it prints the card's name and power limit and a
 JSON line with every kernel's numbers; the last line is
@@ -67,6 +81,7 @@ FT900 = ROOT / 'experiments/ft_reewc_900/data/ft900.extxyz'
 GOLDEN = PKG / 'golden/ft_extxyz_jax_cpu.npz'
 GOLDEN_FT12 = PKG / 'golden/train_ft12_jax_cpu.npz'
 GOLDEN_FT900 = PKG / 'golden/train_ft900_jax_cpu.npz'
+GOLDEN_UNSORTED = PKG / 'golden/unsorted_ft900_jax_cpu.npz'
 REPLAY900 = ROOT / 'experiments/ft_reewc_900/data/replay900.extxyz'
 FISHER = ROOT / 'experiments/ft_reewc/fisher_out/fisher_sevenn.pt'
 OPT_PARAMS = ROOT / 'experiments/ft_reewc/fisher_out/opt_params_sevenn.pt'
@@ -92,10 +107,42 @@ SOURCES = {
     'cg_gmulti': dict(
         source='sevennet_finetuning_tpu_torch/csrc/cg_gmulti.cu',
         replaces='sevennet_finetuning_tpu/ops/fused_conv_bwd_kernel.py:650'),
+    'cg_quad': dict(
+        source='sevennet_finetuning_tpu_torch/csrc/cg_quad.cu',
+        replaces='sevennet_finetuning_tpu/ops/fused_conv_kernel.py:167'),
 }
+# the kernels each path must launch (the others it must not)
+PATH_KERNELS = {
+    'serve': ('segment_sum', 'cg_agg', 'cg_multi'),
+    'train': ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg', 'cg_gmulti'),
+    'unsorted': ('segment_sum', 'cg_quad'),
+}
+# the path whose count a kernel's "launches" reports: the train step for
+# the kernels of the sorted convolution, the unsorted pass for cg_quad
+KERNEL_PATH = {name: 'train' for name in SOURCES}
+KERNEL_PATH['cg_quad'] = 'unsorted'
 # launches of one reEWC train step (PERF.md explains each count)
 TRAIN_CENSUS = {'cg_agg': 5, 'cg_multi': 10, 'cg_gagg': 5, 'cg_gmulti': 5,
-                'segment_sum': 13}
+                'segment_sum': 13, 'cg_quad': 0}
+# launches of one unsorted pass: forward, fij with create_graph=True, and
+# the parameter gradient of a loss on fij (PERF.md explains each count)
+UNSORTED_CENSUS = {'cg_agg': 0, 'cg_multi': 0, 'cg_gagg': 0, 'cg_gmulti': 0,
+                   'segment_sum': 20, 'cg_quad': 77}
+UNSORTED_MODES = {'msg': 19, 'x': 20, 'sh': 19, 'w': 19}
+# unsorted against sorted on the same graph: only the order of float32
+# sums differs (the per-edge messages are summed after a sort by dst, the
+# fused kernels sum them per node)
+UNSORTED_FEATURE_TOL = 1e-5
+UNSORTED_FIJ_TOL = 1e-4
+UNSORTED_GRAD_TOL = 1e-3
+# a convolution's denominator is one scalar whose gradient sums the whole
+# block output against its cotangent, which largely cancels: the first
+# reading on the card put 3_convolution/denominator at 1.04e-3 (every
+# other leaf at most 2.9e-6), so the denominators get about twice that
+UNSORTED_DENOMINATOR_TOL = 2e-3
+# the serving limits of PERF.md section 2
+GOLDEN_ENERGY_TOL = 2e-6
+GOLDEN_FIJ_TOL = 1e-4
 TRAIN_TERMS = ('Total', 'Energy', 'Force', 'Stress', 'EWC')
 # per-step loss: the first step within 1e-4 of the JAX total (float32 sums
 # in another order through the double backward); later steps within
@@ -211,9 +258,12 @@ def phase_kernels(calc, batch, n_real_edge):
     from sevennet_finetuning_tpu_torch.ops import scatter
     from sevennet_finetuning_tpu_torch.ops.cg_tables import (
         agg_table, gagg_table, gmulti_table, multi_table)
-    from sevennet_finetuning_tpu_torch.ops.fused_conv import layout_from_spec
+    from sevennet_finetuning_tpu_torch.ops.fused_conv import (
+        _MODE_LEGS, _MODE_OUT, layout_from_spec)
     from sevennet_finetuning_tpu_torch.ops.fused_conv_agg import (
         agg_cuda, agg_plain)
+    from sevennet_finetuning_tpu_torch.ops.fused_conv_kernel import (
+        quad_cuda, quad_plain)
     from sevennet_finetuning_tpu_torch.ops.fused_conv_multi import (
         _JOB_LEGS, gagg_cuda, gagg_plain, gmulti_cuda, gmulti_plain,
         multi_cuda, multi_plain)
@@ -257,6 +307,7 @@ def phase_kernels(calc, batch, n_real_edge):
 
     # --- agg / multi / gagg / gmulti at the layouts of blocks 0, 1, 4 ---
     agg_cases, multi_cases, gagg_cases, gmulti_cases = [], [], [], []
+    quad_cases = []
     for t in (0, 1, 4):
         layout = layout_from_spec(calc.spec.blocks[t].conv_tp)
         x = randn(E, layout.dim_x)
@@ -387,10 +438,35 @@ def phase_kernels(calc, batch, n_real_edge):
                 plain_ms=cuda_ms(lambda: gmulti_plain(
                     ybar, pool, dst, jobs, groups, layout, N), iters=5),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by))
+
+        # the per-edge family: each mode on random legs of every edge
+        # slot; the bound counts as the JAX kernel's cost_estimate does
+        # (three legs read and one written, 3 operations per scalar
+        # coupling), at the live edges
+        quad_flops = 3 * sum(len(p.nnz) * g.mul for g in layout.groups
+                             for p in g.paths)
+        for mode in ('msg', 'x', 'sh', 'w'):
+            legs = [randn(E, layout.mode_dims[leg])
+                    for leg in _MODE_LEGS[mode]]
+            got = quad_cuda(mode, *legs, layout)
+            want = quad_plain(mode, *legs, layout)
+            err = compare(f'cg_quad block {t} {mode}', got, want)
+            width = (sum(a.shape[1] for a in legs)
+                     + layout.mode_dims[_MODE_OUT[mode]])
+            b_ms, b_by = bound_ms(4 * live * width, live * quad_flops)
+            quad_cases.append(dict(
+                shape=f'block {t} {mode}: E={E} legs '
+                      f'{"/".join(str(a.shape[1]) for a in legs)}',
+                max_abs_err=err,
+                ms=cuda_ms(lambda: quad_cuda(mode, *legs, layout)),
+                plain_ms=cuda_ms(lambda: quad_plain(mode, *legs, layout),
+                                 iters=5),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by))
     rows['cg_agg'] = agg_cases
     rows['cg_multi'] = multi_cases
     rows['cg_gagg'] = gagg_cases
     rows['cg_gmulti'] = gmulti_cases
+    rows['cg_quad'] = quad_cases
 
     for name, cases in rows.items():
         for c in cases:
@@ -424,9 +500,10 @@ def phase_serve(calc):
         got = {k: _cuda.LAUNCHES[k] - before.get(k, 0)
                for k in _cuda.SOURCES}
         if (got['cg_agg'] != 5 or got['cg_multi'] != 5
-                or got['segment_sum'] < 8):
+                or got['segment_sum'] < 8 or got['cg_quad'] != 0):
             raise AssertionError(f'request {i}: launches {got}, expected '
-                                 'cg_agg 5, cg_multi 5, segment_sum >= 8')
+                                 'cg_agg 5, cg_multi 5, segment_sum >= 8, '
+                                 'cg_quad 0')
         e_rel = abs(res['energy'] - gold['energy'][i]) / abs(
             gold['energy'][i])
         f_ref = gold[f'forces_{i}']
@@ -480,11 +557,40 @@ def _self_device_us(evt):
     return 0.0
 
 
-def phase_profile(calc, batch):
-    """Device time by kernel for one 96-atom request and one batch-8
-    forward (torch.profiler); busy share = device time / wall time."""
+def profile_device(label, fn, top=12):
+    """One run of ``fn`` under torch.profiler: wall time, device busy
+    share (device time / wall time) and device time by kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # device-side events only (kernels, copies): CPU ops carry their
+    # kernels' time too and would count it twice
+    rows = [(e.key, e.count, _self_device_us(e) / 1e3)
+            for e in prof.key_averages()
+            if str(getattr(e, 'device_type', '')).endswith('CUDA')
+            and _self_device_us(e) > 0]
+    if not rows:
+        log(f'[profile] {label}: device time not measured (the profiler '
+            'recorded no device events)')
+        return
+    busy = sum(r[2] for r in rows)
+    log(f'[profile] {label}: wall {wall:.3f} ms under the profiler, '
+        f'device busy {busy:.3f} ms ({100 * busy / wall:.1f}%), '
+        f'{sum(r[1] for r in rows)} device ops')
+    for key, count, ms in sorted(rows, key=lambda r: -r[2])[:top]:
+        log(f'  {ms:9.4f} ms {count:5d}x  {key[:90]}')
+
+
+def phase_profile(calc, batch):
+    """Device time by kernel for one 96-atom request and one batch-8
+    forward."""
+    import torch
 
     from sevennet_finetuning_tpu_torch.data.readers import read_extxyz
     from sevennet_finetuning_tpu_torch.model.nequip import apply_model
@@ -495,28 +601,7 @@ def phase_profile(calc, batch):
     for label, fn in runs:
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        # device-side events only (kernels, copies): CPU ops carry their
-        # kernels' time too and would count it twice
-        rows = [(e.key, e.count, _self_device_us(e) / 1e3)
-                for e in prof.key_averages()
-                if str(getattr(e, 'device_type', '')).endswith('CUDA')
-                and _self_device_us(e) > 0]
-        busy = sum(r[2] for r in rows)
-        if not rows:
-            log(f'[profile] {label}: device time not measured (the '
-                'profiler recorded no device events)')
-            continue
-        log(f'[profile] {label}: wall {wall:.3f} ms under the profiler, '
-            f'device busy {busy:.3f} ms ({100 * busy / wall:.1f}%), '
-            f'{sum(r[1] for r in rows)} device ops')
-        for key, count, ms in sorted(rows, key=lambda r: -r[2])[:12]:
-            log(f'  {ms:9.4f} ms {count:5d}x  {key[:90]}')
+        profile_device(label, fn)
 
 
 def new_trainer(device='cuda', dtype=None):
@@ -649,7 +734,6 @@ def phase_train():
     returns the launch counts of one train step."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from sevennet_finetuning_tpu_torch import keys as K
     from sevennet_finetuning_tpu_torch.data.dataset import (
@@ -749,27 +833,192 @@ def phase_train():
         f'{max(peaks) / 2**30:.3f} GiB')
 
     # --- profile: one rehearsal iteration ---
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def iteration():
         for b in (tb[0], mb[0]):
             accs[0], _ = trainer.train_step(b, accs[0])
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.count, _self_device_us(e) / 1e3)
-            for e in prof.key_averages()
-            if str(getattr(e, 'device_type', '')).endswith('CUDA')
-            and _self_device_us(e) > 0]
-    if rows:
-        busy = sum(r[2] for r in rows)
-        log(f'[profile] rehearsal iteration: wall {wall:.3f} ms under the '
-            f'profiler, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%),'
-            f' {sum(r[1] for r in rows)} device ops')
-        for key, count, ms in sorted(rows, key=lambda r: -r[2])[:14]:
-            log(f'  {ms:9.4f} ms {count:5d}x  {key[:90]}')
-    else:
-        log('[profile] rehearsal iteration: device time not measured (the '
-            'profiler recorded no device events)')
+
+    profile_device('rehearsal iteration', iteration, top=14)
+    return counts
+
+
+def permute_edges(batch, perm):
+    """The batch with its edge slots in the order ``perm`` (dst no longer
+    ascending); the src-sort permutation no longer applies and is
+    dropped, so run_blocks sorts src itself."""
+    import torch
+
+    from sevennet_finetuning_tpu_torch import keys as K
+    from sevennet_finetuning_tpu_torch.model.nequip import EDGE_SRC_INV_PERM
+
+    p = torch.as_tensor(perm, device=batch[K.EDGE_IDX].device)
+    out = {k: v for k, v in batch.items()
+           if k not in (K.EDGE_SRC_PERM, EDGE_SRC_INV_PERM)}
+    out[K.EDGE_IDX] = batch[K.EDGE_IDX][:, p].contiguous()
+    out[K.CELL_SHIFT] = batch[K.CELL_SHIFT][p]
+    out[K.EDGE_MASK] = batch[K.EDGE_MASK][p]
+    return out
+
+
+def unsorted_energy(model, data, edge_vec):
+    """Energies per graph and the last block's node features through the
+    public ``run_blocks(edges_sorted=False)``, with energy_network's steps
+    around it."""
+    from sevennet_finetuning_tpu_torch import keys as K
+    from sevennet_finetuning_tpu_torch.model.nequip import (
+        embed_edges, embed_nodes, graph_energy, run_blocks)
+
+    spec, p = model.spec, model.params
+    idx = data[K.EDGE_IDX]
+    _, emb, attr = embed_edges(spec, p, edge_vec, data[K.EDGE_MASK])
+    onehot, x = embed_nodes(spec, p, data[K.ATOM_TYPE], edge_vec.dtype)
+    x = run_blocks(spec, p, x, onehot, emb, attr, idx[1], idx[0],
+                   data[K.POS].shape[0], edges_sorted=False)
+    return graph_energy(spec, p, x, data)[2], x
+
+
+def sorted_energy(model, data, edge_vec):
+    """The same through ``energy_network`` (dst-sorted collate batches)."""
+    from sevennet_finetuning_tpu_torch import keys as K
+    from sevennet_finetuning_tpu_torch.model.nequip import energy_network
+
+    out = energy_network(model, data, edge_vec)
+    return out[K.PRED_TOTAL_ENERGY], out[K.NODE_FEATURE]
+
+
+def force_pass(energy_fn, model, data, weights=None):
+    """(energies, node features, fij = dE/d edge_vec, grads).  With
+    ``weights`` [E, 3], fij keeps its graph (create_graph=True) and grads
+    maps every parameter leaf to the gradient of sum(weights * fij)
+    (zeros for a leaf it does not reach); else grads is None."""
+    import torch
+
+    from sevennet_finetuning_tpu_torch.model.nequip import compute_edge_vec
+
+    edge_vec = compute_edge_vec(data).detach().requires_grad_(True)
+    energy, x = energy_fn(model, data, edge_vec)
+    fij, = torch.autograd.grad(energy.sum(), edge_vec,
+                               create_graph=weights is not None)
+    grads = None
+    if weights is not None:
+        leaves = [(f'{g}/{n}', prm) for g, names in model.params.items()
+                  for n, prm in names.items()]
+        gs = torch.autograd.grad((fij * weights).sum(),
+                                 [prm for _, prm in leaves],
+                                 allow_unused=True)
+        grads = {name: torch.zeros_like(prm) if g is None else g
+                 for (name, prm), g in zip(leaves, gs)}
+    return energy.detach(), x.detach(), fij.detach(), grads
+
+
+def _max_rel(got, want):
+    """max|got - want| / max|want|."""
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def phase_unsorted(batch):
+    """SevenNet-0 on the batch-8 collate with every edge slot permuted,
+    through run_blocks(edges_sorted=False): against the JAX-CPU golden
+    file and the sorted path on the same graph; launch census; times."""
+    import numpy as np
+    import torch
+
+    from sevennet_finetuning_tpu_torch import keys as K
+    from sevennet_finetuning_tpu_torch.ops import _cuda
+    from sevennet_finetuning_tpu_torch.ops.fused_conv_kernel import (
+        MODE_LAUNCHES)
+    from sevennet_finetuning_tpu_torch.train.checkpoint import (
+        model_from_checkpoint)
+
+    gold = np.load(GOLDEN_UNSORTED)
+    E = batch[K.EDGE_IDX].shape[1]
+    perm = np.random.default_rng(int(gold['perm_seed'])).permutation(E)
+    if (E != int(gold['n_edge_slots'])
+            or not np.array_equal(perm, gold['perm'])
+            or not np.array_equal(batch[K.ATOM_TYPE].cpu().numpy(),
+                                  gold['atom_type'])):
+        raise AssertionError('the batch or its permutation differs from the '
+                             'golden file\'s')
+    model, _ = model_from_checkpoint(str(CKPT), device='cuda')
+    dev = batch[K.EDGE_IDX].device
+    data = permute_edges(batch, perm)
+    pt = torch.as_tensor(perm, device=dev)
+    weights = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (E, 3)).astype(np.float32), device=dev)
+
+    force_pass(unsorted_energy, model, data, weights[pt])   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.LAUNCHES.clear()
+    MODE_LAUNCHES.clear()
+    e_u, x_u, f_u, g_u = force_pass(unsorted_energy, model, data,
+                                    weights[pt])
+    torch.cuda.synchronize()
+    counts = {k: _cuda.LAUNCHES[k] for k in _cuda.SOURCES}
+    modes = dict(MODE_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f'[unsorted] one pass (forward, fij with create_graph, parameter '
+        f'gradient): launches {counts}, cg_quad by mode {modes}; peak '
+        f'memory {peak / 2**30:.3f} GiB')
+    if counts != UNSORTED_CENSUS or modes != UNSORTED_MODES:
+        raise AssertionError(f'unsorted pass launches {counts} {modes}, '
+                             f'expected {UNSORTED_CENSUS} {UNSORTED_MODES}')
+
+    # against the JAX-CPU golden file (same permuted graph)
+    g_e = torch.as_tensor(gold['energy'], device=dev)
+    e_rel = float(((e_u.double() - g_e).abs() / g_e.abs()).max())
+    f_rel = _max_rel(f_u, torch.as_tensor(gold['fij'], device=dev))
+    x_rel = _max_rel(x_u, torch.as_tensor(gold['features'], device=dev))
+    log(f'  vs JAX golden: energy rel {e_rel:.2e} (limit '
+        f'{GOLDEN_ENERGY_TOL:g}), fij max-abs rel {f_rel:.2e} (limit '
+        f'{GOLDEN_FIJ_TOL:g}), features max-abs rel {x_rel:.2e}')
+    if e_rel > GOLDEN_ENERGY_TOL or f_rel > GOLDEN_FIJ_TOL:
+        raise AssertionError('the unsorted path disagrees with the golden '
+                             'file')
+
+    # against the sorted path on the same graph, fij un-permuted
+    e_s, x_s, f_s, g_s = force_pass(sorted_energy, model, batch, weights)
+    x_err = _max_rel(x_u, x_s)
+    f_err = _max_rel(f_u, f_s[pt])
+    g_errs = []
+    for k in g_s:
+        scale = float(g_s[k].abs().max())
+        err = (_max_rel(g_u[k], g_s[k]) if scale > 0
+               else float(g_u[k].abs().max()))
+        tol = (UNSORTED_DENOMINATOR_TOL if k.endswith('_convolution/'
+                                                      'denominator')
+               else UNSORTED_GRAD_TOL)
+        g_errs.append((err / tol, err, tol, k, scale))
+    g_errs.sort(reverse=True)
+    log(f'  vs sorted path: energy rel '
+        f'{float(((e_u - e_s).abs() / e_s.abs()).max()):.2e}, features '
+        f'{x_err:.2e} (limit {UNSORTED_FEATURE_TOL:g}), fij {f_err:.2e} '
+        f'(limit {UNSORTED_FIJ_TOL:g}); parameter gradients of '
+        f'{len(g_s)} leaves, worst (rel err / limit, max|g|): '
+        + ', '.join(f'{k} {e:.2e} / {t:g} ({sc:.3e})'
+                    for _, e, t, k, sc in g_errs[:5]))
+    if (x_err > UNSORTED_FEATURE_TOL or f_err > UNSORTED_FIJ_TOL
+            or g_errs[0][0] > 1.0):
+        raise AssertionError('the unsorted path disagrees with the sorted '
+                             'path')
+
+    # serving-style forward + fij, unsorted and sorted in turns
+    times = {'unsorted': [], 'sorted': []}
+    runs = (('unsorted', unsorted_energy, data),
+            ('sorted', sorted_energy, batch))
+    for _ in range(5):
+        for label, fn, d in runs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            force_pass(fn, model, d)
+            torch.cuda.synchronize()
+            times[label].append((time.perf_counter() - t0) * 1e3)
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    log(f'[unsorted] batch 8, {E} edge slots: forward + fij median of 5 '
+        f'{med["unsorted"]:.3f} ms unsorted, {med["sorted"]:.3f} ms sorted '
+        f'(same run, in turns)')
+    profile_device('unsorted forward + fij',
+                   lambda: force_pass(unsorted_energy, model, data))
     return counts
 
 
@@ -905,28 +1154,29 @@ def main():
     phase_batch(calc, batch, n_real_edge)
     phase_profile(calc, batch)
     del calc
-    train_counts = phase_train()
+    path_counts = {'serve': serve_counts, 'train': phase_train(),
+                   'unsorted': phase_unsorted(batch)}
 
     # one row per kernel at its interior-block / widest shape; every
-    # measured shape is under "cases".  "launches" is one reEWC train
-    # step's (this slice's main path), "launches_serve" the five serve
-    # requests' total
-    for name in SOURCES:
-        if train_counts.get(name, 0) == 0:
-            raise AssertionError(f'{name} was never launched on the train '
-                                 'path')
-    for name in ('segment_sum', 'cg_agg', 'cg_multi'):
-        if serve_counts.get(name, 0) == 0:
-            raise AssertionError(f'{name} was never launched on the serve '
-                                 'path')
+    # measured shape is under "cases".  "launches" is the count on the
+    # path named by "path" (one train step, or one unsorted pass);
+    # "launches_per_path" holds every path's: the five serve requests'
+    # total, one train step's, one unsorted pass's
+    for path, names in PATH_KERNELS.items():
+        for name in names:
+            if path_counts[path].get(name, 0) == 0:
+                raise AssertionError(f'{name} was never launched on the '
+                                     f'{path} path')
     kernels = []
     for name, cases in rows.items():
         c = (cases[2] if name == 'segment_sum' else
              next(c for c in cases if c['shape'].startswith('block 1')))
         kernels.append(dict(
             name=name, route='cuda', **SOURCES[name],
-            launches=train_counts[name],
-            launches_serve=serve_counts.get(name, 0),
+            path=KERNEL_PATH[name],
+            launches=path_counts[KERNEL_PATH[name]][name],
+            launches_per_path={path: counts.get(name, 0)
+                               for path, counts in path_counts.items()},
             max_abs_err=c['max_abs_err'], ms=c['ms'],
             plain_ms=c['plain_ms'], bound_ms=c['bound_ms'],
             bound_by=c['bound_by'], library_ms=c['library_ms'],

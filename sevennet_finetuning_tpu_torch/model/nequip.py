@@ -14,11 +14,17 @@ Port of ``sevennet_finetuning_tpu/model/nequip.py`` for the serving path:
   graph (``create_graph=True``), so a loss on the forces can be
   differentiated once more for the parameter gradient (training).
 
-The convolution is the fused, dst-sorted branch of the JAX package
-(gather by source, then ``conv_aggregate``).  Other interaction types,
-the FCTP ('nequip') self-connection, halo exchange and remat wait for
-later slices and raise ``NotImplementedError``.  Batches are the padded
-dicts of ``model.graph`` as tensors (``batch_to_torch``).
+``run_blocks`` runs the interaction blocks with the JAX package's
+signature.  With ``edges_sorted=True`` (``energy_network``; collate
+batches are dst-sorted) each convolution is the scatter-fused branch:
+gather by source, then ``conv_aggregate``.  With ``edges_sorted=False``
+(a caller whose graph is not dst-sorted) it is the per-edge branch:
+gather by source, per-edge messages (the ``cg_quad`` kernel), then
+``aggregate_messages`` over a stable device sort of dst.  Other
+interaction types, the FCTP ('nequip') self-connection, halo exchange
+and remat wait for later slices and raise ``NotImplementedError``.
+Batches are the padded dicts of ``model.graph`` as tensors
+(``batch_to_torch``).
 """
 
 from __future__ import annotations
@@ -33,13 +39,14 @@ from torch import nn
 
 from .. import keys as K
 from ..irreps import Irreps
-from ..ops.fused_conv import layout_from_spec, stride_to_e3nn
+from ..ops.fused_conv import conv_messages, layout_from_spec, stride_to_e3nn
 from ..ops.fused_conv_agg import conv_aggregate
 from ..ops.gate import GateSpec, apply_gate, gate_spec
 from ..ops.linear import LinearSpec, apply_linear, linear_spec
 from ..ops.mlp import mlp_apply
 from ..ops.radial import bessel_basis, poly_cutoff, xplor_cutoff
-from ..ops.scatter import gather_rows, scatter_rows, segment_sum_sorted
+from ..ops.scatter import (aggregate_messages, gather_rows, inverse_perm,
+                           scatter_rows, segment_sum_sorted, sort_perm)
 from ..ops.spherical import spherical_harmonics
 from ..ops.tensor_product import TensorProductSpec, uvu_tp_spec
 from ..ops.util import safe_norm
@@ -76,6 +83,11 @@ class BlockSpec:
     si2: LinearSpec
     gate: GateSpec
     train_denominator: bool = False
+    # the JAX BlockSpec's kind fields: only nequip blocks with the CG
+    # convolution are ported ('mace', 'gaunt' and 'custom' blocks and the
+    # gaunt convolution are ROADMAP A.9)
+    block_type: str = 'nequip'
+    conv_kind: str = 'cg'
 
 
 @dataclass(frozen=True)
@@ -290,8 +302,54 @@ def compute_edge_vec(data: Dict[str, torch.Tensor]) -> torch.Tensor:
             + torch.einsum('ei,eij->ej', data[K.CELL_SHIFT], cell_of_edge))
 
 
-def _run_one_block(blk, p, x, onehot, emb, edge_attr, edge_src,
-                   edge_dst, n_node, cap, src_perm, src_inv):
+def run_blocks(spec: ModelSpec, params, x: torch.Tensor,
+               onehot: torch.Tensor, emb: torch.Tensor,
+               edge_attr: torch.Tensor, edge_src: torch.Tensor,
+               edge_dst: torch.Tensor, n_node: int, cap=None,
+               exchange_fn=None, remat=False, edges_sorted: bool = False,
+               src_perm=None, halo_split=None, src_inv=None) -> torch.Tensor:
+    """All interaction blocks (JAX ``run_blocks``): node features ``x``
+    [N, dim] -> [N, dim_out].
+
+    ``edges_sorted`` asserts that ``edge_dst`` is ascending (the collate
+    contract) and selects the scatter-fused convolution; otherwise the
+    per-edge branch aggregates over a stable sort of ``edge_dst``, taken
+    once per call on the device.  ``src_perm`` (collate's
+    EDGE_SRC_PERM) sorts ``edge_src`` for the source gather's backward;
+    without it the stable sort is taken here, once per call.  ``src_inv``
+    (a port-only argument) is its inverse when the caller has it.
+    ``cap(name, value)`` receives the per-stage node features.
+
+    The halo-parallel path (``exchange_fn``, ``halo_split``) and
+    per-block rematerialization (``remat``) are not ported."""
+    if exchange_fn is not None or halo_split is not None:
+        raise NotImplementedError('the halo-parallel path (exchange_fn, '
+                                  'halo_split) is not ported: ROADMAP A.8')
+    if remat:
+        raise NotImplementedError('per-block rematerialization is not '
+                                  'ported: ROADMAP A.5')
+    for blk in spec.blocks:
+        if blk.block_type != 'nequip' or blk.conv_kind != 'cg':
+            raise NotImplementedError(
+                f'{blk.block_type} blocks with the {blk.conv_kind} '
+                'convolution are not ported: ROADMAP A.9')
+    if cap is None:
+        def cap(name, val):
+            return None
+    if src_perm is None:
+        src_perm, src_inv = sort_perm(edge_src)
+    elif src_inv is None:
+        src_inv = inverse_perm(src_perm)
+    dst_sort = None if edges_sorted else sort_perm(edge_dst)
+    for blk in spec.blocks:
+        x = _run_one_block(blk, params, x, emb, edge_attr, edge_src,
+                           edge_dst, n_node, cap, src_perm, src_inv,
+                           dst_sort)
+    return x
+
+
+def _run_one_block(blk, p, x, emb, edge_attr, edge_src, edge_dst, n_node,
+                   cap, src_perm, src_inv, dst_sort):
     t = blk.t
     if blk.self_connection == 'linear':
         sc = apply_linear(blk.sc_spec,
@@ -304,18 +362,26 @@ def _run_one_block(blk, p, x, onehot, emb, edge_attr, edge_src,
                      out_stride=True)
     cap(f'{t}_self_interaction_1', lambda: stride_to_e3nn(blk.irreps_x, x))
 
-    # scatter-fused convolution on dst-sorted edges: the [E, dim_msg]
-    # message tensor never exists (ops/fused_conv_agg).  gather_rows'
-    # backward drops padded-edge cotangents; exact because EDGE_MASK
-    # zeroes the radial embedding, so padded messages and their gradients
-    # are identically zero
+    # gather_rows' backward drops padded-edge cotangents; exact because
+    # EDGE_MASK zeroes the radial embedding, so padded messages and their
+    # gradients are identically zero
     conv_p = p[f'{t}_convolution']
     n_w = len(blk.radial_hs) - 1
+    layout = layout_from_spec(blk.conv_tp)
     w_edge = mlp_apply([conv_p[f'weight_nn_w{i}'] for i in range(n_w)],
                        emb, blk.act_radial)
     x_src = gather_rows(x, edge_src, src_perm, src_inv)
-    x = conv_aggregate(layout_from_spec(blk.conv_tp), x_src, edge_attr,
-                       w_edge, edge_dst, n_node)
+    if dst_sort is None:
+        # scatter-fused convolution on dst-sorted edges: the [E, dim_msg]
+        # message tensor never exists (ops/fused_conv_agg)
+        x = conv_aggregate(layout, x_src, edge_attr, w_edge, edge_dst,
+                           n_node)
+    else:
+        # unsorted dst: per-edge messages, edge-major (the JAX branch's
+        # mlp_apply_T / conv_messages_T without its two transposes), then
+        # the sorted segment sum over dst's stable sort
+        msg = conv_messages(layout, x_src, edge_attr, w_edge)
+        x = aggregate_messages(msg, edge_dst, n_node, False, *dst_sort)
     x = x / conv_p['denominator']
     # back to the e3nn flat layout at the node-sized boundary
     x = stride_to_e3nn(blk.conv_tp.irreps_out, x)
@@ -328,6 +394,39 @@ def _run_one_block(blk, p, x, onehot, emb, edge_attr, edge_src,
     x = apply_gate(blk.gate, x)
     cap(f'{t}_equivariant_gate', x)
     return x
+
+
+def embed_edges(spec: ModelSpec, p, edge_vec: torch.Tensor,
+                edge_mask: torch.Tensor):
+    """Edge vectors -> (length r, radial embedding emb [E, bessel_num],
+    spherical harmonics edge_attr [E, dim_sh]); emb is 0 on padded edges
+    (``edge_mask`` 0)."""
+    es = spec.edge
+    r = safe_norm(edge_vec)
+    basis = bessel_basis(r, p['edge_embedding']['bessel_coeffs'], es.cutoff)
+    if es.cutoff_function == 'poly_cut':
+        env = poly_cutoff(r, es.cutoff, es.poly_cut_p)
+    elif es.cutoff_function == 'XPLOR':
+        env = xplor_cutoff(r, es.cutoff, es.cutoff_on)
+    else:
+        raise ValueError(es.cutoff_function)
+    # padded edges are killed here once; the radial MLP maps 0 -> 0
+    # exactly (no biases), so their messages and gradients vanish
+    emb = basis * env[..., None]
+    if es.weight_shift != 0.0 or es.weight_scale != 1.0:
+        emb = (emb - es.weight_shift) * es.weight_scale
+    emb = emb * edge_mask[..., None]
+    edge_attr = spherical_harmonics(es.lmax_edge,
+                                    normalize=es.normalize_sph)(edge_vec)
+    return r, emb, edge_attr
+
+
+def embed_nodes(spec: ModelSpec, p, atom_type: torch.Tensor, dtype):
+    """Atom types -> (one-hot [N, num_species], first node features)."""
+    onehot = F.one_hot(atom_type.long(), spec.num_species).to(dtype)
+    x = apply_linear(_embed_spec(spec), _linear_w(p['onehot_to_feature_x']),
+                     onehot)
+    return onehot, x
 
 
 def readout_and_rescale(spec: ModelSpec, p, x: torch.Tensor,
@@ -370,64 +469,47 @@ def energy_network(
         if intermediates is not None:
             intermediates[name] = val() if callable(val) else val
 
-    es = spec.edge
     n_node = data[K.POS].shape[0]
-    n_graph = data[K.CELL].shape[0]
     idx = data[K.EDGE_IDX]
     edge_src = idx[1]   # messages flow j -> i (reference convention)
     edge_dst = idx[0]
 
-    # --- edge embedding ---
-    r = safe_norm(edge_vec)
-    basis = bessel_basis(r, p['edge_embedding']['bessel_coeffs'], es.cutoff)
-    if es.cutoff_function == 'poly_cut':
-        env = poly_cutoff(r, es.cutoff, es.poly_cut_p)
-    elif es.cutoff_function == 'XPLOR':
-        env = xplor_cutoff(r, es.cutoff, es.cutoff_on)
-    else:
-        raise ValueError(es.cutoff_function)
-    # padded edges are killed here once; the radial MLP maps 0 -> 0
-    # exactly (no biases), so their messages and gradients vanish
-    emb = basis * env[..., None]
-    if es.weight_shift != 0.0 or es.weight_scale != 1.0:
-        emb = (emb - es.weight_shift) * es.weight_scale
-    emb = emb * data[K.EDGE_MASK][..., None]
-    edge_attr = spherical_harmonics(es.lmax_edge,
-                                    normalize=es.normalize_sph)(edge_vec)
+    r, emb, edge_attr = embed_edges(spec, p, edge_vec, data[K.EDGE_MASK])
     out[K.EDGE_LENGTH] = r
     out[K.EDGE_EMBEDDING] = emb
     out[K.EDGE_ATTR] = edge_attr
 
-    # --- node embedding ---
-    onehot = F.one_hot(data[K.ATOM_TYPE].long(),
-                       spec.num_species).to(edge_vec.dtype)
+    onehot, x = embed_nodes(spec, p, data[K.ATOM_TYPE], edge_vec.dtype)
     out[K.NODE_ATTR] = onehot
-    x = apply_linear(_embed_spec(spec), _linear_w(p['onehot_to_feature_x']),
-                     onehot)
     cap('onehot_to_feature_x', x)
 
     # --- interaction blocks (collate batches are dst-sorted) ---
-    src_perm = data[K.EDGE_SRC_PERM]
-    src_inv = data[EDGE_SRC_INV_PERM]
-    for blk in spec.blocks:
-        x = _run_one_block(blk, p, x, onehot, emb, edge_attr,
-                           edge_src, edge_dst, n_node, cap, src_perm,
-                           src_inv)
+    x = run_blocks(spec, p, x, onehot, emb, edge_attr, edge_src, edge_dst,
+                   n_node, cap=cap, edges_sorted=True,
+                   src_perm=data[K.EDGE_SRC_PERM],
+                   src_inv=data[EDGE_SRC_INV_PERM])
     out[K.NODE_FEATURE] = x
 
     # --- readout + rescale + masked reduce ---
+    (out[K.SCALED_ATOMIC_ENERGY], out[K.ATOMIC_ENERGY],
+     out[K.PRED_TOTAL_ENERGY]) = graph_energy(spec, p, x, data)
+    return out
+
+
+def graph_energy(spec: ModelSpec, p, x: torch.Tensor,
+                 data: Dict[str, torch.Tensor]):
+    """Node features -> (scaled atomic energies, atomic energies masked
+    to the real nodes, total energy per graph)."""
+    n_graph = data[K.CELL].shape[0]
     scaled, atomic_e = readout_and_rescale(spec, p, x, data[K.ATOM_TYPE])
-    out[K.SCALED_ATOMIC_ENERGY] = scaled
     atomic_e = atomic_e * data[K.NODE_MASK]
-    out[K.ATOMIC_ENERGY] = atomic_e
     # padded tail nodes carry batch id 0: remap them to the drop sentinel
     # (n_graph) to keep the ids ascending for the sorted segment sum
     batch = data[K.BATCH]
     batch_ids = torch.where(data[K.NODE_MASK] > 0, batch,
                             torch.full_like(batch, n_graph))
-    out[K.PRED_TOTAL_ENERGY] = segment_sum_sorted(
-        atomic_e[:, None], batch_ids, n_graph)[:, 0]
-    return out
+    total = segment_sum_sorted(atomic_e[:, None], batch_ids, n_graph)[:, 0]
+    return scaled, atomic_e, total
 
 
 def _forces_and_stress(out, data, edge_vec, fij):

@@ -29,7 +29,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
-SOURCES = ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg', 'cg_gmulti')
+SOURCES = ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg', 'cg_gmulti',
+           'cg_quad')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -52,6 +53,9 @@ SIGNATURES = {
     'cg_gmulti': ('cg_gmulti_f32',
                   (_P, _P, _P, _I) + (_P,) * 5 + (_I,) + (_P, _P, _I, _I)
                   + (_P, _P, _I) + (_I,) * 4 + (_P,)),
+    'cg_quad': ('cg_quad_f32',
+                (_P,) * 3 + (_I,) * 3 + (_P, _P, _P, _I) + (_P, _P, _I, _I)
+                + (_P, _I, _I, _I, _P)),
 }
 
 

@@ -26,6 +26,11 @@ tables are built once per ``CGLayout`` from its nonzero Wigner-3j terms
   write grouped outputs.  An xn or wn item of a group is a list of
   segments, one per job in job order, each summed on its own and then
   added; shn columns are chunked as in multi, job after job.
+- quad (the per-edge modes, no aggregation): row = the mode's three
+  legs in ``_MODE_LEGS`` order.  'msg' is agg's table, one item per msg
+  column; 'x', 'sh' and 'w' are multi's single xn / shn / wn job with its
+  row [g | x | sh | w] mapped onto the mode's row (g is the per-edge
+  cotangent itself, no ybar[dst] gather).
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from .fused_conv import CGLayout
+from .fused_conv import _MODE_LEGS, CGLayout
 
 SH_CHUNK = 64
 
@@ -144,6 +149,44 @@ def multi_table(layout: CGLayout, jobs: Tuple[str, ...]) -> MultiTable:
         n_part=n_part,
         out_dims=tuple(getattr(layout, _JOB_DIM[j]) for j in jobs),
     )
+
+
+_QUAD_JOB = {'x': 'xn', 'sh': 'shn', 'w': 'wn'}
+
+
+@functools.lru_cache(maxsize=None)
+def quad_table(layout: CGLayout, mode: str) -> MultiTable:
+    """Work items of one per-edge mode; row = the mode's legs in
+    ``_MODE_LEGS[mode]`` order, outputs the mode's [E, dim] columns."""
+    if mode == 'msg':
+        start, terms = agg_table(layout)
+        return MultiTable(
+            item_start=start,
+            item_out=np.arange(layout.dim_msg, dtype=np.int32),
+            terms=terms, red_start=np.zeros(1, np.int32),
+            red_out=np.zeros(1, np.int32), n_part=0,
+            out_dims=(layout.dim_msg,))
+    tab = multi_table(layout, (_QUAD_JOB[mode],))
+    dims = layout.mode_dims
+    # multi's row offsets -> the mode's row offsets (-1: a leg it lacks)
+    remap = np.full(sum(dims.values()), -1, np.int64)
+    old = dict(zip(('g', 'x', 'sh', 'w'),
+                   np.cumsum([0] + [dims[k] for k in ('g', 'x', 'sh')])))
+    pos = 0
+    for leg in _MODE_LEGS[mode]:
+        remap[old[leg]:old[leg] + dims[leg]] = np.arange(pos,
+                                                         pos + dims[leg])
+        pos += dims[leg]
+    terms = tab.terms.copy()
+    n = int(tab.item_start[-1])
+    terms[:n, :3] = remap[tab.terms[:n, :3]]
+    if (terms[:n, :3] < 0).any():
+        raise AssertionError(f'quad {mode}: a term reads a leg the mode '
+                             'does not take')
+    return MultiTable(
+        item_start=tab.item_start, item_out=tab.item_out, terms=terms,
+        red_start=tab.red_start, red_out=tab.red_out, n_part=tab.n_part,
+        out_dims=tab.out_dims)
 
 
 def _pool_offsets(pool_dims: Tuple[int, ...], base: int = 0):

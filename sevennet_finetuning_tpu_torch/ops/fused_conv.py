@@ -24,6 +24,17 @@ flat per-instruction layout (offset = TPInstruction.weight_offset).
 the JAX package's XLA composition (``_xla_impl``), edge-major.  It is the
 CPU path and the reference the CUDA kernels are held against; the
 kernels themselves read the term tables of ``ops/cg_tables.py``.
+
+``CGQuad`` is the family as an autograd Function (the JAX primitive
+``cg_quadlinear`` with its ``_transpose``): its forward is one mode, the
+CUDA kernel ``csrc/cg_quad.cu`` on CUDA tensors and ``cg_modes`` on CPU
+tensors (``ops/fused_conv_kernel.py``), and its backward gives each input
+that needs a gradient the mode of that input's leg, with the cotangent
+standing in for the output leg -- by calling ``CGQuad`` again, so the
+family is closed under autograd to any order.  ``cg_apply`` and
+``conv_messages_T`` keep the JAX package's feature-major ``[dim, E]``
+layout; ``cg_apply_edge`` and ``conv_messages`` are the edge-major
+``[E, dim]`` entries the model and the kernel use.
 """
 
 from __future__ import annotations
@@ -254,3 +265,78 @@ def cg_modes(mode: str, a, b, c, layout: CGLayout) -> torch.Tensor:
     if pos < out_dim:
         parts.append(a.new_zeros((E, out_dim - pos)))
     return torch.cat(parts, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# the family as an autograd Function
+# ---------------------------------------------------------------------------
+
+# each mode outputs one leg of S and consumes the other three in this order
+_MODE_LEGS = {
+    'msg': ('x', 'sh', 'w'),
+    'x': ('g', 'sh', 'w'),
+    'sh': ('g', 'x', 'w'),
+    'w': ('g', 'x', 'sh'),
+}
+_LEG_MODE = {'g': 'msg', 'x': 'x', 'sh': 'sh', 'w': 'w'}
+
+
+class CGQuad(torch.autograd.Function):
+    """One mode of the family, edge-major; ``a, b, c`` follow
+    ``_MODE_LEGS[mode]``."""
+
+    @staticmethod
+    def forward(ctx, mode, layout, a, b, c):
+        from .fused_conv_kernel import quad
+
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(a, b, c)
+        ctx.mode, ctx.layout = mode, layout
+        return quad(mode, a, b, c, layout)
+
+    @staticmethod
+    def backward(ctx, ct):
+        """_transpose: input leg l gets mode _LEG_MODE[l] of the other two
+        inputs and the cotangent (at this mode's output leg)."""
+        if ct is None:
+            return (None,) * 5
+        legs = _MODE_LEGS[ctx.mode]
+        known = dict(zip(legs, ctx.saved_tensors))
+        known[_MODE_OUT[ctx.mode]] = ct
+        grads = []
+        for leg, need in zip(legs, ctx.needs_input_grad[2:]):
+            mode = _LEG_MODE[leg]
+            grads.append(CGQuad.apply(mode, ctx.layout, *(
+                known[l] for l in _MODE_LEGS[mode])) if need else None)
+        return (None, None, *grads)
+
+
+def cg_apply_edge(mode: str, a, b, c, layout: CGLayout) -> torch.Tensor:
+    """One mode of the family on edge-major ``[E, dim]`` legs (in the
+    order of ``_MODE_LEGS[mode]``) -> ``[E, out_dim]``."""
+    dims = layout.mode_dims
+    want = [dims[leg] for leg in _MODE_LEGS[mode]]
+    E = a.shape[0]
+    if ([v.shape[1] for v in (a, b, c)] != want
+            or any(v.ndim != 2 or v.shape[0] != E for v in (a, b, c))):
+        raise ValueError(f'cg_quadlinear[{mode}]: arg shapes '
+                         f'{[tuple(v.shape) for v in (a, b, c)]} do not '
+                         f'match E x layout dims {want}')
+    return CGQuad.apply(mode, layout, a, b, c)
+
+
+def cg_apply(mode: str, a, b, c, layout: CGLayout) -> torch.Tensor:
+    """JAX ``cg_apply``: legs feature-major ``[dim, E]`` -> ``[out_dim, E]``."""
+    return cg_apply_edge(mode, a.T, b.T, c.T, layout).T
+
+
+def conv_messages(layout: CGLayout, x_src, sh, w) -> torch.Tensor:
+    """Per-edge messages ``[E, dim_msg]`` from edge-major stride-layout
+    legs (the model's entry: no transposes)."""
+    return cg_apply_edge('msg', x_src, sh, w, layout)
+
+
+def conv_messages_T(layout: CGLayout, x_src_T, sh_T, w_T) -> torch.Tensor:
+    """JAX ``conv_messages_T``: msg_T ``[dim_msg, E]`` from feature-major
+    legs."""
+    return cg_apply('msg', x_src_T, sh_T, w_T, layout)

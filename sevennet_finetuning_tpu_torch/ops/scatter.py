@@ -17,6 +17,15 @@ on CPU tensors.  Destinations >= n (the padding sentinel) are dropped.
 - ``gather_rows``: ``x[idx]`` (clamped, as a JAX gather) whose backward is
   ``scatter_rows``, which DROPS the cotangents of out-of-range (padded)
   rows; exact for the model because EDGE_MASK zeroes padded messages.
+  Without a permutation it builds the stable sort of ``idx`` on the
+  device (``sort_perm``).  (JAX's ``gather_rows`` without one is a plain
+  ``x[idx]``, whose transpose adds a padded row's cotangent to the last
+  row; the two agree because those cotangents are exactly zero.)
+- ``aggregate_messages``: the port of JAX ``aggregate_messages``; an
+  unsorted ``dst`` takes its stable device sort, then ``scatter_rows``, so
+  the sum stays on the sorted kernel and runs in a fixed order (no
+  ``index_add_`` atomics on the card).  The sentinel dst = n_node drops,
+  as XLA's ``segment_sum`` drops it.
 
 Every backward here calls only Functions of this module, so the family
 is closed under ``create_graph=True``: a double backward (the train
@@ -24,6 +33,8 @@ step's force loss) stays on the kernel and runs no accumulating scatter.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -136,6 +147,34 @@ def scatter_rows(values: torch.Tensor, idx: torch.Tensor, n_rows: int,
                               idx[perm.long()], n_rows)
 
 
+def inverse_perm(perm: torch.Tensor) -> torch.Tensor:
+    """inv with inv[perm[i]] = i (a permutation: no two writes collide)."""
+    inv = torch.empty_like(perm)
+    inv[perm.long()] = torch.arange(perm.shape[0], dtype=perm.dtype,
+                                    device=perm.device)
+    return inv
+
+
+def sort_perm(idx: torch.Tensor):
+    """(perm, inv): the stable ascending sort of ``idx`` on its device and
+    the inverse permutation, both of ``idx``'s dtype."""
+    perm = torch.sort(idx, stable=True).indices.to(idx.dtype)
+    return perm, inverse_perm(perm)
+
+
+def aggregate_messages(msg: torch.Tensor, dst: torch.Tensor, n_node: int,
+                       sorted_dst: bool, perm: Optional[torch.Tensor] = None,
+                       inv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out[n] = sum_{e: dst[e]=n} msg[e]``, dst >= n_node dropped.  For
+    an unsorted ``dst``, ``perm`` / ``inv`` may carry its stable sort and
+    inverse (``sort_perm``) so that a caller sorts once for many calls."""
+    if sorted_dst:
+        return segment_sum_sorted(msg, dst, n_node)
+    if perm is None:
+        perm, inv = sort_perm(dst)
+    return scatter_rows(msg, dst, n_node, perm, inv)
+
+
 class GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, idx, perm, inv):
@@ -150,9 +189,15 @@ class GatherRows(torch.autograd.Function):
                 None, None, None)
 
 
-def gather_rows(x: torch.Tensor, idx: torch.Tensor, perm: torch.Tensor,
-                inv: torch.Tensor) -> torch.Tensor:
+def gather_rows(x: torch.Tensor, idx: torch.Tensor,
+                perm: Optional[torch.Tensor] = None,
+                inv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x[idx]`` (out-of-range idx clamps to the last row); ``perm``
-    sorts ``idx`` and ``inv`` inverts it, so the backward drops
-    out-of-range cotangents and rides the kernel."""
+    sorts ``idx`` stably and ``inv`` inverts it (built here when not
+    given), so the backward drops out-of-range cotangents and rides the
+    kernel."""
+    if perm is None:
+        perm, inv = sort_perm(idx)
+    elif inv is None:
+        inv = inverse_perm(perm)
     return GatherRows.apply(x, idx, perm, inv)

@@ -5,9 +5,10 @@ jax-free import check.
 Tolerances: energy rel 2e-6; forces and stress max-abs rel 1e-5 (float32
 sums taken in another order over ~4,300 edges and five layers).
 
-``test_port_imports_no_jax`` serves a structure and takes a reEWC train
-step on the CPU in a fresh interpreter, then checks that neither jax,
-optax nor the JAX package was imported.
+``test_port_imports_no_jax`` serves a structure, runs its graph with the
+edge slots shuffled through ``run_blocks(edges_sorted=False)`` and takes
+a reEWC train step on the CPU in a fresh interpreter, then checks that
+neither jax, optax nor the JAX package was imported.
 
 The golden file (energies, forces and stress for every structure of
 ft.extxyz, computed by the JAX Calculator on the CPU) is what
@@ -90,6 +91,25 @@ def test_port_imports_no_jax():
         f's = read_extxyz({str(FT)!r})[4]\n'
         'r = calc.calculate(s)\n'
         'assert r["forces"].shape == (len(s), 3)\n'
+        # the unsorted-dst path: run_blocks on the edge slots shuffled
+        'import torch\n'
+        'from sevennet_finetuning_tpu_torch import keys as K\n'
+        'from sevennet_finetuning_tpu_torch.model.nequip import (\n'
+        '    compute_edge_vec, embed_edges, embed_nodes, graph_energy,\n'
+        '    run_blocks)\n'
+        'b = calc.batch(s)\n'
+        'p = torch.randperm(b[K.EDGE_IDX].shape[1],\n'
+        '                   generator=torch.Generator().manual_seed(0))\n'
+        'idx = b[K.EDGE_IDX][:, p]\n'
+        'ev = compute_edge_vec(dict(b, **{K.EDGE_IDX: idx,\n'
+        '                                 K.CELL_SHIFT: b[K.CELL_SHIFT][p]}))\n'
+        'sp, pr = calc.model.spec, calc.model.params\n'
+        '_, emb, attr = embed_edges(sp, pr, ev, b[K.EDGE_MASK][p])\n'
+        'oh, x = embed_nodes(sp, pr, b[K.ATOM_TYPE], ev.dtype)\n'
+        'x = run_blocks(sp, pr, x, oh, emb, attr, idx[1], idx[0],\n'
+        '               b[K.POS].shape[0], edges_sorted=False)\n'
+        'e = float(graph_energy(sp, pr, x, b)[2][0])\n'
+        'assert abs(e - r["energy"]) <= 1e-5 * abs(r["energy"]), (e, r)\n'
         # a reEWC train step on the CPU: trainer, loss, adam, Fisher files
         'from sevennet_finetuning_tpu_torch.data.dataset import '
         'GraphDataset, Loader\n'
