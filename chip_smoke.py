@@ -3,12 +3,21 @@
 
     python3 chip_smoke.py
 
-Drives ``sevennet_finetuning_tpu_torch`` (never JAX) through seven phases
+Drives ``sevennet_finetuning_tpu_torch`` (never JAX) through eight phases
 and exits non-zero if any fails:
 
-1. build   -- compile every CUDA kernel of ``csrc/`` (one nvcc each, in
+1. build   -- compile every CUDA source of ``csrc/`` (one nvcc each, in
               parallel) and print the build time;
-2. kernels -- call each kernel's wrapper at main-path shapes (a batch-8
+2. probes  -- the seven measurement kernels of ``tools`` (the copy
+              bandwidth probe and the Hopper feature probes) at the TPU
+              tools' shapes on numpy-seeded inputs (seed 0), each held
+              against its plain version (bit for bit; the column sum
+              within 2e-6 x the column's sum of |x|, the wgmma product
+              within 2e-6 x max|plain|) and timed with its library call;
+              then both tools' ``main()`` as a user runs them, with the
+              launch counts set to 0 before: the feature probes' OK lines
+              and the bench sweep's GB/s table with the card line;
+3. kernels -- call each kernel's wrapper at main-path shapes (a batch-8
               collate of ft900.extxyz; the conv layouts of blocks 0, 1
               and 4 of SevenNet-0; segment sums at D = 1, 6 and 480; the
               double backward's gagg of 3 terms and gmulti of 6 jobs in 3
@@ -20,17 +29,17 @@ and exits non-zero if any fails:
               CUDA events after warm-up; the bound is the larger of bytes
               over 3.35 TB/s and fp32 operations over 67 TFLOP/s (H100
               SXM data sheet), counted at the live edges;
-3. serve   -- ``Calculator.from_checkpoint`` on the in-repo SevenNet-0
+4. serve   -- ``Calculator.from_checkpoint`` on the in-repo SevenNet-0
               checkpoint answers each structure of ft.extxyz; results are
               held against the committed JAX-CPU golden file (energy rel
               <= 2e-6, forces and stress max-abs rel <= 1e-4) and every
               request must launch agg 5, multi 5 and segment-sum >= 8
               times;
-4. batch   -- ``apply_model`` on one batch-8 collate of ft900.extxyz:
+5. batch   -- ``apply_model`` on one batch-8 collate of ft900.extxyz:
               ms per batch and edges/s;
-5. profile -- torch.profiler over one request and one batch-8 forward:
+6. profile -- torch.profiler over one request and one batch-8 forward:
               device busy share and device time by kernel;
-6. train   -- the reEWC fine-tune ``Trainer`` on SevenNet-0 at full width
+7. train   -- the reEWC fine-tune ``Trainer`` on SevenNet-0 at full width
               and depth (recipe of experiments/ft_reewc_900, constant LR
               1e-4): 2 steps on the 12-atom structure of ft.extxyz against
               ``golden/train_ft12_jax_cpu.npz`` (loss terms and every
@@ -41,7 +50,7 @@ and exits non-zero if any fails:
               step must launch agg 5, multi 10, gagg 5, gmulti 5 and
               segment-sum 13 times.  Prints ms per step and per rehearsal
               iteration, edges/s, peak memory and the device busy share;
-7. unsorted -- SevenNet-0 at full width and depth on the batch-8 collate
+8. unsorted -- SevenNet-0 at full width and depth on the batch-8 collate
               with every edge slot permuted (numpy seed 0), through the
               public ``run_blocks(edges_sorted=False)``: node features,
               energies, fij = dE/d edge_vec and a create_graph=True
@@ -88,8 +97,10 @@ OPT_PARAMS = ROOT / 'experiments/ft_reewc/fisher_out/opt_params_sevenn.pt'
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12        # H100 SXM data sheet, non-tensor fp32
+BF16_TC_FLOP_PER_S = 989e12    # H100 SXM data sheet, dense bf16 tensor core
 KERNEL_TOL = 2e-6
 BATCH = 8
+PROBE_IT = 50                  # timed launches of each probe kernel
 
 SOURCES = {
     'segment_sum': dict(
@@ -111,23 +122,43 @@ SOURCES = {
         source='sevennet_finetuning_tpu_torch/csrc/cg_quad.cu',
         replaces='sevennet_finetuning_tpu/ops/fused_conv_kernel.py:167'),
 }
+PROBE_COPY = 'sevennet_finetuning_tpu_torch/csrc/probe_copy.cu'
+PROBE_FEATS = 'sevennet_finetuning_tpu_torch/csrc/probe_feats.cu'
+SOURCES.update({
+    'probe_copy_tiled': dict(source=PROBE_COPY,
+                             replaces='tools/bench_dma.py:84'),
+    'probe_colsum': dict(source=PROBE_COPY, replaces='tools/bench_dma.py:109'),
+    'probe_copy_ring': dict(source=PROBE_COPY,
+                            replaces='tools/bench_dma.py:167'),
+    'probe_transpose': dict(source=PROBE_FEATS,
+                            replaces='tools/test_mosaic_feats.py:47'),
+    'probe_split': dict(source=PROBE_FEATS,
+                        replaces='tools/test_mosaic_feats.py:74'),
+    'probe_dot': dict(source=PROBE_FEATS,
+                      replaces='tools/test_mosaic_feats.py:96'),
+    'probe_window': dict(source=PROBE_FEATS,
+                         replaces='tools/test_mosaic_feats.py:123'),
+})
+PROBES = tuple(k for k in SOURCES if k.startswith('probe_'))
 # the kernels each path must launch (the others it must not)
 PATH_KERNELS = {
     'serve': ('segment_sum', 'cg_agg', 'cg_multi'),
     'train': ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg', 'cg_gmulti'),
     'unsorted': ('segment_sum', 'cg_quad'),
+    'probes': PROBES,
 }
 # the path whose count a kernel's "launches" reports: the train step for
 # the kernels of the sorted convolution, the unsorted pass for cg_quad
 KERNEL_PATH = {name: 'train' for name in SOURCES}
 KERNEL_PATH['cg_quad'] = 'unsorted'
+KERNEL_PATH.update({name: 'probes' for name in PROBES})
 # launches of one reEWC train step (PERF.md explains each count)
 TRAIN_CENSUS = {'cg_agg': 5, 'cg_multi': 10, 'cg_gagg': 5, 'cg_gmulti': 5,
-                'segment_sum': 13, 'cg_quad': 0}
+                'segment_sum': 13, 'cg_quad': 0, **{k: 0 for k in PROBES}}
 # launches of one unsorted pass: forward, fij with create_graph=True, and
 # the parameter gradient of a loss on fij (PERF.md explains each count)
 UNSORTED_CENSUS = {'cg_agg': 0, 'cg_multi': 0, 'cg_gagg': 0, 'cg_gmulti': 0,
-                   'segment_sum': 20, 'cg_quad': 77}
+                   'segment_sum': 20, 'cg_quad': 77, **{k: 0 for k in PROBES}}
 UNSORTED_MODES = {'msg': 19, 'x': 20, 'sh': 19, 'w': 19}
 # unsorted against sorted on the same graph: only the order of float32
 # sums differs (the per-edge messages are summed after a sort by dst, the
@@ -183,40 +214,35 @@ def log(*args):
     print(*args, flush=True)
 
 
-def cuda_ms(fn, iters=20, warmup=3):
-    import torch
+def cuda_ms(fn, iters=20):
+    """ms per call of fn between two CUDA events after warm-up."""
+    from sevennet_finetuning_tpu_torch.tools.bench_dma import time_ms
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return time_ms(lambda i: fn(), n_it=iters)
 
 
-def bound_ms(n_bytes, n_flop):
+def bound_ms(n_bytes, n_flop, flop_per_s=FP32_FLOP_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flop / FP32_FLOP_PER_S * 1e3
+    t_ops = n_flop / flop_per_s * 1e3
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else
                                  'operations')
 
 
-def compare(name, got, want):
+def compare(name, got, want, tol=KERNEL_TOL):
+    """max|got - want| <= tol * max|want| over the outputs (tol 0: equal
+    values, the probes' bit-equality); returns max|got - want|."""
     got = got if isinstance(got, (tuple, list)) else (got,)
     want = want if isinstance(want, (tuple, list)) else (want,)
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
     scale = max(float(w.abs().max()) for w in want)
-    ok = err <= KERNEL_TOL * scale
+    ok = err <= tol * scale and all(g.dtype == w.dtype
+                                    for g, w in zip(got, want))
     log(f'  {name}: max_abs_err {err:.3e}, max|plain| {scale:.3e} '
-        f'({"ok" if ok else "FAIL"} at {KERNEL_TOL:g} rel)')
+        f'({"ok" if ok else "FAIL"} at {tol:g} rel)')
     if not ok:
         raise AssertionError(f'{name}: kernel disagrees with its plain '
-                             f'version ({err:.3e} > {KERNEL_TOL:g} * '
+                             f'version ({err:.3e} > {tol:g} * '
                              f'{scale:.3e})')
     return err
 
@@ -227,11 +253,174 @@ def phase_build():
     t0 = time.perf_counter()
     _cuda.build_all()
     dt = time.perf_counter() - t0
-    log(f'[build] {len(_cuda.SOURCES)} kernels built in {dt:.1f} s')
+    log(f'[build] {len(_cuda.SOURCES)} sources ({len(_cuda.KERNELS)} entry '
+        f'points) built in {dt:.1f} s')
     for name in _cuda.SOURCES:
         for line in _cuda.build_log(name).splitlines():
             if 'registers' in line or 'spill' in line:
                 log(f'  {name}: {line.strip()}')
+
+
+def phase_probes():
+    """The probe kernels of ``tools`` (kernel table rows 8a-9d) at the TPU
+    tools' shapes against their plain versions, with times; then both
+    tools' entry points as a user runs them, with the launch counts set
+    to 0 just before and read just after.  Returns (rows, counts)."""
+    import numpy as np
+    import torch
+
+    from sevennet_finetuning_tpu_torch.ops import _cuda
+    from sevennet_finetuning_tpu_torch.tools import bench_dma as B
+    from sevennet_finetuning_tpu_torch.tools import hopper_feats as H
+
+    t_phase = time.perf_counter()
+    dev = torch.device('cuda')
+    rng = np.random.default_rng(0)
+    # N_SLABS input and output slabs taken in turn: no launch finds its
+    # input in the 50 MB L2
+    xs = [torch.as_tensor(rng.standard_normal((B.E, B.D), dtype=np.float32),
+                          device=dev) for _ in range(B.N_SLABS)]
+    ys = [torch.empty_like(x) for x in xs]
+    nbytes = B.E * B.D * 4
+
+    def slab_ms(fn):
+        return B.time_ms(lambda i: fn(i % B.N_SLABS), n_it=PROBE_IT)
+
+    log(f'[probes] slabs of {B.E} x {B.D} float32 ({nbytes} bytes), '
+        f'{B.N_SLABS} in turn')
+    rows = {}
+
+    # 8a: tiled copy, row tiles (em) and column strips (fm)
+    cases = []
+    for te, fm in ((256, False), (256, True)):
+        shape = (B.D, B.E) if fm else (B.E, B.D)
+        xv = [x.view(shape) for x in xs]
+        yv = [y.view(shape) for y in ys]
+        label = f'{"fm" if fm else "em"} te={te}'
+        err = compare(f'probe_copy_tiled {label}',
+                      B.copy_tiled_cuda(xv[0], te, fm),
+                      B.copy_tiled_plain(xv[0]), 0.0)
+        b_ms, b_by = bound_ms(2 * nbytes, B.E * B.D)
+        cases.append(dict(
+            shape=f'{label}: [{shape[0]}, {shape[1]}] f32', max_abs_err=err,
+            ms=slab_ms(lambda i: B.copy_tiled_cuda(xv[i], te, fm,
+                                                   out=yv[i])),
+            plain_ms=slab_ms(lambda i: B.copy_tiled_plain(xv[i])),
+            library_ms=slab_ms(lambda i: torch.mul(xv[i], B.C, out=yv[i])),
+            bound_ms=b_ms, bound_by=b_by))
+    rows['probe_copy_tiled'] = cases
+
+    # 8b: column sum, within 2e-6 x the column's sum of |x|
+    cases = []
+    for te in B.READ_TILES:
+        got = B.colsum_cuda(xs[0], te)
+        want = B.colsum_plain(xs[0], te)
+        x64 = xs[0].double()
+        scale = x64.abs().sum(0, keepdim=True)
+        err_rel = float(((got.double() - want.double()).abs() / scale).max())
+        ref_rel = float(((got.double() - x64.sum(0, keepdim=True)).abs()
+                         / scale).max())
+        err = float((got - want).abs().max())
+        ok = err_rel <= KERNEL_TOL and ref_rel <= KERNEL_TOL
+        log(f'  probe_colsum te={te}: max_abs_err {err:.3e}, max err / '
+            f'sum|x| {err_rel:.2e} vs plain, {ref_rel:.2e} vs float64 '
+            f'({"ok" if ok else "FAIL"} at {KERNEL_TOL:g})')
+        if not ok:
+            raise AssertionError(f'probe_colsum te={te} disagrees with its '
+                                 'plain version or the float64 sum')
+        b_ms, b_by = bound_ms(nbytes + 4 * B.D, B.E * B.D)
+        cases.append(dict(
+            shape=f'te={te}: [{B.E}, {B.D}] -> [1, {B.D}]', max_abs_err=err,
+            ms=slab_ms(lambda i: B.colsum_cuda(xs[i], te)),
+            plain_ms=slab_ms(lambda i: B.colsum_plain(xs[i], te)),
+            library_ms=slab_ms(lambda i: torch.sum(xs[i], 0, keepdim=True)),
+            bound_ms=b_ms, bound_by=b_by))
+    rows['probe_colsum'] = cases
+
+    # 8c: the bulk-copy ring
+    cases = []
+    for v in ((16, 4, 2), (32, 2, 1)):
+        label = f'rows={v[0]} slots={v[1]} split={v[2]}'
+        err = compare(f'probe_copy_ring {label}',
+                      B.copy_ring_cuda(xs[0], *v),
+                      B.copy_tiled_plain(xs[0]), 0.0)
+        b_ms, b_by = bound_ms(2 * nbytes, B.E * B.D)
+        cases.append(dict(
+            shape=f'{label}: [{B.E}, {B.D}] f32, '
+                  f'{B.ring_smem_bytes(v[0], v[1])} bytes of shared memory',
+            max_abs_err=err,
+            ms=slab_ms(lambda i: B.copy_ring_cuda(xs[i], *v, out=ys[i])),
+            plain_ms=slab_ms(lambda i: B.copy_tiled_plain(xs[i])),
+            library_ms=slab_ms(lambda i: torch.mul(xs[i], B.C, out=ys[i])),
+            bound_ms=b_ms, bound_by=b_by))
+    rows['probe_copy_ring'] = cases
+
+    # 9a-9d at the TPU probe's shapes
+    t = {k: torch.as_tensor(v, device=dev)
+         for k, v in H.probe_inputs().items()}
+    x, v, a, b, y, sel = (t[k] for k in ('x', 'v', 'a', 'b', 'y', 'sel'))
+    xt = torch.empty(x.shape[::-1], device=dev)
+    n = v.numel()
+    wbytes = y.shape[0] // H.N_WINDOWS * y.shape[1] * 4
+    m, k_dim, n_te = a.shape[1], a.shape[0], b.shape[1]
+    probes = (
+        ('probe_transpose', f'[{x.shape[0]}, {x.shape[1]}] f32',
+         0.0, lambda: H.transpose_cuda(x),
+         lambda: H.transpose_plain(x), lambda: xt.copy_(x.t()),
+         (2 * 4 * x.numel(), 0, FP32_FLOP_PER_S)),
+        # read x, write the f32 sum and three bf16 parts; ~9 fp32
+        # operations per element (2 masks, 2 subtractions, 3 conversions,
+        # 2 additions)
+        ('probe_split', f'[{v.shape[0]}, {v.shape[1]}] f32 (x 100)',
+         0.0, lambda: H.split_cuda(v), lambda: H.split_plain(v),
+         None, (4 * n + 4 * n + 6 * n, 9 * n, FP32_FLOP_PER_S)),
+        # six bf16 products of 2 M N K operations on the tensor cores
+        ('probe_dot', f'a [{k_dim}, {m}]^T b [{k_dim}, {n_te}] f32',
+         KERNEL_TOL, lambda: H.dot_cuda(a, b), lambda: H.dot_plain(a, b),
+         lambda: torch.matmul(a.t(), b),
+         (4 * (a.numel() + b.numel() + m * n_te), 6 * 2 * m * n_te * k_dim,
+          BF16_TC_FLOP_PER_S)),
+        ('probe_window', f'window {int(sel[0])} of {H.N_WINDOWS} x '
+         f'[{y.shape[0] // H.N_WINDOWS}, {y.shape[1]}] f32',
+         0.0, lambda: H.window_cuda(y, sel),
+         lambda: H.window_plain(y, sel),
+         lambda: torch.index_select(y.view(H.N_WINDOWS, -1), 0, sel),
+         (2 * wbytes + 4, 0, FP32_FLOP_PER_S)),
+    )
+    for name, shape, tol, kern, plain, library, (nb, nf, peak) in probes:
+        err = compare(f'{name} [{shape}]', kern(), plain(), tol)
+        b_ms, b_by = bound_ms(nb, nf, peak)
+        rows[name] = [dict(
+            shape=shape, max_abs_err=err, ms=cuda_ms(kern, iters=PROBE_IT),
+            plain_ms=cuda_ms(plain, iters=PROBE_IT),
+            library_ms=None if library is None else cuda_ms(
+                library, iters=PROBE_IT),
+            bound_ms=b_ms, bound_by=b_by)]
+
+    for name, cases in rows.items():
+        for c in cases:
+            lib = ('n/a' if c['library_ms'] is None
+                   else f'{c["library_ms"]:.4f} ms')
+            log(f'  {name} [{c["shape"]}]: kernel {c["ms"]:.4f} ms, plain '
+                f'{c["plain_ms"]:.4f} ms, library {lib}, bound '
+                f'{c["bound_ms"] * 1e3:.2f} us ({c["bound_by"]})')
+
+    # the probes' own entry points, as a user runs them
+    torch.cuda.synchronize()
+    _cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    rc = {'hopper_feats': H.main(), 'bench_dma': B.main()}
+    torch.cuda.synchronize()
+    counts = {k: _cuda.LAUNCHES[k] for k in _cuda.KERNELS}
+    log(f'[probes] hopper_feats.main and bench_dma.main in '
+        f'{time.perf_counter() - t0:.1f} s: exit codes {rc}, launches '
+        f'{ {k: counts[k] for k in PROBES} }')
+    if any(rc.values()):
+        raise AssertionError(f'a probe failed: exit codes {rc}')
+    if any(counts[k] for k in counts if k not in PROBES):
+        raise AssertionError(f'the probes launched a model kernel: {counts}')
+    log(f'[probes] phase done in {time.perf_counter() - t_phase:.1f} s')
+    return rows, counts
 
 
 def batch8(calc):
@@ -498,12 +687,13 @@ def phase_serve(calc):
         res = calc.calculate(s)
         latencies.append((time.perf_counter() - t0) * 1e3)
         got = {k: _cuda.LAUNCHES[k] - before.get(k, 0)
-               for k in _cuda.SOURCES}
+               for k in _cuda.KERNELS}
         if (got['cg_agg'] != 5 or got['cg_multi'] != 5
-                or got['segment_sum'] < 8 or got['cg_quad'] != 0):
+                or got['segment_sum'] < 8 or got['cg_quad'] != 0
+                or any(got[k] for k in PROBES)):
             raise AssertionError(f'request {i}: launches {got}, expected '
                                  'cg_agg 5, cg_multi 5, segment_sum >= 8, '
-                                 'cg_quad 0')
+                                 'cg_quad 0, no probe')
         e_rel = abs(res['energy'] - gold['energy'][i]) / abs(
             gold['energy'][i])
         f_ref = gold[f'forces_{i}']
@@ -722,7 +912,7 @@ def step_census(trainer, batch, acc):
     acc, terms = trainer.train_step(batch, acc)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    counts = {k: _cuda.LAUNCHES[k] for k in _cuda.SOURCES}
+    counts = {k: _cuda.LAUNCHES[k] for k in _cuda.KERNELS}
     if counts != TRAIN_CENSUS:
         raise AssertionError(f'train step launches {counts}, expected '
                              f'{TRAIN_CENSUS}')
@@ -795,7 +985,7 @@ def phase_train():
     _cuda.LAUNCHES.clear()
     train_m, mem_m = trainer_b.run_one_epoch_rehearsal(loader, memloader)
     torch.cuda.synchronize()
-    epoch_counts = {k: _cuda.LAUNCHES[k] for k in _cuda.SOURCES}
+    epoch_counts = {k: _cuda.LAUNCHES[k] for k in _cuda.KERNELS}
     want_counts = {k: 2 * len(tb) * v for k, v in TRAIN_CENSUS.items()}
     if epoch_counts != want_counts:
         raise AssertionError(f'rehearsal epoch launches {epoch_counts}, '
@@ -954,7 +1144,7 @@ def phase_unsorted(batch):
     e_u, x_u, f_u, g_u = force_pass(unsorted_energy, model, data,
                                     weights[pt])
     torch.cuda.synchronize()
-    counts = {k: _cuda.LAUNCHES[k] for k in _cuda.SOURCES}
+    counts = {k: _cuda.LAUNCHES[k] for k in _cuda.KERNELS}
     modes = dict(MODE_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     log(f'[unsorted] one pass (forward, fij with create_graph, parameter '
@@ -1117,17 +1307,6 @@ def f64_reference(n_steps=6):
         log(f'  {key[5:]:36s} {scale:.3e} | {cf:.2e} | {jf:.2e} | {cj:.2e}')
 
 
-def card_line():
-    try:
-        out = subprocess.run(
-            ['nvidia-smi', '--query-gpu=name,power.limit',
-             '--format=csv,noheader'], capture_output=True, text=True,
-            timeout=30)
-        return out.stdout.strip().splitlines()[0]
-    except (OSError, IndexError, subprocess.SubprocessError) as e:
-        return f'nvidia-smi unavailable: {e}'
-
-
 def main():
     import torch
 
@@ -1139,6 +1318,7 @@ def main():
         return 2
     sys.path.insert(0, str(ROOT))
     from sevennet_finetuning_tpu_torch.calculator import Calculator
+    from sevennet_finetuning_tpu_torch.tools.bench_dma import card_line
 
     card = card_line()
     log(f'[device] {torch.cuda.get_device_name(0)} | {card} | torch '
@@ -1147,6 +1327,7 @@ def main():
     if sys.argv[1:] == ['--f64-reference']:
         f64_reference()
         return 0
+    probe_rows, probe_counts = phase_probes()
     calc = Calculator.from_checkpoint(str(CKPT), device='cuda')
     batch, n_real_edge = batch8(calc)
     rows = phase_kernels(calc, batch, n_real_edge)
@@ -1155,21 +1336,25 @@ def main():
     phase_profile(calc, batch)
     del calc
     path_counts = {'serve': serve_counts, 'train': phase_train(),
-                   'unsorted': phase_unsorted(batch)}
+                   'unsorted': phase_unsorted(batch), 'probes': probe_counts}
 
     # one row per kernel at its interior-block / widest shape; every
     # measured shape is under "cases".  "launches" is the count on the
-    # path named by "path" (one train step, or one unsorted pass);
-    # "launches_per_path" holds every path's: the five serve requests'
-    # total, one train step's, one unsorted pass's
+    # path named by "path" (one train step, one unsorted pass, or one run
+    # of the two probes' entry points); "launches_per_path" holds every
+    # path's: the five serve requests' total, one train step's, one
+    # unsorted pass's, the probes' run
     for path, names in PATH_KERNELS.items():
         for name in names:
             if path_counts[path].get(name, 0) == 0:
                 raise AssertionError(f'{name} was never launched on the '
                                      f'{path} path')
+    # the probes' rows: the first case (em te=256, te=256, the ring of 16
+    # rows, 4 slots, split 2, the feature probes' only case)
     kernels = []
-    for name, cases in rows.items():
-        c = (cases[2] if name == 'segment_sum' else
+    for name, cases in {**rows, **probe_rows}.items():
+        c = (cases[2] if name == 'segment_sum' else cases[0]
+             if name in PROBES else
              next(c for c in cases if c['shape'].startswith('block 1')))
         kernels.append(dict(
             name=name, route='cuda', **SOURCES[name],

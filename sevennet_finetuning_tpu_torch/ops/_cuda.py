@@ -9,9 +9,11 @@ starts one ``nvcc`` per source in parallel.
 
 Every C entry point takes device pointers, sizes and the CUDA stream,
 launches on that stream, and returns ``cudaGetLastError()``; ``check``
-turns a non-zero return into an exception.  ``LAUNCHES`` counts the
-launches of each kernel; the wrappers beside the kernels' plain versions
-increment it where they launch, and nowhere else.
+turns a non-zero return into an exception.  A source holds one entry
+point named as the source, or several (``SOURCE_OF`` names each one's
+source).  ``LAUNCHES`` counts the launches of each entry point
+(``KERNELS``); the wrappers beside the kernels' plain versions increment
+it where they launch, and nowhere else.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
 SOURCES = ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg', 'cg_gmulti',
-           'cg_quad')
+           'cg_quad', 'probe_copy', 'probe_feats')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -38,6 +40,7 @@ LAUNCHES: Counter = Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # argument types of each C entry point (pointers and the stream as
 # c_void_p: ctypes would otherwise pass them as 32-bit ints)
 SIGNATURES = {
@@ -56,7 +59,27 @@ SIGNATURES = {
     'cg_quad': ('cg_quad_f32',
                 (_P,) * 3 + (_I,) * 3 + (_P, _P, _P, _I) + (_P, _P, _I, _I)
                 + (_P, _I, _I, _I, _P)),
+    # the measurement probes of tools/ (csrc/probe_copy.cu,
+    # csrc/probe_feats.cu)
+    'probe_copy_tiled': ('probe_copy_tiled_f32',
+                         (_P, _P, _I, _I, _I, _I, _F, _P)),
+    'probe_colsum': ('probe_colsum_f32', (_P, _P, _P, _I, _I, _I, _P)),
+    'probe_copy_ring': ('probe_copy_ring_f32',
+                        (_P, _P, _I, _I, _I, _I, _I, _I, _F, _P)),
+    'probe_transpose': ('probe_transpose_f32', (_P, _P, _I, _I, _P)),
+    'probe_split': ('probe_split_f32', (_P, _P, _P, _I, _P)),
+    'probe_dot': ('probe_dot_bf16x3_f32', (_P, _P, _P, _I, _I, _I, _P)),
+    'probe_window': ('probe_window_f32', (_P, _P, _P, _I, _I, _P)),
 }
+# the source of each entry point: its own name, but for the probes'
+PROBE_ENTRIES = {
+    'probe_copy': ('probe_copy_tiled', 'probe_colsum', 'probe_copy_ring'),
+    'probe_feats': ('probe_transpose', 'probe_split', 'probe_dot',
+                    'probe_window')}
+SOURCE_OF = {name: name for name in SIGNATURES}
+SOURCE_OF.update({name: src for src, names in PROBE_ENTRIES.items()
+                  for name in names})
+KERNELS = tuple(SIGNATURES)
 
 
 def host_ptrs(tensors) -> ctypes.Array:
@@ -123,14 +146,16 @@ def build_log(name: str) -> str:
 
 
 def kernel(name: str):
-    """The C entry point of ``csrc/<name>.cu``, built on first use."""
-    if name not in _LIBS:
-        path = _lib_path(name)
+    """The C entry point ``name`` (one of ``KERNELS``), its source built
+    on first use."""
+    src = SOURCE_OF[name]
+    if src not in _LIBS:
+        path = _lib_path(src)
         if not path.exists():
-            build_all([name])
-        _LIBS[name] = ctypes.CDLL(str(path))
+            build_all([src])
+        _LIBS[src] = ctypes.CDLL(str(path))
     fn_name, argtypes = SIGNATURES[name]
-    fn = getattr(_LIBS[name], fn_name)
+    fn = getattr(_LIBS[src], fn_name)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn

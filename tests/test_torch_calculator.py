@@ -124,6 +124,22 @@ def test_port_imports_no_jax():
         'ds = GraphDataset.from_structures([s], 5.0, dict(model.spec.type_map))\n'
         'm = tr.run_one_epoch(Loader(ds, 1), is_train=True)\n'
         'assert m["TotalLoss_None"] > 0, m\n'
+        # the measurement probes: their modules and plain versions
+        'from sevennet_finetuning_tpu_torch.tools import bench_dma, '
+        'hopper_feats\n'
+        'pin = {k: torch.as_tensor(v) for k, v in '
+        'hopper_feats.probe_inputs().items()}\n'
+        'assert torch.equal(hopper_feats.transpose(pin["x"]), pin["x"].t())\n'
+        'assert torch.equal(hopper_feats.split3(pin["v"])[1], pin["v"])\n'
+        'dot = hopper_feats.dot_lane_contract(pin["a"], pin["b"])\n'
+        'assert (dot - pin["a"].t() @ pin["b"]).abs().max() < 1e-4\n'
+        'assert torch.equal(hopper_feats.window(pin["y"], pin["sel"]),\n'
+        '                   pin["y"][320:384])\n'
+        'slab = torch.randn(64, 64, generator=torch.Generator().manual_seed(0))\n'
+        'assert torch.equal(bench_dma.copy_tiled(slab, 8), slab * bench_dma.C)\n'
+        'assert torch.equal(bench_dma.copy_ring(slab, 8, 2),\n'
+        '                   slab * bench_dma.C)\n'
+        'assert bench_dma.colsum(slab, 8).shape == (1, 64)\n'
         'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
         '("jax", "jaxlib", "optax") or m.split(".")[0] == '
         '"sevennet_finetuning_tpu")\n'
