@@ -19,16 +19,21 @@ and exits non-zero if any fails:
               and the bench sweep's GB/s table with the card line;
 3. kernels -- call each kernel's wrapper at main-path shapes (a batch-8
               collate of ft900.extxyz; the conv layouts of blocks 0, 1
-              and 4 of SevenNet-0; segment sums at D = 1, 6 and 480; the
+              and 4 of SevenNet-0; segment sums at D = 1, 6 and 480 over
+              the 768 nodes and at each distinct shape a train step
+              launches, the per-graph energy and virial among them; the
               double backward's gagg of 3 terms and gmulti of 6 jobs in 3
               groups, and without its sh group; cg_multi with one job
               each of xn, shn, wn, and with xn + wn; the per-edge cg_quad
               in each mode msg / x / sh / w) and hold it against
               its plain PyTorch version:
-              max|kernel - plain| <= 2e-6 * max|plain|.  Times come from
-              CUDA events after warm-up; the bound is the larger of bytes
-              over 3.35 TB/s and fp32 operations over 67 TFLOP/s (H100
-              SXM data sheet), counted at the live edges;
+              max|kernel - plain| <= 2e-6 * max|plain| (segment_sum:
+              bit for bit against the plain version on the host CPU, which
+              adds in edge order, as the kernel does); segment_sum and
+              cg_gmulti must give the same bits in two launches.  Times
+              come from CUDA events after warm-up; the bound is the larger
+              of bytes over 3.35 TB/s and fp32 operations over 67 TFLOP/s
+              (H100 SXM data sheet), counted at the live edges;
 4. serve   -- ``Calculator.from_checkpoint`` on the in-repo SevenNet-0
               checkpoint answers each structure of ft.extxyz; results are
               held against the committed JAX-CPU golden file (energy rel
@@ -48,7 +53,8 @@ and exits non-zero if any fails:
               loss terms, every leaf's first-step gradient and the
               rehearsal epoch's metrics); every train
               step must launch agg 5, multi 10, gagg 5, gmulti 5 and
-              segment-sum 13 times.  Prints ms per step and per rehearsal
+              segment-sum 13 times, the segment sums at the shapes of
+              ``train_segment_shapes``.  Prints ms per step and per rehearsal
               iteration, edges/s, peak memory and the device busy share;
 8. unsorted -- SevenNet-0 at full width and depth on the batch-8 collate
               with every edge slot permuted (numpy seed 0), through the
@@ -245,6 +251,64 @@ def compare(name, got, want, tol=KERNEL_TOL):
                              f'version ({err:.3e} > {tol:g} * '
                              f'{scale:.3e})')
     return err
+
+
+def same_bits(name, fn):
+    """Two launches of fn on the same inputs give the same bits (the
+    kernels sum in a fixed order, with no atomics)."""
+    import torch
+
+    a, b = fn(), fn()
+    a = a if isinstance(a, (tuple, list)) else (a,)
+    b = b if isinstance(b, (tuple, list)) else (b,)
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f'{name}: two launches on the same inputs '
+                             'differ')
+    log(f'  {name}: two launches bit-identical')
+
+
+def device_us_per_call(fn, n=50):
+    """Device time per call of fn in microseconds: its device events
+    (kernels, fills) under torch.profiler over n calls, summed, / n;
+    None where the profiler records no device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = [r[2] * 1e3 for r in _device_rows(prof)]
+    return sum(us) / n if us else None
+
+
+def host_us_per_call(fn, n=200):
+    """Host time per call of fn in microseconds, n calls without a sync
+    between them (each call queues work far shorter than the call)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return dt
+
+
+def train_segment_shapes(n_edge, n_node, n_graph):
+    """(E, D, n_rows) of each segment_sum launch of one train step, with
+    its count: the per-graph energy (one row per node) and virial, the
+    two force sums, and the src-side scatters of the node features that
+    the force pass and the outer backward run for blocks 1-4 (width 480)
+    and 0 (width 128, the outer backward only)."""
+    return {(n_node, 1, n_graph): 1, (n_edge, 480, n_node): 8,
+            (n_edge, 3, n_node): 2, (n_edge, 6, n_graph): 1,
+            (n_edge, 128, n_node): 1}
 
 
 def phase_build():
@@ -444,9 +508,9 @@ def phase_kernels(calc, batch, n_real_edge):
     import torch
 
     from sevennet_finetuning_tpu_torch import keys as K
-    from sevennet_finetuning_tpu_torch.ops import scatter
+    from sevennet_finetuning_tpu_torch.ops import _cuda, scatter
     from sevennet_finetuning_tpu_torch.ops.cg_tables import (
-        agg_table, gagg_table, gmulti_table, multi_table)
+        agg_table, gagg_table, gmulti_passes, gmulti_term_count, multi_table)
     from sevennet_finetuning_tpu_torch.ops.fused_conv import (
         _MODE_LEGS, _MODE_OUT, layout_from_spec)
     from sevennet_finetuning_tpu_torch.ops.fused_conv_agg import (
@@ -454,7 +518,7 @@ def phase_kernels(calc, batch, n_real_edge):
     from sevennet_finetuning_tpu_torch.ops.fused_conv_kernel import (
         quad_cuda, quad_plain)
     from sevennet_finetuning_tpu_torch.ops.fused_conv_multi import (
-        _JOB_LEGS, gagg_cuda, gagg_plain, gmulti_cuda, gmulti_plain,
+        _EMIT_LEGS, _JOB_LEGS, gagg_cuda, gagg_plain, gmulti_cuda, gmulti_plain,
         multi_cuda, multi_plain)
 
     dev = calc.device
@@ -471,28 +535,80 @@ def phase_kernels(calc, batch, n_real_edge):
         'real edges')
     rows = {}
 
-    # --- sorted segment sum at D = 1, 6, 480 ---
+    # --- sorted segment sum: D = 1, 6, 480 over the N = 768 nodes (the
+    # kernel table's first rows), then each distinct shape a train step
+    # launches (train_segment_shapes) on this collate ---
+    G = BATCH
+    graph_of_node = batch[K.BATCH].contiguous()
+    graph_of_edge = torch.where(
+        dst < N, graph_of_node[dst.clamp(max=N - 1).long()],
+        torch.full_like(dst, G)).contiguous()
+    seg_shapes = [(E, 1, N, dst, 'table'), (E, 6, N, dst, 'table'),
+                  (E, 480, N, dst, 'table')]
+    for (e, d, n), count in train_segment_shapes(E, N, G).items():
+        idx = {(E, N): dst, (E, G): graph_of_edge,
+               (N, G): graph_of_node}[(e, n)]
+        if (e, d, n) not in [c[:3] for c in seg_shapes]:
+            seg_shapes.append((e, d, n, idx, f'{count} per train step'))
     cases = []
-    for D in (1, 6, 480):
-        msg = randn(E, D)
-        got = scatter.segment_sum_cuda(msg, dst, N)
-        want = scatter.segment_sum_plain(msg, dst, N)
-        err = compare(f'segment_sum D={D}', got, want)
-        idx_long = dst.long()
+    for e, D, n, idx, label in seg_shapes:
+        msg = randn(e, D)
+        got = scatter.segment_sum_cuda(msg, idx, n)
+        # the plain version on the host adds each row's edges in edge
+        # order, as the kernel and JAX do: the same bits.  (On the card
+        # it adds in atomic order; a 4,800-edge float32 virial row then
+        # lies ~2e-6 of max|plain| from the in-order sum.)
+        want = scatter.segment_sum_plain(msg.cpu(), idx.cpu(), n)
+        err = compare(f'segment_sum E={e} D={D} N={n}', got.cpu(), want,
+                      0.0)
+        same_bits(f'segment_sum E={e} D={D} N={n}',
+                  lambda: scatter.segment_sum_cuda(msg, idx, n))
+        idx_long = idx.long()
 
         def library():
-            return torch.zeros(N + 1, D, device=dev).index_add_(
+            return torch.zeros(n + 1, D, device=dev).index_add_(
                 0, idx_long, msg)
 
-        # only the live edges' rows are read: the kernel stops at
-        # offs[N], the first sentinel edge
-        b_ms, b_by = bound_ms(4 * (live * D + E + N * D), live * D)
-        cases.append(dict(
-            shape=f'E={E} D={D} N={N}', max_abs_err=err,
-            ms=cuda_ms(lambda: scatter.segment_sum_cuda(msg, dst, N)),
-            plain_ms=cuda_ms(lambda: scatter.segment_sum_plain(msg, dst, N)),
-            library_ms=cuda_ms(library), bound_ms=b_ms, bound_by=b_by))
+        # only the live edges' rows are read: the kernel's row ranges end
+        # at the first sentinel edge
+        n_live = int((idx < n).sum())
+        b_ms, b_by = bound_ms(4 * (n_live * D + e + n * D), n_live * D)
+        case = dict(
+            shape=f'E={e} D={D} N={n} ({label}, '
+                  f'{"staged" if scatter.segment_plan(e, D, n) else "rows"})',
+            max_abs_err=err, bit_identical=True,
+            ms=cuda_ms(lambda: scatter.segment_sum_cuda(msg, idx, n)),
+            plain_ms=cuda_ms(lambda: scatter.segment_sum_plain(msg, idx, n)),
+            library_ms=cuda_ms(library), bound_ms=b_ms, bound_by=b_by)
+        # a call split into the kernel's device time (profiler) and the
+        # wrapper's host time, index_add_'s device time (its zero fill
+        # and its kernel) beside them
+        case.update(
+            device_us=device_us_per_call(
+                lambda: scatter.segment_sum_cuda(msg, idx, n)),
+            host_us=host_us_per_call(
+                lambda: scatter.segment_sum_cuda(msg, idx, n)),
+            library_device_us=device_us_per_call(library),
+            library_host_us=host_us_per_call(library))
+        log(f'  segment_sum E={e} D={D} N={n}: device '
+            f'{case["device_us"]} us, host {case["host_us"]:.1f} us a call; '
+            f'index_add_ device {case["library_device_us"]} us, host '
+            f'{case["library_host_us"]:.1f} us')
+        cases.append(case)
     rows['segment_sum'] = cases
+    # the staged shape at its widest rows (one thread a column), and rows
+    # one wider, which take the rows shape however long: the src-side
+    # feature scatter (480) of a 12-atom graph in 1,024 edge slots
+    for e, D, n in ((4096, scatter.STAGED_MAX_D, 16), (1024, 480, 12)):
+        idx = torch.sort(torch.randint(0, n, (e,), generator=gen)).values
+        idx = idx.to(torch.int32).to(dev)
+        msg = randn(e, D)
+        compare(f'segment_sum E={e} D={D} N={n} '
+                f'(plan {scatter.segment_plan(e, D, n)})',
+                scatter.segment_sum_cuda(msg, idx, n).cpu(),
+                scatter.segment_sum_plain(msg.cpu(), idx.cpu(), n), 0.0)
+        same_bits(f'segment_sum E={e} D={D} N={n}',
+                  lambda: scatter.segment_sum_cuda(msg, idx, n))
 
     # --- agg / multi / gagg / gmulti at the layouts of blocks 0, 1, 4 ---
     agg_cases, multi_cases, gagg_cases, gmulti_cases = [], [], [], []
@@ -606,22 +722,44 @@ def phase_kernels(calc, batch, n_real_edge):
                  ('sh', 3, 2, 'sh'), ('w', 0, 4, 'w'), ('w', 3, 1, 'w')),
                 ('x', 'sh', 'w'))
         no_sh = (tuple(j for j in full[0] if j[3] != 'sh'), ('x', 'w'))
+        # CGNodeGAgg.backward of the gagg terms above with every leg live
+        # (a third order): three jobs of each emit mode, several passes
+        gagg_bwd = (tuple((leg, idx[b], idx[c], idx[leg])
+                          for term in terms
+                          for idx in [dict(zip(('x', 'sh', 'w'), term))]
+                          for leg, (b, c) in _EMIT_LEGS.items()),
+                    tuple(sorted({i for term in terms for i in term})))
         for label, (jobs, groups) in (('6 jobs x/sh/w', full),
-                                      ('4 jobs x/w (no sh)', no_sh)):
+                                      ('4 jobs x/w (no sh)', no_sh),
+                                      ('9 jobs of a gagg backward',
+                                       gagg_bwd)):
+            gi = {g: i for i, g in enumerate(groups)}
+            n_pass = len(gmulti_passes(
+                tuple((m, b, c, gi[g]) for m, b, c, g in jobs), len(groups)))
+            label = f'{label}, {n_pass} pass{"es" if n_pass > 1 else ""}'
+            before = _cuda.LAUNCHES['cg_gmulti']
             got = gmulti_cuda(ybar, pool, dst, jobs, groups, layout, N)
+            if _cuda.LAUNCHES['cg_gmulti'] - before != n_pass:
+                raise AssertionError(f'cg_gmulti block {t} {label}: counted '
+                                     f'{_cuda.LAUNCHES["cg_gmulti"] - before}'
+                                     f' launches for {n_pass} passes')
             want = gmulti_plain(ybar, pool, dst, jobs, groups, layout, N)
             err = compare(f'cg_gmulti block {t} {label}', got, want)
-            gidx = {g: i for i, g in enumerate(groups)}
-            tab = gmulti_table(layout, tuple((m, b, c, gidx[g])
-                                             for m, b, c, g in jobs),
-                               len(groups), pool_dims)
+            same_bits(f'cg_gmulti block {t} {label}',
+                      lambda: gmulti_cuda(ybar, pool, dst, jobs, groups,
+                                          layout, N))
+            # the function's scalar couplings x jobs, counted as a table
+            # of 16-byte terms with 4 operations each, as the bound of the
+            # per-term table the first kernel read, so the times compare
+            n_terms = gmulti_term_count(layout, len(jobs))
             b_ms, b_by = bound_ms(
                 pool_bytes(i for _, b, c, _ in jobs for i in (b, c))
                 + 4 * E + 4 * N * layout.dim_msg
-                + 4 * E * sum(tab.out_dims) + 16 * tab.terms.shape[0],
-                live * 4 * tab.terms.shape[0])
+                + 4 * E * sum(g.shape[1] for g in got) + 16 * n_terms,
+                live * 4 * n_terms)
             gmulti_cases.append(dict(
                 shape=f'block {t} {label}: E={E} N={N}', max_abs_err=err,
+                bit_identical=True,
                 ms=cuda_ms(lambda: gmulti_cuda(ybar, pool, dst, jobs, groups,
                                                layout, N)),
                 plain_ms=cuda_ms(lambda: gmulti_plain(
@@ -747,6 +885,21 @@ def _self_device_us(evt):
     return 0.0
 
 
+def _device_rows(prof):
+    """(key, count, ms) of the device's own events (kernels, copies,
+    fills).  CPU ops carry their kernels' time too and would count it
+    twice, and so would a user range (``record_function``: the
+    optimizer's ``Optimizer.step#Adam.step``) that the profiler also
+    lays on the device's timeline over the kernels it spans."""
+    avgs = prof.key_averages()
+    cpu_keys = {e.key for e in avgs
+                if not str(getattr(e, 'device_type', '')).endswith('CUDA')}
+    return [(e.key, e.count, _self_device_us(e) / 1e3) for e in avgs
+            if str(getattr(e, 'device_type', '')).endswith('CUDA')
+            and not getattr(e, 'is_user_annotation', False)
+            and e.key not in cpu_keys and _self_device_us(e) > 0]
+
+
 def profile_device(label, fn, top=12):
     """One run of ``fn`` under torch.profiler: wall time, device busy
     share (device time / wall time) and device time by kernel."""
@@ -759,12 +912,7 @@ def profile_device(label, fn, top=12):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    # device-side events only (kernels, copies): CPU ops carry their
-    # kernels' time too and would count it twice
-    rows = [(e.key, e.count, _self_device_us(e) / 1e3)
-            for e in prof.key_averages()
-            if str(getattr(e, 'device_type', '')).endswith('CUDA')
-            and _self_device_us(e) > 0]
+    rows = _device_rows(prof)
     if not rows:
         log(f'[profile] {label}: device time not measured (the profiler '
             'recorded no device events)')
@@ -901,21 +1049,42 @@ def ft900_batches(trainer, gold):
 
 def step_census(trainer, batch, acc):
     """One train step with the launch counts set to 0 just before it and
-    read just after; returns (acc, terms, counts, ms)."""
+    read just after, and the (E, D, n_rows) of each segment_sum launch;
+    returns (acc, terms, counts, ms)."""
+    from collections import Counter
+
     import torch
 
-    from sevennet_finetuning_tpu_torch.ops import _cuda
+    from sevennet_finetuning_tpu_torch import keys as K
+    from sevennet_finetuning_tpu_torch.ops import _cuda, scatter
+
+    shapes = Counter()
+    launch = scatter.segment_sum_cuda
+
+    def recorded(msg, dst, n_rows):
+        shapes[(msg.shape[0], msg.shape[1], n_rows)] += 1
+        return launch(msg, dst, n_rows)
 
     torch.cuda.synchronize()
     _cuda.LAUNCHES.clear()
-    t0 = time.perf_counter()
-    acc, terms = trainer.train_step(batch, acc)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
+    scatter.segment_sum_cuda = recorded
+    try:
+        t0 = time.perf_counter()
+        acc, terms = trainer.train_step(batch, acc)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        scatter.segment_sum_cuda = launch
     counts = {k: _cuda.LAUNCHES[k] for k in _cuda.KERNELS}
     if counts != TRAIN_CENSUS:
         raise AssertionError(f'train step launches {counts}, expected '
                              f'{TRAIN_CENSUS}')
+    want = train_segment_shapes(batch[K.EDGE_IDX].shape[1],
+                                batch[K.POS].shape[0],
+                                batch[K.CELL].shape[0])
+    if shapes != want:
+        raise AssertionError(f'train step segment_sum shapes '
+                             f'{dict(shapes)}, expected {want}')
     return acc, terms, counts, ms
 
 
@@ -974,6 +1143,11 @@ def phase_train():
             check_terms('ft900', terms, gold, i, weights, TRAJ_TOL)
         if i == 0:
             check_grads('ft900', trainer, gold)
+            shapes = train_segment_shapes(b[K.EDGE_IDX].shape[1],
+                                          b[K.POS].shape[0],
+                                          b[K.CELL].shape[0])
+            log(f'  segment_sum launches per train step by (E, D, n_rows): '
+                f'{shapes} (asserted every step)')
     step_metrics = trainer._finalize(*accs)
 
     # the user's entry point: one rehearsal epoch from a fresh trainer

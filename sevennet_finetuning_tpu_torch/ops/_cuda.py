@@ -44,7 +44,7 @@ _F = ctypes.c_float
 # argument types of each C entry point (pointers and the stream as
 # c_void_p: ctypes would otherwise pass them as 32-bit ints)
 SIGNATURES = {
-    'segment_sum': ('seg_sum_sorted_f32', (_P, _P, _P, _I, _I, _P)),
+    'segment_sum': ('seg_sum_sorted_f32', (_P, _P, _P) + (_I,) * 4 + (_P,)),
     'cg_agg': ('cg_agg_f32',
                (_P, _P, _P, _P, _P, _P, _P) + (_I,) * 6 + (_P,)),
     'cg_multi': ('cg_multi_f32',
@@ -54,8 +54,7 @@ SIGNATURES = {
     'cg_gagg': ('cg_gagg_f32',
                 (_P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P)),
     'cg_gmulti': ('cg_gmulti_f32',
-                  (_P, _P, _P, _I) + (_P,) * 5 + (_I,) + (_P, _P, _I, _I)
-                  + (_P, _P, _I) + (_I,) * 4 + (_P,)),
+                  (_P, _P, _I, _P, _I) + (_P,) * 4 + (_I,) * 8 + (_P,)),
     'cg_quad': ('cg_quad_f32',
                 (_P,) * 3 + (_I,) * 3 + (_P, _P, _P, _I) + (_P, _P, _I, _I)
                 + (_P, _I, _I, _I, _P)),
@@ -92,6 +91,7 @@ def host_ints(values) -> ctypes.Array:
     return (ctypes.c_int * len(values))(*values)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[str, ctypes._CFuncPtr] = {}
 
 
 def nvcc_path() -> str:
@@ -147,7 +147,10 @@ def build_log(name: str) -> str:
 
 def kernel(name: str):
     """The C entry point ``name`` (one of ``KERNELS``), its source built
-    on first use."""
+    on first use; the typed function is kept, so a call costs a lookup."""
+    fn = _FNS.get(name)
+    if fn is not None:
+        return fn
     src = SOURCE_OF[name]
     if src not in _LIBS:
         path = _lib_path(src)
@@ -158,6 +161,7 @@ def kernel(name: str):
     fn = getattr(_LIBS[src], fn_name)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
+    _FNS[name] = fn
     return fn
 
 
@@ -168,7 +172,12 @@ def check(name: str, rc: int) -> None:
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of the current CUDA stream on ``device``, without
+    building a ``torch.cuda.Stream`` (a few microseconds a call)."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def require(t: torch.Tensor, name: str, dtype, shape=None) -> None:

@@ -21,11 +21,11 @@ tables are built once per ``CGLayout`` from its nonzero Wigner-3j terms
 - gagg (the double backward's ybar cotangent, a sum of agg terms):
   row = [pool_0 | pool_1 | ...]; a CSR over (msg column, agg term), so
   the kernel keeps one sum per term and adds them left to right.
-- gmulti (every edge-side cotangent of the double backward): row =
-  [g | pool_0 | pool_1 | ...]; jobs (emit mode, two pool legs, group)
-  write grouped outputs.  An xn or wn item of a group is a list of
-  segments, one per job in job order, each summed on its own and then
-  added; shn columns are chunked as in multi, job after job.
+- gmulti (every edge-side cotangent of the double backward) is not a
+  term table: ``gmulti_plan`` lists each path's couplings (k, i, j, c)
+  once, for every channel u and every job, and the kernel's threads
+  are the channels (see ``GMultiPlan``); ``gmulti_passes`` lays the
+  jobs (emit mode, two pool legs, group) into its slots.
 - quad (the per-edge modes, no aggregation): row = the mode's three
   legs in ``_MODE_LEGS`` order.  'msg' is agg's table, one item per msg
   column; 'x', 'sh' and 'w' are multi's single xn / shn / wn job with its
@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -219,87 +219,210 @@ def gagg_table(layout: CGLayout, terms: Tuple[Tuple[int, int, int], ...],
     return _pack(cols)
 
 
-@dataclass(frozen=True)
-class GMultiTable:
-    item_seg: np.ndarray     # [n_items + 1] into the segments
-    seg_start: np.ndarray    # [n_seg + 1] into the terms
-    item_out: np.ndarray     # [n_items]: >= 0 output column, < 0 partial
-    terms: np.ndarray        # [T, 4]
-    red_start: np.ndarray    # [n_red + 1] into the partials
-    red_out: np.ndarray      # [n_red] output column of each reduction
-    n_part: int
-    out_dims: Tuple[int, ...]
-
+# --- gmulti: the path-level coupling list of csrc/cg_gmulti.cu ---
 
 _EMIT_DIM = {'x': 'dim_x', 'sh': 'dim_sh', 'w': 'dim_w'}
+GMULTI_MODES = ('x', 'sh', 'w')
+GMULTI_SLOTS = 2          # jobs of one emit mode in one kernel pass
+GMULTI_MAX_D = 7          # irrep dims the kernel is compiled for (l <= 3)
+# phases of every chunk (a work unit: one slice and the tile's edges e
+# with e % n_phase == phase), measured at SevenNet-0's blocks against 1-16
+# (tools/gmulti_phases.py): chunks of one irrep dim (block 0's one scalar
+# chunk) run fastest at 2 phases, chunks of several dims (blocks 1-4:
+# 0e / 1 / 2, unequal costs) at one edge a unit, which spreads the costs
+# evenly over a block's warps
+GMULTI_PHASES_ONE_DIM = 2
+WARP = 32
+
+
+@dataclass(frozen=True)
+class GMultiPlan:
+    """A layout's couplings for csrc/cg_gmulti.cu, one entry per path
+    coupling (k, i, j, c), shared by every job and every channel u.
+
+    A chunk is one x irrep (its groups share d1 and mul); a lane of a
+    warp is one channel u of it.  Channels run in slices of 32 (one warp
+    each, ``n_slice`` in all), and a work unit (``descs``) is a slice and
+    the edges e of a tile with e % n_phase == phase.  x columns no group
+    reads form chunks without groups (zero cotangents)."""
+
+    chunks: np.ndarray      # [n_chunk, 6] x_off, d1, mul, group begin, end,
+                            #   id of the chunk's first slice
+    groups: np.ndarray      # [n_group, 4] sh_off, d2, path begin, end
+    paths: np.ndarray       # [n_path, 4] msg_off, w_off, pair begin, 0
+    pair_start: np.ndarray  # per path d1 * d2 + 1 coupling offsets, one
+                            #   segment per (i, j), i-major
+    couplings: np.ndarray   # [n_coup, 2] k * mul, float bits of c
+    descs: np.ndarray       # [n_desc, 4] chunk, first channel, phase,
+                            #   n_phase
+    n_slice: int
+
+    def packed(self) -> Tuple[np.ndarray, Tuple[int, ...]]:
+        """(one int32 array of every section, meta): meta = (n_chunk,
+        n_desc, n_slice, offsets of chunks, groups, paths, pair_start,
+        couplings, descs, total length)."""
+        flat, offs = [], []
+        for a in (self.chunks, self.groups, self.paths, self.pair_start,
+                  self.couplings, self.descs):
+            if a is self.couplings and sum(map(len, flat)) % 2:
+                flat.append(np.zeros(1, np.int32))   # 8-byte aligned
+            offs.append(sum(map(len, flat)))
+            flat.append(a.reshape(-1))
+        flat = np.concatenate(flat).astype(np.int32)
+        return flat, (len(self.chunks), len(self.descs), self.n_slice,
+                      *offs, len(flat))
 
 
 @functools.lru_cache(maxsize=None)
-def gmulti_table(layout: CGLayout, jobs: Tuple[Tuple[str, int, int, int], ...],
-                 n_groups: int, pool_dims: Tuple[int, ...]) -> GMultiTable:
-    """Work items for grouped jobs (emit mode, b pool index, c pool index,
-    group index), row = [g | pool_0 | ...]; outputs are the groups'
-    columns concatenated in group order."""
-    P = _pool_offsets(pool_dims, base=layout.dim_msg)
-    emit = [None] * n_groups
-    per_job: List[List[list]] = []
-    for (m, bi, ci, grp) in jobs:
+def gmulti_plan(layout: CGLayout, edges_per_block: int,
+                n_phase: Optional[int] = None) -> GMultiPlan:
+    """The layout's coupling list, its tiles of ``edges_per_block`` edges
+    split into ``n_phase`` phases for every chunk (None: the measured
+    rule, ``GMULTI_PHASES_ONE_DIM`` or one edge a work unit)."""
+    by_x: Dict[int, list] = {}
+    for grp in layout.groups:
+        if max(grp.d1, grp.d2) > GMULTI_MAX_D:
+            raise ValueError(f'cg_gmulti takes irreps of dim <= '
+                             f'{GMULTI_MAX_D}, got {grp.d1} x {grp.d2}')
+        by_x.setdefault(grp.x_off, []).append(grp)
+    # x columns outside every group: chunks without groups
+    spans = sorted((off, gs[0].d1, gs[0].mul, gs) for off, gs in by_x.items())
+    full, pos = [], 0
+    for off, d1, mul, gs in spans:
+        if off > pos:
+            full.append((pos, 1, off - pos, []))
+        full.append((off, d1, mul, gs))
+        pos = off + d1 * mul
+    if pos < layout.dim_x:
+        full.append((pos, 1, layout.dim_x - pos, []))
+
+    chunks, groups, paths, pair_start, coups = [], [], [], [], []
+    n_slice = 0
+    w_cover = np.zeros(layout.dim_w, np.int64)
+    for off, d1, mul, gs in full:
+        chunks.append((off, d1, mul, len(groups), len(groups) + len(gs),
+                       n_slice))
+        n_slice += -(-mul // WARP)
+        for grp in gs:
+            groups.append((grp.sh_off, grp.d2, len(paths),
+                           len(paths) + len(grp.paths)))
+            for p in grp.paths:
+                paths.append((p.msg_off, p.w_off, len(pair_start), 0))
+                w_cover[p.w_off:p.w_off + mul] += 1
+                pairs: List[list] = [[] for _ in range(d1 * grp.d2)]
+                for (k, i, j, c) in p.nnz:
+                    pairs[i * grp.d2 + j].append((k * mul, c))
+                for seg in pairs:
+                    pair_start.append(len(coups))
+                    coups.extend(seg)
+                pair_start.append(len(coups))
+    if not (w_cover == 1).all():
+        raise ValueError('cg_gmulti: the paths do not cover every w column '
+                         'exactly once')
+
+    if n_phase is None:
+        n_phase = (GMULTI_PHASES_ONE_DIM if len({f[1] for f in full}) == 1
+                   else edges_per_block)
+    if not 1 <= n_phase <= edges_per_block:
+        raise ValueError(f'cg_gmulti: {n_phase} phases for tiles of '
+                         f'{edges_per_block} edges')
+    descs = [(q, sl * WARP, ph, n_phase)
+             for q, (_, _, mul, _) in enumerate(full)
+             for sl in range(-(-mul // WARP)) for ph in range(n_phase)]
+
+    coup = np.zeros((max(len(coups), 1), 2), np.int32)
+    if coups:
+        coup[:len(coups), 0] = [c[0] for c in coups]
+        coup[:len(coups), 1] = np.asarray([c[1] for c in coups],
+                                          np.float32).view(np.int32)
+    return GMultiPlan(
+        chunks=np.asarray(chunks, np.int32).reshape(-1, 6),
+        groups=np.asarray(groups, np.int32).reshape(-1, 4),
+        paths=np.asarray(paths, np.int32).reshape(-1, 4),
+        pair_start=np.asarray(pair_start, np.int32),
+        couplings=coup,
+        descs=np.asarray(descs, np.int32).reshape(-1, 4),
+        n_slice=n_slice)
+
+
+# the legs each emit mode's slot s reads, as (leg, leg slot) pairs
+_SLOT_LEGS = {'x': lambda s: (('S', s), ('W', s)),
+              'sh': lambda s: (('X', s), ('W', s)),
+              'w': lambda s: (('X', s), ('S', 1 - s))}
+PASS_LEN = 6 + 3 * GMULTI_SLOTS * 2
+
+
+@functools.lru_cache(maxsize=None)
+def gmulti_passes(jobs: Tuple[Tuple[str, int, int, int], ...],
+                  n_groups: int) -> np.ndarray:
+    """The kernel passes of grouped jobs (emit mode, b pool index, c pool
+    index, group index): int32 [n_pass, PASS_LEN], the pool indices of
+    the legs X0, X1, S0, S1, W0, W1, then (group, add) of slots 0 and 1
+    of the x, sh and w modes; -1 where unused.
+
+    Slot s of the x mode reads (S[s], W[s]), of sh (X[s], W[s]), of w
+    (X[s], S[1 - s]): the pairing of CGNodeMulti.backward's six jobs,
+    which fill one pass and load each leg once.  A job takes the first
+    slot of its mode whose legs are unset or already its own; where none
+    is, the pass closes and the next begins.  ``add`` is 1 where an
+    earlier pass wrote the group, whose jobs the kernel then adds to it;
+    two slots of one pass and group are added in slot order."""
+    emit: List[str] = [None] * n_groups
+    for (m, _, _, grp) in jobs:
+        if m not in GMULTI_MODES:
+            raise ValueError(f'gmulti emit mode {m}')
         if emit[grp] not in (None, m):
             raise ValueError(f'group {grp} mixes emit modes {emit[grp]}, {m}')
         emit[grp] = m
-        cols: List[list] = [[] for _ in range(getattr(layout, _EMIT_DIM[m]))]
-        for g, p, k, i, j, c, u in _iter_terms(layout):
-            ga = p.msg_off + k * g.mul + u
-            xo = g.x_off + i * g.mul + u
-            so = g.sh_off + j
-            wo = p.w_off + u
-            if m == 'x':
-                cols[xo].append((P[bi] + so, ga, P[ci] + wo, c))
-            elif m == 'sh':
-                cols[so].append((P[bi] + xo, ga, P[ci] + wo, c))
-            else:
-                cols[wo].append((P[bi] + xo, P[ci] + so, ga, c))
-        per_job.append(cols)
     if None in emit:
         raise ValueError('a group has no job')
 
-    segs: List[list] = []
-    item_seg = [0]
-    item_out: List[int] = []
-    red_start = [0]
-    red_out: List[int] = []
-    n_part = 0
-    base = 0
-    for grp, m in enumerate(emit):
-        mine = [per_job[q] for q, job in enumerate(jobs) if job[3] == grp]
-        dim = getattr(layout, _EMIT_DIM[m])
-        for col in range(dim):
-            if m != 'sh':
-                segs.extend(cols[col] for cols in mine)
-                item_seg.append(len(segs))
-                item_out.append(base + col)
-                continue
-            for cols in mine:
-                terms = cols[col]
-                for s in range(0, len(terms), SH_CHUNK):
-                    segs.append(terms[s:s + SH_CHUNK])
-                    item_seg.append(len(segs))
-                    item_out.append(-(n_part + 1))
-                    n_part += 1
-            red_start.append(n_part)
-            red_out.append(base + col)
-        base += dim
-    seg_start, packed = _pack(segs)
-    return GMultiTable(
-        item_seg=np.asarray(item_seg, np.int32),
-        seg_start=seg_start,
-        item_out=np.asarray(item_out, np.int32),
-        terms=packed,
-        red_start=np.asarray(red_start, np.int32),
-        red_out=np.asarray(red_out if red_out else [0], np.int32),
-        n_part=n_part,
-        out_dims=tuple(getattr(layout, _EMIT_DIM[m]) for m in emit),
-    )
+    def fresh():
+        return ({leg: [-1] * GMULTI_SLOTS for leg in 'XSW'},
+                {m: [-1] * GMULTI_SLOTS for m in GMULTI_MODES})
+
+    def place(cur, m, b, c, grp):
+        legs, slots = cur
+        for s in range(GMULTI_SLOTS):
+            (lb, sb), (lc, sc) = _SLOT_LEGS[m](s)
+            if (slots[m][s] < 0 and legs[lb][sb] in (-1, b)
+                    and legs[lc][sc] in (-1, c)):
+                legs[lb][sb], legs[lc][sc], slots[m][s] = b, c, grp
+                return True
+        return False
+
+    opened = [fresh()]
+    for (m, b, c, grp) in jobs:
+        if not place(opened[-1], m, b, c, grp):
+            opened.append(fresh())
+            place(opened[-1], m, b, c, grp)
+    out = np.full((len(opened), PASS_LEN), -1, np.int32)
+    written: set = set()
+    for q, (legs, slots) in enumerate(opened):
+        out[q, :6] = legs['X'] + legs['S'] + legs['W']
+        for mi, m in enumerate(GMULTI_MODES):
+            for s, grp in enumerate(slots[m]):
+                if grp >= 0:
+                    col = 6 + (mi * GMULTI_SLOTS + s) * 2
+                    out[q, col:col + 2] = (grp, int(grp in written))
+        written.update(g for m in GMULTI_MODES for g in slots[m] if g >= 0)
+    return out
+
+
+def gmulti_out_dims(layout: CGLayout,
+                    jobs: Tuple[Tuple[str, int, int, int], ...],
+                    n_groups: int) -> Tuple[int, ...]:
+    """Width of each group's output: its emit mode's leg."""
+    emit = {grp: m for (m, _, _, grp) in jobs}
+    return tuple(getattr(layout, _EMIT_DIM[emit[g]]) for g in range(n_groups))
+
+
+def gmulti_term_count(layout: CGLayout, n_jobs: int) -> int:
+    """Scalar couplings (one per path coupling and channel u) times jobs:
+    the triple products the function sums per edge, which the kernel
+    table's bound counts."""
+    return n_jobs * sum(len(p.nnz) * g.mul for g in layout.groups
+                        for p in g.paths)
 
 
 _DEVICE_CACHE: Dict[tuple, tuple] = {}

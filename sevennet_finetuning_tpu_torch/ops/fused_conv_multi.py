@@ -14,7 +14,8 @@ Functions of this family (so a third order works too):
   ``csrc/cg_gagg.cu``.
 - ``CGNodeGMulti``: node-mode jobs (emit mode, two pool legs, group) over
   one shared ybar, grouped outputs -- every edge-side cotangent of a
-  double backward.  Kernel ``csrc/cg_gmulti.cu``.
+  double backward.  Kernel ``csrc/cg_gmulti.cu``, driven by the layout's
+  path-level coupling list (``cg_tables.gmulti_plan``).
 
 ``CGNodeMulti.backward`` is JAX's ``_multi_transpose`` fused the way
 ``_mls_transpose`` fuses it: for jobs (xn, shn, wn) with cotangents
@@ -30,12 +31,14 @@ runs the kernel's plain PyTorch version beside it.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+import functools
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from . import _cuda
-from .cg_tables import gagg_table, gmulti_table, multi_table, on_device
+from .cg_tables import (gagg_table, gmulti_out_dims, gmulti_passes,
+                        gmulti_plan, multi_table, on_device)
 from .fused_conv import CGLayout
 from .fused_conv_agg import agg_plain, node_mode_plain
 from .scatter import row_offsets
@@ -308,9 +311,12 @@ def gmulti_plain(ybar, pool, dst, jobs, groups, layout: CGLayout,
 
 
 def gmulti_cuda(ybar, pool, dst, jobs, groups, layout: CGLayout,
-                n_node: int):
+                n_node: int, n_phase: Optional[int] = None):
     """The CUDA kernel: ybar [n_node, dim_msg], pool of [E, dim] f32 edge
-    arrays, dst [E] int32 ascending -> one [E, dim] array per group."""
+    arrays, dst [E] int32 ascending -> one [E, dim] array per group; one
+    launch per pass (``gmulti_passes``).  ``n_phase``: the plan's phases
+    (``gmulti_plan``, None for its measured rule; any count gives the
+    same bits)."""
     E = dst.shape[0]
     _cuda.require(ybar, 'ybar', torch.float32, (n_node, layout.dim_msg))
     _require_pool(pool, E)
@@ -323,25 +329,36 @@ def gmulti_cuda(ybar, pool, dst, jobs, groups, layout: CGLayout,
     roles = {}
     for (m, bi, ci, _) in norm:
         roles.update(zip((bi, ci), _EMIT_LEGS[m]))
-    pool_dims = _pool_dims(layout, pool, roles)
-    tab = gmulti_table(layout, norm, len(groups), pool_dims)
-    item_seg, seg_start, item_out, terms, red_start, red_out = on_device(
-        ('gmulti', layout, norm, len(groups), pool_dims),
-        (tab.item_seg, tab.seg_start, tab.item_out, tab.terms,
-         tab.red_start, tab.red_out), dst.device)
+    _pool_dims(layout, pool, roles)
+    flat, meta, passes, n_pass, out_dims = _gmulti_args(
+        layout, norm, len(groups), n_phase)
+    (plan,) = on_device(('gmulti', layout, EDGES_PER_BLOCK, n_phase),
+                        (flat,), dst.device)
     outs = [torch.empty((E, d), dtype=torch.float32, device=dst.device)
-            for d in tab.out_dims]
+            for d in out_dims]
     fn = _cuda.kernel('cg_gmulti')
-    _cuda.LAUNCHES['cg_gmulti'] += 1
+    if E:
+        _cuda.LAUNCHES['cg_gmulti'] += n_pass
     _cuda.check('cg_gmulti', fn(
-        ybar.data_ptr(), _cuda.host_ptrs(pool), _cuda.host_ints(pool_dims),
-        len(pool), dst.data_ptr(), item_seg.data_ptr(),
-        seg_start.data_ptr(), item_out.data_ptr(), terms.data_ptr(),
-        len(tab.item_out), red_start.data_ptr(), red_out.data_ptr(),
-        len(tab.red_start) - 1, tab.n_part, _cuda.host_ptrs(outs),
-        _cuda.host_ints(tab.out_dims), len(outs), E, n_node,
-        layout.dim_msg, EDGES_PER_BLOCK, _cuda.stream_ptr(dst.device)))
+        ybar.data_ptr(), _cuda.host_ptrs(pool), len(pool),
+        _cuda.host_ptrs(outs), len(outs), dst.data_ptr(), plan.data_ptr(),
+        meta, passes, n_pass, E, n_node, layout.dim_x, layout.dim_sh,
+        layout.dim_w, layout.dim_msg, EDGES_PER_BLOCK,
+        _cuda.stream_ptr(dst.device)))
     return tuple(outs)
+
+
+@functools.lru_cache(maxsize=None)
+def _gmulti_args(layout: CGLayout, jobs, n_groups: int,
+                 n_phase: Optional[int]):
+    """Host side of a gmulti launch, per (layout, jobs, phases): the
+    packed plan, its meta and the passes as C int arrays, the number of
+    passes and the groups' widths."""
+    flat, meta = gmulti_plan(layout, EDGES_PER_BLOCK, n_phase).packed()
+    passes = gmulti_passes(jobs, n_groups)
+    return (flat, _cuda.host_ints(meta),
+            _cuda.host_ints(passes.reshape(-1).tolist()), len(passes),
+            gmulti_out_dims(layout, jobs, n_groups))
 
 
 class CGNodeGMulti(torch.autograd.Function):

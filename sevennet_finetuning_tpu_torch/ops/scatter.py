@@ -34,6 +34,7 @@ step's force loss) stays on the kernel and runs no accumulating scatter.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -42,7 +43,9 @@ from . import _cuda
 
 
 def row_offsets(dst: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """CSR offsets of an ascending index: rows n own [offs[n], offs[n+1])."""
+    """CSR offsets of an ascending index: rows n own [offs[n], offs[n+1])
+    (the cg_agg, cg_gagg and cg_multi wrappers pass them to their
+    kernels; segment_sum's kernel finds its row bounds itself)."""
     bounds = torch.arange(n_rows + 1, dtype=dst.dtype, device=dst.device)
     return torch.searchsorted(dst, bounds).to(torch.int32)
 
@@ -55,19 +58,43 @@ def segment_sum_plain(msg: torch.Tensor, dst: torch.Tensor,
     return out[:n_rows]
 
 
+# the staged shape serves calls with at most this many output elements
+STAGED_MAX_OUTPUTS = 16384
+# ... over rows of at least this many edges on average
+STAGED_MIN_EDGES_PER_ROW = 64
+# floats of one of its two shared-memory buffers (csrc/segment_sum.cu)
+STAGED_FLOATS = 4096
+# ... and its threads, one a column: wider rows take the rows shape
+STAGED_MAX_D = 256
+
+
+@functools.lru_cache(maxsize=None)
+def segment_plan(n_edge: int, d: int, n_rows: int) -> int:
+    """The kernel's shape for msg [n_edge, d] into n_rows rows, both
+    adding each row's edges in edge order: 0 for one thread per output
+    element, else the staged shape's edges per chunk (one block a row,
+    the row staged through shared memory).  Few output elements over
+    long rows (the per-graph energy and virial) are staged."""
+    if (n_rows == 0 or d == 0 or d > STAGED_MAX_D
+            or n_rows * d > STAGED_MAX_OUTPUTS
+            or -(-n_edge // n_rows) < STAGED_MIN_EDGES_PER_ROW):
+        return 0
+    return STAGED_FLOATS // d
+
+
 def segment_sum_cuda(msg: torch.Tensor, dst: torch.Tensor,
                      n_rows: int) -> torch.Tensor:
-    """The CUDA kernel: msg [E, D] f32, dst [E] int32 ascending."""
+    """The CUDA kernel: msg [E, D] f32, dst [E] int32 ascending; one
+    launch, the row bounds found on the device."""
     E, D = msg.shape
     _cuda.require(msg, 'msg', torch.float32)
     _cuda.require(dst, 'dst', torch.int32, (E,))
-    offs = row_offsets(dst, n_rows)
-    out = torch.empty((n_rows, D), dtype=msg.dtype, device=msg.device)
+    out = msg.new_empty((n_rows, D))
     fn = _cuda.kernel('segment_sum')
     _cuda.LAUNCHES['segment_sum'] += 1
     _cuda.check('segment_sum', fn(
-        msg.data_ptr(), offs.data_ptr(), out.data_ptr(), n_rows, D,
-        _cuda.stream_ptr(msg.device)))
+        msg.data_ptr(), dst.data_ptr(), out.data_ptr(), E, n_rows, D,
+        segment_plan(E, D, n_rows), _cuda.stream_ptr(msg.device)))
     return out
 
 

@@ -11,6 +11,9 @@
   kernels (``ops/cg_tables.py``), walked the way the kernels walk them,
   against the plain versions -- so a table bug shows here, before the
   card;
+- a float32 walk of ``csrc/segment_sum.cu``'s order (each row's edges
+  in edge order, in either of ``segment_plan``'s shapes) against the
+  plain version, bit for bit: empty rows, a sentinel tail, N << E;
 - sentinel destinations (padded edges, dst = n_node) throughout.
 
 Tolerance: 2e-5 relative to the largest magnitude of the reference
@@ -371,3 +374,74 @@ def test_sevennet0_tables_match_plain(sevennet_specs, block):
     for g, w in zip(got, want):
         _close(g, w.numpy())
         assert np.all(g[-2:] == 0.0)      # sentinel edges: zero cotangent
+
+
+# ---------------------------------------------------------------------------
+# segment_sum.cu's order, walked on the CPU
+# ---------------------------------------------------------------------------
+
+def walk_segment_sum(msg, dst, n_rows):
+    """segment_sum.cu in numpy, float32, in the kernel's order (both of
+    ``segment_plan``'s shapes): a row's edge range from lower bounds of n
+    and n + 1, its edges added in edge order from 0 (the staged shape's
+    chunks only change where the values are read)."""
+    E, D = msg.shape
+    chunk = scatter.segment_plan(E, D, n_rows) or E
+    offs = np.searchsorted(dst, np.arange(n_rows + 1), side='left')
+    out = np.zeros((n_rows, D), np.float32)
+    for n in range(n_rows):
+        acc = np.zeros(D, np.float32)
+        for c in range(offs[n], offs[n + 1], chunk):
+            for row in msg[c:min(c + chunk, offs[n + 1])]:
+                acc = acc + row
+        out[n] = acc
+    return out
+
+
+# (E, D, N, rows left empty, sentinel tail): N << E (the per-graph
+# energy and virial: staged), N = E / 50 (per node: one thread per
+# output), wide rows, empty rows, a sentinel tail
+SEG_CASES = [(2000, 1, 3, (), 0), (6000, 6, 8, (2, 5), 40),
+             (2000, 3, 40, (0, 7, 39), 25), (2000, 1, 40, (), 0),
+             (600, 128, 200, (3, 4), 17), (96, 6, 8, (1,), 5)]
+
+
+@pytest.mark.parametrize('E,D,N,empty,tail', SEG_CASES)
+def test_segment_sum_walk_matches_plain(E, D, N, empty, tail):
+    rng = np.random.default_rng(E + D + N)
+    keep = np.setdiff1d(np.arange(N), empty)
+    dst = np.sort(rng.choice(keep, E)).astype(np.int32)
+    if tail:
+        dst[-tail:] = N
+    msg = rng.normal(size=(E, D)).astype(np.float32)
+    want = scatter.segment_sum_plain(torch.from_numpy(msg),
+                                     torch.from_numpy(dst), N).numpy()
+    got = walk_segment_sum(msg, dst, N)
+    _close(got, want)
+    assert np.all(got[list(empty)] == 0.0)
+    # the order is index_add_'s on the CPU: the same bits
+    assert np.array_equal(got, want)
+
+
+def test_segment_plan_stages_the_per_graph_reduces():
+    """The main path's per-graph energy (96 atoms a graph) and virial
+    (~4,800 edges a graph) take the staged shape; per-node sums and wide
+    rows one thread per output element; a chunk fills one buffer."""
+    assert scatter.segment_plan(768, 1, 8) == scatter.STAGED_FLOATS
+    assert scatter.segment_plan(38080, 6, 8) == scatter.STAGED_FLOATS // 6
+    for E, D, N in ((38080, 480, 768), (38080, 128, 768), (38080, 3, 768),
+                    (38080, 1, 768), (96, 6, 8)):
+        assert scatter.segment_plan(E, D, N) == 0
+    for E, D, N in ((6000, 6, 8), (2000, 1, 3), (10 ** 6, 5000, 1)):
+        c = scatter.segment_plan(E, D, N)
+        assert 0 <= c * D <= scatter.STAGED_FLOATS
+
+
+def test_segment_plan_keeps_wide_rows_off_the_staged_shape():
+    """The staged block adds one column a thread over 256 threads: wider
+    rows, however few and long, take one thread per output element -- as
+    the src-side feature scatter (width 480) of a 12-atom graph padded to
+    1,024 edge slots does."""
+    assert scatter.segment_plan(1024, 480, 12) == 0
+    assert scatter.segment_plan(4096, scatter.STAGED_MAX_D + 1, 16) == 0
+    assert scatter.segment_plan(4096, scatter.STAGED_MAX_D, 16) == 16

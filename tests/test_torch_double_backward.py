@@ -5,9 +5,10 @@
   and on SevenNet-0's interior layout (block 1 of the in-repo checkpoint)
   with few edges, including sentinel edges and an all-sentinel edge tile
   (the Pallas kernels' edge tile is 128);
-- CPU evaluators of the term tables that drive ``csrc/cg_gagg.cu`` and
-  ``csrc/cg_gmulti.cu`` (``gagg_table`` / ``gmulti_table``), walked the way
-  the kernels walk them, against the plain versions;
+- CPU evaluators of what drives ``csrc/cg_gagg.cu`` (``gagg_table``) and
+  ``csrc/cg_gmulti.cu`` (the path-level coupling list ``gmulti_plan`` and
+  the passes ``gmulti_passes``), walked the way the kernels walk them,
+  against the plain versions, for every job set a third order asks for;
 - ``CGNodeMulti``'s backward against ``jax.vjp`` of JAX ``cg_node_multi``,
   with some cotangents absent and some inputs constant;
 - grad-of-grad of ``conv_aggregate`` (``autograd.grad`` with
@@ -40,11 +41,12 @@ from sevennet_finetuning_tpu.ops.tensor_product import (
     uvu_tp_spec as j_uvu_tp_spec)
 from sevennet_finetuning_tpu_torch.irreps import Irreps
 from sevennet_finetuning_tpu_torch.ops import cg_tables, scatter
+from sevennet_finetuning_tpu_torch.ops import fused_conv_multi as fcm
 from sevennet_finetuning_tpu_torch.ops.fused_conv import layout_from_spec
 from sevennet_finetuning_tpu_torch.ops.fused_conv_agg import conv_aggregate
 from sevennet_finetuning_tpu_torch.ops.fused_conv_multi import (
-    CGNodeGAgg, CGNodeGMulti, CGNodeMulti, cg_node_gagg, cg_node_gmulti,
-    cg_node_multi, gagg_plain, gmulti_plain)
+    EDGES_PER_BLOCK, CGNodeGAgg, CGNodeGMulti, CGNodeMulti, cg_node_gagg,
+    cg_node_gmulti, cg_node_multi, gagg_plain, gmulti_plain)
 from sevennet_finetuning_tpu_torch.ops.tensor_product import uvu_tp_spec
 
 torch.set_num_threads(2)
@@ -60,6 +62,8 @@ GAGG_TERMS = ((0, 1, 5), (0, 4, 2), (3, 1, 2))
 GMULTI_JOBS = (('x', 1, 5, 'x'), ('x', 4, 2, 'x'), ('sh', 0, 5, 'sh'),
                ('sh', 3, 2, 'sh'), ('w', 0, 4, 'w'), ('w', 3, 1, 'w'))
 GMULTI_GROUPS = ('x', 'sh', 'w')
+# the train step's outer backward without its sh group (chip_smoke.py)
+GMULTI_NO_SH = (tuple(j for j in GMULTI_JOBS if j[3] != 'sh'), ('x', 'w'))
 
 
 def _layouts(irreps):
@@ -205,32 +209,120 @@ def eval_gagg_table(layout, pool, dst, terms, n_node):
     return out
 
 
-def eval_gmulti_table(layout, ybar, pool, dst, jobs, groups, n_node):
-    """cg_gmulti.cu: per edge, items (segment sums added in job order, or
-    shn chunks), then the ordered reduction of each shn column."""
-    pool_dims = tuple(p.shape[1] for p in pool)
-    gidx = {g: i for i, g in enumerate(groups)}
-    tab = cg_tables.gmulti_table(
-        layout, tuple((m, b, c, gidx[g]) for m, b, c, g in jobs),
-        len(groups), pool_dims)
-    g = np.where((dst < n_node)[:, None],
-                 ybar[np.minimum(dst, n_node - 1)], 0.0)
-    rows = np.concatenate([g, *pool], axis=1).astype(np.float64)
-    segs = _segment_sums(_term_values(rows, tab.terms[:tab.seg_start[-1]]),
-                         tab.seg_start)
-    items = np.stack([segs[:, tab.item_seg[i]:tab.item_seg[i + 1]].sum(1)
-                      for i in range(len(tab.item_out))], axis=1)
-    out = np.full((len(dst), sum(tab.out_dims)), np.nan)
-    part = np.zeros((len(dst), max(tab.n_part, 1)))
-    for it, o in enumerate(tab.item_out):
+F32 = np.float32
+
+
+def _emit(out, slots, rows, cols, vals):
+    """cg_gmulti.cu's emit: each live slot's values written to (or, with
+    ``add``, added to) its group; two slots of one group added in slot
+    order.  ``slots``: (group, add) per slot, group -1 where unused."""
+    (o0, add0), (o1, add1) = slots
+    if o0 >= 0 and o0 == o1:
+        v = out[o0][rows, cols] + vals[0] if add0 else vals[0]
+        out[o0][rows, cols] = v + vals[1]
+        return
+    for (o, add), v in zip(slots, vals):
         if o >= 0:
-            out[:, o] = items[:, it]
-        else:
-            part[:, -o - 1] = items[:, it]
-    for q in range(len(tab.red_start) - 1):
-        out[:, tab.red_out[q]] = part[:, tab.red_start[q]:
-                                      tab.red_start[q + 1]].sum(axis=1)
-    return np.split(out, np.cumsum(tab.out_dims)[:-1], axis=1)
+            out[o][rows, cols] = out[o][rows, cols] + v if add else v
+
+
+def eval_gmulti_plan(layout, ybar, pool, dst, jobs, groups, n_node):
+    """cg_gmulti.cu in numpy, float32, in the kernel's order: per pass and
+    per 32-channel slice of each chunk, per path A[i][j] = sum of c *
+    g[k, u] over its coupling list, the jobs' contractions of A (slot s of
+    x reads legs S[s], W[s]; of sh X[s], W[s]; of w X[s], S[1 - s]), each
+    sh column's xor butterfly over the slice's lanes, and after the tile
+    the slices added in order."""
+    gidx = {g: i for i, g in enumerate(groups)}
+    norm = tuple((m, b, c, gidx[g]) for m, b, c, g in jobs)
+    plan = cg_tables.gmulti_plan(layout, EDGES_PER_BLOCK)
+    passes = cg_tables.gmulti_passes(norm, len(groups))
+    E = len(dst)
+    g = np.where((dst < n_node)[:, None],
+                 ybar[np.minimum(dst, n_node - 1)], 0.0).astype(F32)
+    pool = [p.astype(F32) for p in pool]
+    outs = [np.full((E, d), np.nan, F32)
+            for d in cg_tables.gmulti_out_dims(layout, norm, len(groups))]
+    coef = plan.couplings[:, 1].copy().view(np.float32)
+    koff = plan.couplings[:, 0]
+    lanes = np.arange(cg_tables.WARP)
+    rows = np.arange(E)[:, None]
+    zero = np.zeros((E, 32), F32)
+    for ps in passes:
+        X, S, W = ps[0:2], ps[2:4], ps[4:6]
+        slots = {m: [(int(ps[6 + (q * 2 + s) * 2]),
+                      int(ps[7 + (q * 2 + s) * 2])) for s in range(2)]
+                 for q, m in enumerate(cg_tables.GMULTI_MODES)}
+        on = {m: [grp >= 0 for grp, _ in slots[m]] for m in slots}
+        red = np.zeros((E, plan.n_slice, 2, layout.dim_sh), F32)
+        for (x_off, d1, mul, gb, ge, slice0) in plan.chunks:
+            for sl in range(-(-mul // cg_tables.WARP)):
+                u = sl * cg_tables.WARP + lanes
+                act = u < mul
+                uc = np.where(act, u, mul - 1)
+                xcol = [x_off + i * mul + uc for i in range(d1)]
+                xs = [[np.where(act, pool[X[s]][:, c], F32(0))
+                       if on['sh'][s] or on['w'][s] else zero
+                       for c in xcol] for s in range(2)]
+                accx = [[zero] * d1 for _ in range(2)]
+                for (sh_off, d2, pb, pe) in plan.groups[gb:ge]:
+                    sv = [pool[S[s]][:, sh_off:sh_off + d2, None]
+                          if on['x'][s] or on['w'][1 - s]
+                          else np.zeros((E, d2, 1), F32) for s in range(2)]
+                    acc_sh = [[zero] * d2 for _ in range(2)]
+                    for (msg_off, w_off, pair, _) in plan.paths[pb:pe]:
+                        wcol = w_off + uc
+                        wv = [np.where(act, pool[W[s]][:, wcol], F32(0))
+                              if on['x'][s] or on['sh'][s] else zero
+                              for s in range(2)]
+                        seg = plan.pair_start[pair:pair + d1 * d2 + 1]
+                        A = [[zero] * d2 for _ in range(d1)]
+                        for i in range(d1):
+                            for j in range(d2):
+                                for q in range(seg[i * d2 + j],
+                                               seg[i * d2 + j + 1]):
+                                    A[i][j] = A[i][j] + coef[q] * g[
+                                        :, msg_off + koff[q] + uc]
+                        wo = [zero, zero]
+                        for s in range(2):
+                            if on['x'][s]:
+                                for i in range(d1):
+                                    t = zero
+                                    for j in range(d2):
+                                        t = t + sv[s][:, j] * A[i][j]
+                                    accx[s][i] = accx[s][i] + wv[s] * t
+                            if on['sh'][s]:
+                                for j in range(d2):
+                                    t = zero
+                                    for i in range(d1):
+                                        t = t + xs[s][i] * A[i][j]
+                                    acc_sh[s][j] = acc_sh[s][j] + wv[s] * t
+                            if on['w'][s]:
+                                for i in range(d1):
+                                    r = zero
+                                    for j in range(d2):
+                                        r = r + sv[1 - s][:, j] * A[i][j]
+                                    wo[s] = wo[s] + xs[s][i] * r
+                        _emit(outs, slots['w'], rows, wcol[act],
+                              [v[:, act] for v in wo])
+                    for s in range(2):
+                        for j in range(d2 if on['sh'][s] else 0):
+                            v = acc_sh[s][j]
+                            for off in (16, 8, 4, 2, 1):
+                                v = v + v[:, lanes ^ off]
+                            red[:, slice0 + sl, s, sh_off + j] = v[:, 0]
+                for i in range(d1):
+                    _emit(outs, slots['x'], rows, xcol[i][act],
+                          [a[i][:, act] for a in accx])
+        sums = []
+        for s in range(2):
+            p = np.zeros((E, layout.dim_sh), F32)
+            for sl in range(plan.n_slice if on['sh'][s] else 0):
+                p = p + red[:, sl, s]
+            sums.append(p)
+        _emit(outs, slots['sh'], rows, np.arange(layout.dim_sh)[None],
+              sums)
+    return outs
 
 
 @pytest.mark.parametrize('name', ['small', 'tiny'])
@@ -248,7 +340,7 @@ def test_gagg_gmulti_tables_match_plain(name):
                            ('sh', 3, 2, 'a')), ('b', 'a'))):
         want = gmulti_plain(torch.from_numpy(ybar), _t(*pool), tdst, jobs,
                             groups, tl, N)
-        got = eval_gmulti_table(tl, ybar, pool, dst, jobs, groups, N)
+        got = eval_gmulti_plan(tl, ybar, pool, dst, jobs, groups, N)
         for g, w in zip(got, want):
             _close(g, w.numpy())
             assert np.all(g[-3:] == 0.0)         # sentinel edges
@@ -261,21 +353,110 @@ def test_sevennet0_interior_tables_match_plain(interior):
     tdst = torch.from_numpy(dst)
     want = gagg_plain(_t(*pool), tdst, GAGG_TERMS, tl, N)
     _close(eval_gagg_table(tl, pool, dst, GAGG_TERMS, N), want.numpy())
-    want = gmulti_plain(torch.from_numpy(ybar), _t(*pool), tdst,
-                        GMULTI_JOBS, GMULTI_GROUPS, tl, N)
-    got = eval_gmulti_table(tl, ybar, pool, dst, GMULTI_JOBS, GMULTI_GROUPS,
-                            N)
-    for g, w in zip(got, want):
-        _close(g, w.numpy())
-    tab = cg_tables.gmulti_table(
-        tl, tuple((m, b, c, GMULTI_GROUPS.index(g))
-                  for m, b, c, g in GMULTI_JOBS), 3,
-        tuple(p.shape[1] for p in pool))
-    assert np.diff(tab.seg_start).max() <= max(
-        cg_tables.SH_CHUNK, np.diff(cg_tables.multi_table(
-            tl, ('xn', 'wn')).item_start).max())
-    # the shared-memory row of an interior block: g + two pool copies
-    assert tl.dim_msg + sum(p.shape[1] for p in pool) == 6034
+    for jobs, groups in ((GMULTI_JOBS, GMULTI_GROUPS), GMULTI_NO_SH):
+        want = gmulti_plain(torch.from_numpy(ybar), _t(*pool), tdst, jobs,
+                            groups, tl, N)
+        got = eval_gmulti_plan(tl, ybar, pool, dst, jobs, groups, N)
+        for g, w in zip(got, want):
+            _close(g, w.numpy())
+            assert np.all(g[-3:] == 0.0)         # sentinel edges
+    # one entry per path coupling, shared by the six jobs and the
+    # channels: 137 against the 41,088 terms of a per-channel, per-job
+    # table; the channels of x irreps 0e / 1 / 2 in 7 warp slices
+    plan = cg_tables.gmulti_plan(tl, EDGES_PER_BLOCK)
+    assert len(plan.couplings) == 137
+    assert plan.n_slice == 7
+    # chunks of three irrep dims: one edge a work unit
+    assert len(plan.descs) == plan.n_slice * EDGES_PER_BLOCK
+    assert sorted({(int(d[0]), int(d[3])) for d in plan.descs}) == [
+        (0, EDGES_PER_BLOCK), (1, EDGES_PER_BLOCK), (2, EDGES_PER_BLOCK)]
+    # one pass takes the six jobs
+    norm = tuple((m, b, c, GMULTI_GROUPS.index(g))
+                 for m, b, c, g in GMULTI_JOBS)
+    assert len(cg_tables.gmulti_passes(norm, 3)) == 1
+
+
+def test_gmulti_plan_phases_follow_the_measured_rule():
+    """Chunks of one irrep dim (SevenNet-0's block 0: 128 scalars) take
+    GMULTI_PHASES_ONE_DIM phases, chunks of several dims one edge a work
+    unit; an explicit count is taken as given, and a count the tile
+    cannot split into raises."""
+    _, one = _layouts(('40x0e', '1x0e+1x1e+1x2e', '40x0e+40x1e+40x2e'))
+    _, several = _layouts(SMALL)
+    for layout, want in ((one, cg_tables.GMULTI_PHASES_ONE_DIM),
+                         (several, EDGES_PER_BLOCK)):
+        plan = cg_tables.gmulti_plan(layout, EDGES_PER_BLOCK)
+        assert set(plan.descs[:, 3].tolist()) == {want}
+        assert len(plan.descs) == plan.n_slice * want
+    plan = cg_tables.gmulti_plan(one, EDGES_PER_BLOCK, 4)
+    assert len(plan.descs) == plan.n_slice * 4
+    with pytest.raises(ValueError):
+        cg_tables.gmulti_plan(one, EDGES_PER_BLOCK, EDGES_PER_BLOCK + 1)
+
+
+def test_gmulti_term_count_pins_the_interior_block(interior):
+    """chip_smoke.py's cg_gmulti bound counts the function's scalar
+    couplings (one per path coupling and channel) times jobs."""
+    _, tl = interior
+    assert cg_tables.gmulti_term_count(tl, len(GMULTI_JOBS)) == 41088
+    assert cg_tables.gmulti_term_count(tl, len(GMULTI_NO_SH[0])) == 27392
+
+
+def test_third_order_job_sets_walk_matches_plain(monkeypatch):
+    """Every gmulti job set a third-order derivative of conv_aggregate asks
+    for (CGNodeMulti.backward's six jobs, then CGNodeGAgg.backward's and
+    CGNodeGMulti.backward's), recorded on the CPU, through the plan walk
+    -- passes of more than two jobs of an emit mode included."""
+    _, tl = _layouts(SMALL)
+    N = 5
+    ybar, pool, dst = _pool_data(tl, 19, N, seed=14)
+    calls = []
+    orig = fcm.gmulti_plain
+
+    def spy(ybar, pool, dst, jobs, groups, layout, n_node):
+        calls.append((jobs, groups, tuple(int(p.shape[1]) for p in pool)))
+        return orig(ybar, pool, dst, jobs, groups, layout, n_node)
+
+    monkeypatch.setattr(fcm, 'gmulti_plain', spy)
+    ins = [torch.from_numpy(a).requires_grad_(True) for a in pool[:3]]
+    tdst = torch.from_numpy(dst)
+    out = conv_aggregate(tl, *ins, tdst, N)
+    # the cotangent 2 * out depends on the inputs: the second order
+    # records CGNodeGAgg too
+    inner = torch.autograd.grad(out.pow(2).sum(), ins, create_graph=True)
+    second = torch.autograd.grad(
+        sum((g * torch.from_numpy(r)).sum()
+            for g, r in zip(inner, pool[3:])), ins, create_graph=True)
+    torch.autograd.grad(sum(g.pow(2).sum() for g in second), ins)
+    monkeypatch.undo()
+    assert len(calls) >= 3
+    # CGNodeGAgg.backward of GAGG_TERMS with every pool leg live: three
+    # jobs of each emit mode, more than one pass
+    widths = tuple(p.shape[1] for p in pool)
+    calls.append((tuple((leg, idx[b], idx[c], idx[leg])
+                        for term in GAGG_TERMS
+                        for idx in [dict(zip(('x', 'sh', 'w'), term))]
+                        for leg, (b, c) in (('x', ('sh', 'w')),
+                                            ('sh', ('x', 'w')),
+                                            ('w', ('x', 'sh')))),
+                  tuple(sorted({i for t in GAGG_TERMS for i in t})), widths))
+    n_passes = []
+    rng = np.random.default_rng(15)
+    for jobs, groups, widths in calls:
+        gidx = {g: i for i, g in enumerate(groups)}
+        passes = cg_tables.gmulti_passes(
+            tuple((m, b, c, gidx[g]) for m, b, c, g in jobs), len(groups))
+        assert passes.shape[1:] == (cg_tables.PASS_LEN,)
+        n_passes.append(len(passes))
+        cpool = [rng.standard_normal((len(dst), d)).astype(np.float32)
+                 for d in widths]
+        yb = rng.standard_normal((N, tl.dim_msg)).astype(np.float32)
+        want = gmulti_plain(torch.from_numpy(yb), _t(*cpool), tdst, jobs,
+                            groups, tl, N)
+        got = eval_gmulti_plan(tl, yb, cpool, dst, jobs, groups, N)
+        for g, w in zip(got, want):
+            _close(g, w.numpy())
+    assert n_passes[-1] >= 2
 
 
 # ---------------------------------------------------------------------------
