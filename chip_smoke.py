@@ -22,15 +22,18 @@ and exits non-zero if any fails:
               and 4 of SevenNet-0; segment sums at D = 1, 6 and 480 over
               the 768 nodes and at each distinct shape a train step
               launches, the per-graph energy and virial among them; the
-              double backward's gagg of 3 terms and gmulti of 6 jobs in 3
-              groups, and without its sh group; cg_multi with one job
+              double backward's gagg of 3 terms, and of 1 term (cg_agg's
+              function, timed beside it), and gmulti of 6 jobs in 3
+              groups, and without its sh group; cg_multi (cg_gmulti.cu
+              built for one slot) with the block's jobs, with one job
               each of xn, shn, wn, and with xn + wn; the per-edge cg_quad
               in each mode msg / x / sh / w) and hold it against
               its plain PyTorch version:
               max|kernel - plain| <= 2e-6 * max|plain| (segment_sum:
               bit for bit against the plain version on the host CPU, which
-              adds in edge order, as the kernel does); segment_sum and
-              cg_gmulti must give the same bits in two launches.  Times
+              adds in edge order, as the kernel does); segment_sum,
+              cg_multi, cg_gagg and cg_gmulti must give the same bits in
+              two launches at every timed shape.  Times
               come from CUDA events after warm-up; the bound is the larger
               of bytes over 3.35 TB/s and fp32 operations over 67 TFLOP/s
               (H100 SXM data sheet), counted at the live edges;
@@ -43,7 +46,9 @@ and exits non-zero if any fails:
 5. batch   -- ``apply_model`` on one batch-8 collate of ft900.extxyz:
               ms per batch and edges/s;
 6. profile -- torch.profiler over one request and one batch-8 forward:
-              device busy share and device time by kernel;
+              device busy share and device time by kernel, the launches of
+              each csrc kernel family summed into one row, whose count
+              must equal the launches its wrapper counted in that run;
 7. train   -- the reEWC fine-tune ``Trainer`` on SevenNet-0 at full width
               and depth (recipe of experiments/ft_reewc_900, constant LR
               1e-4): 2 steps on the 12-atom structure of ft.extxyz against
@@ -115,8 +120,9 @@ SOURCES = {
     'cg_agg': dict(
         source='sevennet_finetuning_tpu_torch/csrc/cg_agg.cu',
         replaces='sevennet_finetuning_tpu/ops/fused_conv_agg_kernel.py:194'),
+    # the first-order backward: cg_gmulti.cu's kernel built for one slot
     'cg_multi': dict(
-        source='sevennet_finetuning_tpu_torch/csrc/cg_multi.cu',
+        source='sevennet_finetuning_tpu_torch/csrc/cg_gmulti.cu',
         replaces='sevennet_finetuning_tpu/ops/fused_conv_bwd_kernel.py:478'),
     'cg_gagg': dict(
         source='sevennet_finetuning_tpu_torch/csrc/cg_gagg.cu',
@@ -158,6 +164,13 @@ PATH_KERNELS = {
 KERNEL_PATH = {name: 'train' for name in SOURCES}
 KERNEL_PATH['cg_quad'] = 'unsorted'
 KERNEL_PATH.update({name: 'probes' for name in PROBES})
+# the model kernels' family of a device kernel's name (the first match):
+# the entry point whose launches run it, so the instances of a template
+# add up to one profile row (the profiled paths launch no probe)
+KERNEL_FAMILIES = (
+    ('seg_sum_', 'segment_sum'), ('cg_agg_kernel', 'cg_agg'),
+    ('cg_gagg_kernel', 'cg_gagg'), ('cg_gmulti_kernel<1>', 'cg_multi'),
+    ('cg_gmulti_kernel<2>', 'cg_gmulti'), ('cg_quad_kernel', 'cg_quad'))
 # launches of one reEWC train step (PERF.md explains each count)
 TRAIN_CENSUS = {'cg_agg': 5, 'cg_multi': 10, 'cg_gagg': 5, 'cg_gmulti': 5,
                 'segment_sum': 13, 'cg_quad': 0, **{k: 0 for k in PROBES}}
@@ -510,7 +523,7 @@ def phase_kernels(calc, batch, n_real_edge):
     from sevennet_finetuning_tpu_torch import keys as K
     from sevennet_finetuning_tpu_torch.ops import _cuda, scatter
     from sevennet_finetuning_tpu_torch.ops.cg_tables import (
-        agg_table, gagg_table, gmulti_passes, gmulti_term_count, multi_table)
+        agg_table, gmulti_passes, gmulti_term_count, multi_table)
     from sevennet_finetuning_tpu_torch.ops.fused_conv import (
         _MODE_LEGS, _MODE_OUT, layout_from_spec)
     from sevennet_finetuning_tpu_torch.ops.fused_conv_agg import (
@@ -625,7 +638,7 @@ def phase_kernels(calc, batch, n_real_edge):
 
         def job_leg_bytes(jobs):
             # the legs the jobs read: xn needs sh and w, shn x and w, wn x
-            # and sh (cg_multi.cu stages all three whatever the jobs)
+            # and sh
             return 4 * live * sum(dims[leg] for leg in
                                   {leg for j in jobs for leg in _JOB_LEGS[j]})
 
@@ -646,43 +659,30 @@ def phase_kernels(calc, batch, n_real_edge):
                              iters=5),
             library_ms=None, bound_ms=b_ms, bound_by=b_by))
 
-        jobs = ('shn', 'wn') if t == 0 else ('xn', 'shn', 'wn')
+        # the block's jobs (block 0's input, the embedding, needs no
+        # cotangent), one job each of xn, shn, wn (the counterpart of
+        # bwd_pallas, row 4), and xn + wn: the outer backward's jobs
+        # without the shn cotangent that the train step computes but does
+        # not need.  The bound counts the per-term table the first
+        # kernel read, so the times compare
         ybar = randn(N, layout.dim_msg)
-        got = multi_cuda(ybar, x, sh, w, dst, jobs, layout, N)
-        want = multi_plain(ybar, x, sh, w, dst, jobs, layout, N)
-        err = compare(f'cg_multi block {t} {jobs}', got, want)
-        tab = multi_table(layout, jobs)
-        b_ms, b_by = bound_ms(
-            job_leg_bytes(jobs) + 4 * E + 4 * N * layout.dim_msg
-            + 4 * E * sum(tab.out_dims) + 16 * tab.terms.shape[0],
-            live * 4 * tab.terms.shape[0])
-        multi_cases.append(dict(
-            shape=f'block {t} jobs {"+".join(jobs)}: E={E} N={N}',
-            max_abs_err=err,
-            ms=cuda_ms(lambda: multi_cuda(ybar, x, sh, w, dst, jobs, layout,
-                                          N)),
-            plain_ms=cuda_ms(lambda: multi_plain(ybar, x, sh, w, dst, jobs,
-                                                 layout, N), iters=5),
-            library_ms=None, bound_ms=b_ms, bound_by=b_by))
-
-        # single-job multi: the counterpart of bwd_pallas (row 4); then
-        # xn + wn, the outer backward's jobs without the shn cotangent that
-        # the train step computes but does not need
-        for sub, label in ((('xn',), 'single job xn'),
-                           (('shn',), 'single job shn'),
-                           (('wn',), 'single job wn'),
-                           (('xn', 'wn'), 'jobs xn+wn (no shn)')):
+        for sub, label in (
+                (('shn', 'wn') if t == 0 else ('xn', 'shn', 'wn'), 'jobs'),
+                (('xn',), 'single job'), (('shn',), 'single job'),
+                (('wn',), 'single job'), (('xn', 'wn'), 'jobs (no shn)')):
             got = multi_cuda(ybar, x, sh, w, dst, sub, layout, N)
             want = multi_plain(ybar, x, sh, w, dst, sub, layout, N)
             err = compare(f'cg_multi block {t} {sub}', got, want)
+            same_bits(f'cg_multi block {t} {sub}',
+                      lambda: multi_cuda(ybar, x, sh, w, dst, sub, layout, N))
             tab = multi_table(layout, sub)
             b_ms, b_by = bound_ms(
                 job_leg_bytes(sub) + 4 * E + 4 * N * layout.dim_msg
                 + 4 * E * sum(tab.out_dims) + 16 * tab.terms.shape[0],
                 live * 4 * tab.terms.shape[0])
             multi_cases.append(dict(
-                shape=f'block {t} {label}: E={E} N={N}',
-                max_abs_err=err,
+                shape=f'block {t} {label} {"+".join(sub)}: E={E} N={N}',
+                max_abs_err=err, bit_identical=True,
                 ms=cuda_ms(lambda: multi_cuda(ybar, x, sh, w, dst, sub,
                                               layout, N)),
                 plain_ms=cuda_ms(lambda: multi_plain(
@@ -700,21 +700,30 @@ def phase_kernels(calc, batch, n_real_edge):
             # the live rows of the pool arrays that the terms / jobs read
             return 4 * live * sum(pool_dims[i] for i in set(used))
 
+        # CGNodeMulti.backward's three terms; then one term on [x, sh, w],
+        # cg_agg's function, timed beside it.  The bound counts the
+        # per-term table the first kernel read, whose entries are the
+        # scalar couplings x terms, so the times compare
         terms = ((0, 1, 5), (0, 4, 2), (3, 1, 2))
-        got = gagg_cuda(pool, dst, terms, layout, N)
-        want = gagg_plain(pool, dst, terms, layout, N)
-        err = compare(f'cg_gagg block {t}', got, want)
-        n_terms = int(gagg_table(layout, terms, pool_dims)[0][-1])
-        b_ms, b_by = bound_ms(
-            pool_bytes(i for term in terms for i in term)
-            + 4 * E + 4 * N * layout.dim_msg + 16 * n_terms,
-            live * (4 * n_terms + 3 * layout.dim_msg))
-        gagg_cases.append(dict(
-            shape=f'block {t} 3 terms: E={E} N={N}', max_abs_err=err,
-            ms=cuda_ms(lambda: gagg_cuda(pool, dst, terms, layout, N)),
-            plain_ms=cuda_ms(lambda: gagg_plain(pool, dst, terms, layout, N),
-                             iters=5),
-            library_ms=None, bound_ms=b_ms, bound_by=b_by))
+        for tm, label in ((terms, '3 terms'),
+                          (((0, 1, 2),), "1 term (cg_agg's function)")):
+            got = gagg_cuda(pool, dst, tm, layout, N)
+            want = gagg_plain(pool, dst, tm, layout, N)
+            err = compare(f'cg_gagg block {t} {label}', got, want)
+            same_bits(f'cg_gagg block {t} {label}',
+                      lambda: gagg_cuda(pool, dst, tm, layout, N))
+            n_terms = gmulti_term_count(layout, len(tm))
+            b_ms, b_by = bound_ms(
+                pool_bytes(i for term in tm for i in term)
+                + 4 * E + 4 * N * layout.dim_msg + 16 * n_terms,
+                live * (4 * n_terms + len(tm) * layout.dim_msg))
+            gagg_cases.append(dict(
+                shape=f'block {t} {label}: E={E} N={N}', max_abs_err=err,
+                bit_identical=True,
+                ms=cuda_ms(lambda: gagg_cuda(pool, dst, tm, layout, N)),
+                plain_ms=cuda_ms(lambda: gagg_plain(pool, dst, tm, layout,
+                                                    N), iters=5),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by))
 
         # CGNodeMulti.backward's jobs; then without the sh group, whose
         # cotangent the train step computes but does not need
@@ -900,18 +909,31 @@ def _device_rows(prof):
             and e.key not in cpu_keys and _self_device_us(e) > 0]
 
 
+def kernel_family(key):
+    """The entry point whose kernels a device kernel's name belongs to
+    (``KERNEL_FAMILIES``), or None for PyTorch's own kernels."""
+    return next((fam for part, fam in KERNEL_FAMILIES if part in key), None)
+
+
 def profile_device(label, fn, top=12):
     """One run of ``fn`` under torch.profiler: wall time, device busy
-    share (device time / wall time) and device time by kernel."""
+    share (device time / wall time) and device time by kernel, each csrc
+    family summed into one row beside its census (the launches its
+    wrapper counted in the same run), which its count must equal."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from sevennet_finetuning_tpu_torch.ops import _cuda
+
+    before = dict(_cuda.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    census = {k: v - before.get(k, 0) for k, v in _cuda.LAUNCHES.items()
+              if v - before.get(k, 0)}
     rows = _device_rows(prof)
     if not rows:
         log(f'[profile] {label}: device time not measured (the profiler '
@@ -921,8 +943,22 @@ def profile_device(label, fn, top=12):
     log(f'[profile] {label}: wall {wall:.3f} ms under the profiler, '
         f'device busy {busy:.3f} ms ({100 * busy / wall:.1f}%), '
         f'{sum(r[1] for r in rows)} device ops')
-    for key, count, ms in sorted(rows, key=lambda r: -r[2])[:top]:
-        log(f'  {ms:9.4f} ms {count:5d}x  {key[:90]}')
+    grouped = {}                  # (family or None, key) -> [count, ms]
+    for key, count, ms in rows:
+        fam = kernel_family(key)
+        row = grouped.setdefault((fam, fam or key), [0, 0.0])
+        row[0] += count
+        row[1] += ms
+    profiled = {fam: c for (fam, _), (c, _) in grouped.items() if fam}
+    ranked = sorted(grouped.items(), key=lambda r: -r[1][1])
+    for i, ((fam, name), (count, ms)) in enumerate(ranked):
+        if i < top or fam:
+            log(f'  {ms:9.4f} ms {count:5d}x  '
+                + (f'{fam} (csrc family; census {census.get(fam, 0)})'
+                   if fam else name[:90]))
+    if profiled != census:
+        raise AssertionError(f'{label}: profiled launches by family '
+                             f'{profiled} differ from the census {census}')
 
 
 def phase_profile(calc, batch):

@@ -1,159 +1,230 @@
-// Grouped fused convolution forward ('gagg'): a sum of NT agg terms whose
+// Grouped fused convolution forward ('gagg'): a sum of agg terms whose
 // legs come from a pool of edge arrays,
-//   out[n, col] = sum_{t < NT} sum over edges e of node n of
-//                 sum_{q in terms(col, t)} coef_q * row_e[a_q] * row_e[b_q]
-//                                                 * row_e[c_q],
-// with row_e = [pool_0[e] | pool_1[e] | ...] and the per-(column, term)
-// entries built on the host (ops/cg_tables.py, gagg_table).  This is the
-// ybar cotangent of the convolution's double backward: agg(ct_x, sh, w) +
-// agg(x, ct_sh, w) + agg(x, sh, ct_w).  No [E, dim_msg] message tensor is
-// stored.
+//   out[n, msg_off + k*mul + u] = sum_t sum over edges e of node n of
+//       W_t[e, w_off + u] * sum_{(k, i, j, c) of the path}
+//                           c * X_t[e, x_off + i*mul + u] * S_t[e, sh_off + j]
+// for every path of the layout (x chunk, sh irrep, output irrep, mul
+// channels u), with the terms' legs (X_t, S_t, W_t) given as pool indices.
+// This is the ybar cotangent of the convolution's double backward:
+// agg(ct_x, sh, w) + agg(x, ct_sh, w) + agg(x, sh, ct_w).  No
+// [E, dim_msg] message tensor is stored.
 //
 // Replaces: sevennet_finetuning_tpu/ops/fused_conv_agg_kernel.py,
 // gagg_pallas -> its pallas_call (a shared pool-slab DMA and visit loop,
 // one VMEM accumulator per term, one-hot matmuls onto the node tile).
 //
-// Bound on the H100: memory, by the roofline count (each pool row read once
-// per live edge, each node row of the output written once; a few
-// multiply-adds per message element and term).  Like cg_agg, this first
-// version is bound in practice by its shared-memory gathers and term-table
-// reads.
+// Bound on the H100: memory.  Each pool row is read once per live edge
+// and each node row of the output written once; the arithmetic (a few
+// operations per scalar coupling, channel and term) is a small fraction
+// of the bytes' time.
 //
-// Design: cg_agg's, with a pool.  One block per destination node walks the
-// node's contiguous dst-sorted edge range [offs[n], offs[n+1]) in tiles,
-// staging each edge's pool rows in shared memory.  Each thread owns up to
-// kMaxCols msg columns and keeps one register sum per (column, term); the
-// term sums are added left to right at the end, as _gagg_kernel adds its
-// accumulators.  No atomics, fixed order: every run gives the same bits.
+// Design: the function is built on channels, and so is the kernel.  A
+// warp takes one node and one unit, a path and a 32-channel slice of its
+// x chunk (ops/cg_tables.py, gagg_plan: 30 units at SevenNet-0's interior
+// block), and walks the node's dst-sorted edges [offs[n], offs[n+1]) in
+// order.  A lane is a channel u: its X and W loads run along u and
+// coalesce, and the S row (at most 7 floats of one sh irrep) is loaded
+// once a warp and broadcast by shuffles.  Per edge and term a message
+// component is
+//     m[k] = W[u] * sum_i X[i, u] * B[k][i],  B[k][i] = sum c * S[j],
+// and B does not depend on the channel: lane k*d1 + i forms B[k][i] from
+// its own short coupling list (at most d2 steps, lists zero-padded to the
+// path's longest), and each lane then takes the d1 * d3 values it needs by
+// shuffles.  Templates on d1 and d3 keep X, B and the running sums in
+// registers.  A lane keeps one running sum per term and component over
+// the node's edges and, at the end, adds the terms left to right (the
+// order of the plain version and of JAX's per-term accumulators) and
+// writes each of its output columns once.  The paths write disjoint
+// columns, so no two warps touch one element: no atomics, a fixed order,
+// every run gives the same bits.  A node with no edges writes zeros;
+// sentinel edges (dst = n_node) lie outside every node's range.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxCols = 16;  // msg columns per thread: dim_msg <= 4096
+constexpr int kWarp = 32;
+constexpr int kWarpsPerBlock = 8;
 constexpr int kMaxPool = 12;
 constexpr int kMaxTerms = 6;
+constexpr int kMaxSteps = 7;  // couplings of one (k, i): at most d2 <= 7
+constexpr int kUnit = 12;     // ints of a unit (cg_tables.GAGG_UNIT)
 
-struct Pool {
-  const float* ptr[kMaxPool];
-  int dim[kMaxPool];
-  int off[kMaxPool];
+// the legs of each term
+struct Terms {
+  const float* X[kMaxTerms];
+  const float* S[kMaxTerms];
+  const float* W[kMaxTerms];
   int n;
 };
 
-template <int NT>
-__global__ void __launch_bounds__(kThreads)
-    cg_gagg_kernel(Pool pool, const int* __restrict__ offs,
-                   const int* __restrict__ start,
-                   const int4* __restrict__ terms, float* __restrict__ out,
-                   int dim_msg, int row_len, int tile_e) {
-  extern __shared__ float rows[];
-  const int n = blockIdx.x;
-  const int e_begin = offs[n];
-  const int e_end = offs[n + 1];
+struct Dims {
+  int x, sh, w, msg;
+  int n_node, n_unit;
+};
 
-  float acc[NT][kMaxCols];
+template <int D1, int D3>
+__device__ __forceinline__ void run_unit(const int* __restrict__ unit,
+                                         const int2* __restrict__ coup,
+                                         const int* __restrict__ offs,
+                                         int node, int lane, const Terms& tm,
+                                         const Dims& dm,
+                                         float* __restrict__ out) {
+  constexpr int NH = (D1 * D3 + kWarp - 1) / kWarp;  // segment halves
+  const int x_off = __ldg(unit + 0);
+  const int mul = __ldg(unit + 2);
+  const int u = __ldg(unit + 3) + lane;
+  const int sh_off = __ldg(unit + 4);
+  const int d2 = __ldg(unit + 5);
+  const int msg_off = __ldg(unit + 6);
+  const int w_off = __ldg(unit + 7);
+  const int n_step = __ldg(unit + 10);
+  const bool active = u < mul;
+  const int uc = active ? u : mul - 1;
+  // this lane's segments (k, i) = h * 32 + lane: their (j, c), in steps
+  const int2* cp = coup + __ldg(unit + 9);
+  int cj[kMaxSteps][NH];
+  float cc[kMaxSteps][NH];
 #pragma unroll
-  for (int t = 0; t < NT; ++t)
+  for (int st = 0; st < kMaxSteps; ++st) {
 #pragma unroll
-    for (int k = 0; k < kMaxCols; ++k) acc[t][k] = 0.f;
-
-  for (int eb = e_begin; eb < e_end; eb += tile_e) {
-    const int ne = min(tile_e, e_end - eb);
-    __syncthreads();  // the previous tile is no longer read
-    for (int le = 0; le < ne; ++le) {
-      const long long e = eb + le;
-      float* r = rows + le * row_len;
-      for (int p = 0; p < pool.n; ++p) {
-        const float* src = pool.ptr[p] + e * pool.dim[p];
-        float* dstp = r + pool.off[p];
-        for (int c = threadIdx.x; c < pool.dim[p]; c += blockDim.x)
-          dstp[c] = src[c];
-      }
+    for (int h = 0; h < NH; ++h) {
+      const int2 c = st < n_step ? __ldg(cp + (st * NH + h) * kWarp + lane)
+                                 : make_int2(0, 0);
+      cj[st][h] = c.x;
+      cc[st][h] = __int_as_float(c.y);
     }
-    __syncthreads();
+  }
+  float acc[kMaxTerms][D3];
 #pragma unroll
-    for (int k = 0; k < kMaxCols; ++k) {
-      const int col = threadIdx.x + k * kThreads;
-      if (col < dim_msg) {
+  for (int t = 0; t < kMaxTerms; ++t)
 #pragma unroll
-        for (int t = 0; t < NT; ++t) {
-          const int q_begin = start[col * NT + t];
-          const int q_end = start[col * NT + t + 1];
-          for (int le = 0; le < ne; ++le) {
-            const float* r = rows + le * row_len;
-            float m = 0.f;
-            for (int q = q_begin; q < q_end; ++q) {
-              const int4 tm = __ldg(terms + q);
-              m += __int_as_float(tm.w) * r[tm.x] * r[tm.y] * r[tm.z];
-            }
-            acc[t][k] += m;
-          }
+    for (int k = 0; k < D3; ++k) acc[t][k] = 0.f;
+
+  const int e_end = __ldg(offs + node + 1);
+  for (int e = __ldg(offs + node); e < e_end; ++e) {
+    const long long ee = e;
+#pragma unroll
+    for (int t = 0; t < kMaxTerms; ++t) {
+      if (t >= tm.n) break;
+      const float s_l =
+          lane < d2 ? __ldg(tm.S[t] + ee * dm.sh + sh_off + lane) : 0.f;
+      float xv[D1];
+#pragma unroll
+      for (int i = 0; i < D1; ++i)
+        xv[i] = __ldg(tm.X[t] + ee * dm.x + x_off + i * mul + uc);
+      const float wv = __ldg(tm.W[t] + ee * dm.w + w_off + uc);
+      float b[NH];
+#pragma unroll
+      for (int h = 0; h < NH; ++h) b[h] = 0.f;
+#pragma unroll
+      for (int st = 0; st < kMaxSteps; ++st) {
+        if (st >= n_step) break;
+#pragma unroll
+        for (int h = 0; h < NH; ++h)
+          b[h] = fmaf(cc[st][h], __shfl_sync(0xffffffffu, s_l, cj[st][h]),
+                      b[h]);
+      }
+#pragma unroll
+      for (int k = 0; k < D3; ++k) {
+        float m = 0.f;
+#pragma unroll
+        for (int i = 0; i < D1; ++i) {
+          const int src = k * D1 + i;
+          m = fmaf(__shfl_sync(0xffffffffu, b[src / kWarp], src % kWarp),
+                   xv[i], m);
         }
+        acc[t][k] = fmaf(wv, m, acc[t][k]);
       }
     }
   }
+  if (!active) return;
+  float* o = out + static_cast<long long>(node) * dm.msg + msg_off + u;
 #pragma unroll
-  for (int k = 0; k < kMaxCols; ++k) {
-    const int col = threadIdx.x + k * kThreads;
-    if (col < dim_msg) {
-      float total = acc[0][k];
+  for (int k = 0; k < D3; ++k) {
+    float total = acc[0][k];
 #pragma unroll
-      for (int t = 1; t < NT; ++t) total += acc[t][k];
-      out[static_cast<long long>(n) * dim_msg + col] = total;
-    }
+    for (int t = 1; t < kMaxTerms; ++t)
+      if (t < tm.n) total += acc[t][k];
+    o[k * mul] = total;
   }
 }
 
-template <int NT>
-int launch(const Pool& pool, const int* offs, const int* start,
-           const int* terms, float* out, int n_node, int dim_msg,
-           int row_len, int tile_e, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(tile_e) * row_len * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(cg_gagg_kernel<NT>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
+template <int D1>
+__device__ __forceinline__ void run_d3(int d3, const int* unit,
+                                       const int2* coup, const int* offs,
+                                       int node, int lane, const Terms& tm,
+                                       const Dims& dm, float* out) {
+  switch (d3) {
+    case 1: run_unit<D1, 1>(unit, coup, offs, node, lane, tm, dm, out); break;
+    case 3: run_unit<D1, 3>(unit, coup, offs, node, lane, tm, dm, out); break;
+    case 5: run_unit<D1, 5>(unit, coup, offs, node, lane, tm, dm, out); break;
+    default: run_unit<D1, 7>(unit, coup, offs, node, lane, tm, dm, out); break;
   }
-  if (n_node > 0) {
-    cg_gagg_kernel<NT><<<n_node, kThreads, smem, stream>>>(
-        pool, offs, start, reinterpret_cast<const int4*>(terms), out,
-        dim_msg, row_len, tile_e);
+}
+
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock) cg_gagg_kernel(
+    const int* __restrict__ offs, const int* __restrict__ plan,
+    const int2* __restrict__ coup, float* __restrict__ out,
+    const __grid_constant__ Terms tm, const __grid_constant__ Dims dm) {
+  const long long gw =
+      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
+  if (gw >= static_cast<long long>(dm.n_node) * dm.n_unit) return;
+  const int node = static_cast<int>(gw / dm.n_unit);
+  const int* unit = plan + (gw % dm.n_unit) * kUnit;
+  const int lane = threadIdx.x % kWarp;
+  const int d1 = __ldg(unit + 1);
+  const int d3 = __ldg(unit + 8);
+  switch (d1) {
+    case 1: run_d3<1>(d3, unit, coup, offs, node, lane, tm, dm, out); break;
+    case 3: run_d3<3>(d3, unit, coup, offs, node, lane, tm, dm, out); break;
+    case 5: run_d3<5>(d3, unit, coup, offs, node, lane, tm, dm, out); break;
+    default: run_d3<7>(d3, unit, coup, offs, node, lane, tm, dm, out); break;
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// pool_ptrs / pool_dims: host arrays of n_pool device pointers and row
-// widths; start: [dim_msg * n_terms + 1] CSR over (column, term).
-extern "C" int cg_gagg_f32(const void* const* pool_ptrs, const int* pool_dims,
-                           int n_pool, const int* offs, const int* start,
-                           const int* terms, int n_terms, float* out,
-                           int n_node, int dim_msg, int tile_e,
-                           void* stream) {
-  if (dim_msg > kThreads * kMaxCols || tile_e < 1 || n_pool < 1 ||
-      n_pool > kMaxPool || n_terms < 1 || n_terms > kMaxTerms) {
+// pool_ptrs: host array of n_pool device pointers (edge arrays [E, dim]);
+// terms: host array [n_terms][3] of the terms' (x, sh, w) pool indices;
+// offs: [n_node + 1] dst-sorted edge ranges; plan: the device copy of
+// GAggPlan.packed(); plan_meta: host array (n_unit, offset of the
+// couplings, plan length) (ops/cg_tables.py, gagg_plan).
+extern "C" int cg_gagg_f32(const void* const* pool_ptrs, int n_pool,
+                           const int* terms, int n_terms, const int* offs,
+                           const int* plan, const int* plan_meta, float* out,
+                           int n_node, int dim_x, int dim_sh, int dim_w,
+                           int dim_msg, void* stream) {
+  if (n_pool < 1 || n_pool > kMaxPool || n_terms < 1 ||
+      n_terms > kMaxTerms || plan_meta[0] < 0 || plan_meta[1] % 2 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Pool pool;
-  int row_len = 0;
-  for (int p = 0; p < kMaxPool; ++p) {
-    const bool live = p < n_pool;
-    pool.ptr[p] = live ? static_cast<const float*>(pool_ptrs[p]) : nullptr;
-    pool.dim[p] = live ? pool_dims[p] : 0;
-    pool.off[p] = row_len;
-    row_len += pool.dim[p];
+  Terms tm;
+  const float** legs[3] = {tm.X, tm.S, tm.W};
+  for (int t = 0; t < kMaxTerms; ++t) {
+    for (int l = 0; l < 3; ++l) {
+      const int idx = t < n_terms ? terms[3 * t + l] : -1;
+      if (t < n_terms && (idx < 0 || idx >= n_pool))
+        return static_cast<int>(cudaErrorInvalidValue);
+      legs[l][t] = idx < 0 ? nullptr : static_cast<const float*>(
+                                           pool_ptrs[idx]);
+    }
   }
-  pool.n = n_pool;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (n_terms) {
-    case 1: return launch<1>(pool, offs, start, terms, out, n_node, dim_msg, row_len, tile_e, s);
-    case 2: return launch<2>(pool, offs, start, terms, out, n_node, dim_msg, row_len, tile_e, s);
-    case 3: return launch<3>(pool, offs, start, terms, out, n_node, dim_msg, row_len, tile_e, s);
-    case 4: return launch<4>(pool, offs, start, terms, out, n_node, dim_msg, row_len, tile_e, s);
-    case 5: return launch<5>(pool, offs, start, terms, out, n_node, dim_msg, row_len, tile_e, s);
-    default: return launch<6>(pool, offs, start, terms, out, n_node, dim_msg, row_len, tile_e, s);
+  tm.n = n_terms;
+  Dims dm;
+  dm.x = dim_x;
+  dm.sh = dim_sh;
+  dm.w = dim_w;
+  dm.msg = dim_msg;
+  dm.n_node = n_node;
+  dm.n_unit = plan_meta[0];
+  const long long warps = static_cast<long long>(n_node) * dm.n_unit;
+  if (warps > 0) {
+    const long long blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+    cg_gagg_kernel<<<static_cast<unsigned>(blocks), kWarp * kWarpsPerBlock,
+                     0, static_cast<cudaStream_t>(stream)>>>(
+        offs, plan, reinterpret_cast<const int2*>(plan + plan_meta[1]), out,
+        tm, dm);
   }
+  return static_cast<int>(cudaGetLastError());
 }

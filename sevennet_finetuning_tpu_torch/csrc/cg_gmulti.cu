@@ -15,7 +15,9 @@
 // Replaces: sevennet_finetuning_tpu/ops/fused_conv_bwd_kernel.py,
 // gmulti_pallas -> _build_gmulti_call -> its pallas_call (one windowed
 // ybar DMA and bf16x3 one-hot selection of g shared by all jobs, then the
-// per-job contractions on [mul, TE] slices per path and coupling).  On
+// per-job contractions on [mul, TE] slices per path and coupling), and
+// through cg_multi_f32 multi_pallas -> _build_multi_call -> its
+// pallas_call (the same for the first-order jobs xn / shn / wn).  On
 // this card a direct row load of ybar is exact, so none of that selection
 // machinery is needed.
 //
@@ -41,6 +43,22 @@
 // job that reads it (ops/cg_tables.py, gmulti_passes); another job set
 // runs as several passes, each adding to the groups the earlier ones
 // wrote.
+//
+// The first-order backward ('multi', cg_multi_f32) is the same pass over
+// the pool [x, sh, w] with one job of each emit mode it asks for: xn is
+// the x job (S0 = sh, W0 = w), shn the sh job (X0 = x, W0 = w), wn the w
+// job (X0 = x, S1 = sh).  It never fills a slot 1, so its entry point
+// runs the kernel built for one slot (the template argument NS), whose
+// w slot reads S[0], with the arrays and branches of slot 1 compiled out.
+// Its forces and their parameter gradients are held against the JAX
+// package's goldens, so it keeps the rounding of the plain composition
+// where that decides: the x and sh jobs contract gw = g * w, each
+// product rounded, instead of applying w to the path's sum (which moved
+// the first batch-8 train step's gradients of the converged checkpoint,
+// float32 rounding at the size of the leaf for a few leaves, past their
+// limits against JAX).  With one W leg that costs one multiply a
+// coupling; the w job, which needs the couplings without w, keeps a
+// second sum in the same loop.
 //
 // A block takes a tile of consecutive edges.  A work unit is 32 channels
 // of one chunk (a slice) and the tile's edges e with e % n_phase == phase;
@@ -82,13 +100,20 @@ struct Mode {
 // A pass: the legs, and per emit mode two job slots.  Slot s of the x
 // mode reads (S[s], W[s]), of the sh mode (X[s], W[s]), of the w mode
 // (X[s], S[1 - s]): the pairing of CGNodeMulti.backward's six jobs, so
-// each leg is loaded once for the jobs that share it.
+// each leg is loaded once for the jobs that share it.  A kernel built for
+// NS = 1 slot takes slot 0 only, and its w slot reads S[0].
 struct Pass {
   const float* X[kSlots];
   const float* S[kSlots];
   const float* W[kSlots];
   Mode x, sh, w;
 };
+
+// the S leg of w slot s (an involution: S[s] is read by w slot ws(s))
+template <int NS>
+__host__ __device__ __forceinline__ constexpr int ws(int s) {
+  return NS == 1 ? 0 : 1 - s;
+}
 
 struct Dims {
   int x, sh, w, msg;
@@ -98,19 +123,29 @@ struct Dims {
 };
 
 // the slots' values at one element of their outputs
-__device__ __forceinline__ void emit(const Mode& m, long long idx, float v0,
-                                     float v1) {
-  if (m.same) {
-    const float v = m.add[0] ? m.out[0][idx] + v0 : v0;
-    m.out[0][idx] = v + v1;
+template <int NS>
+__device__ __forceinline__ void emit(const Mode& m, long long idx,
+                                     const float (&v)[NS]) {
+  if (NS == 1) {
+    if (m.out[0]) m.out[0][idx] = m.add[0] ? m.out[0][idx] + v[0] : v[0];
     return;
   }
-  if (m.out[0]) m.out[0][idx] = m.add[0] ? m.out[0][idx] + v0 : v0;
-  if (m.out[1]) m.out[1][idx] = m.add[1] ? m.out[1][idx] + v1 : v1;
+  if (m.same) {
+    const float a = m.add[0] ? m.out[0][idx] + v[0] : v[0];
+    m.out[0][idx] = a + v[NS - 1];
+    return;
+  }
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+    if (m.out[s]) m.out[s][idx] = m.add[s] ? m.out[s][idx] + v[s] : v[s];
 }
 
+template <int NS>
 __device__ __forceinline__ bool live(const Mode& m) {
-  return m.out[0] != nullptr || m.out[1] != nullptr;
+  bool on = false;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) on = on || m.out[s] != nullptr;
+  return on;
 }
 
 struct Lane {
@@ -123,17 +158,17 @@ struct Lane {
   const float* g;  // ybar[dst[e]] + u
 };
 
-template <int D1, int D2>
+template <int NS, int D1, int D2>
 __device__ __forceinline__ void run_group(
     const int* __restrict__ plan, const int* grp, const Lane& ln,
-    const Pass& ps, const Dims& dm, float* red, const float (&xs)[kSlots][D1],
-    float (&accx)[kSlots][D1]) {
+    const Pass& ps, const Dims& dm, float* red, const float (&xs)[NS][D1],
+    float (&accx)[NS][D1]) {
   const int sh_off = grp[0];
   const long long se = ln.e * dm.sh + sh_off;
-  float sv[kSlots][D2], acc_sh[kSlots][D2];
+  float sv[NS][D2], acc_sh[NS][D2];
 #pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const bool need = ps.x.out[s] || ps.w.out[1 - s];
+  for (int s = 0; s < NS; ++s) {
+    const bool need = ps.x.out[s] || ps.w.out[ws<NS>(s)];
 #pragma unroll
     for (int j = 0; j < D2; ++j) {
       sv[s][j] = need ? __ldg(ps.S[s] + se + j) : 0.f;
@@ -144,14 +179,63 @@ __device__ __forceinline__ void run_group(
   for (int p = grp[2]; p < grp[3]; ++p) {
     const int* path = plan + dm.off_path + 4 * p;
     const long long wi = ln.e * dm.w + path[1] + ln.u;
-    float wv[kSlots];
+    float wv[NS];
 #pragma unroll
-    for (int s = 0; s < kSlots; ++s)
+    for (int s = 0; s < NS; ++s)
       wv[s] = (ps.x.out[s] || ps.sh.out[s]) && ln.active
                   ? __ldcs(ps.W[s] + wi)
                   : 0.f;
     const float* gp = ln.g + path[0];
     const int* seg = plan + dm.off_pair + path[2];
+    if constexpr (NS == 1) {
+      // the first-order backward in the plain composition's order
+      // (ops/fused_conv.py, cg_modes): the x and sh jobs contract
+      // gw = g * w, rounded, with the couplings; the w job adds
+      // X[i] * S[j] * sum c * g of each (i, j)
+      float a[D1][D2];
+      float wo = 0.f;
+#pragma unroll
+      for (int i = 0; i < D1; ++i) {
+#pragma unroll
+        for (int j = 0; j < D2; ++j) {
+          float acc = 0.f, acc_g = 0.f;
+          const int q1 = seg[i * D2 + j + 1];
+#pragma unroll 4
+          for (int q = seg[i * D2 + j]; q < q1; ++q) {
+            const int2 c = coup[q];
+            const float cf = __int_as_float(c.y);
+            const float g = __ldg(gp + c.x);
+            acc = fmaf(cf, __fmul_rn(g, wv[0]), acc);
+            acc_g = fmaf(cf, g, acc_g);
+          }
+          a[i][j] = acc;
+          wo = fmaf(xs[0][i] * sv[0][j], acc_g, wo);
+        }
+      }
+      if (ps.x.out[0]) {
+#pragma unroll
+        for (int i = 0; i < D1; ++i) {
+          float t = 0.f;
+#pragma unroll
+          for (int j = 0; j < D2; ++j) t = fmaf(sv[0][j], a[i][j], t);
+          accx[0][i] = __fadd_rn(accx[0][i], t);
+        }
+      }
+      if (ps.sh.out[0]) {
+#pragma unroll
+        for (int j = 0; j < D2; ++j) {
+          float t = 0.f;
+#pragma unroll
+          for (int i = 0; i < D1; ++i) t = fmaf(xs[0][i], a[i][j], t);
+          acc_sh[0][j] = __fadd_rn(acc_sh[0][j], t);
+        }
+      }
+      if (ps.w.out[0] && ln.active) {
+        const float v[NS] = {wo};
+        emit<NS>(ps.w, wi, v);
+      }
+      continue;
+    }
     float a[D1][D2];
 #pragma unroll
     for (int i = 0; i < D1; ++i) {
@@ -168,7 +252,7 @@ __device__ __forceinline__ void run_group(
       }
     }
 #pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
+    for (int s = 0; s < NS; ++s) {
       if (ps.x.out[s]) {
 #pragma unroll
         for (int i = 0; i < D1; ++i) {
@@ -188,28 +272,29 @@ __device__ __forceinline__ void run_group(
         }
       }
     }
-    if (live(ps.w)) {
-      float wo[kSlots];
+    if (live<NS>(ps.w)) {
+      float wo[NS];
 #pragma unroll
-      for (int s = 0; s < kSlots; ++s) {
+      for (int s = 0; s < NS; ++s) {
         float t = 0.f;
         if (ps.w.out[s]) {
 #pragma unroll
           for (int i = 0; i < D1; ++i) {
             float r = 0.f;
 #pragma unroll
-            for (int j = 0; j < D2; ++j) r = fmaf(sv[1 - s][j], a[i][j], r);
+            for (int j = 0; j < D2; ++j)
+              r = fmaf(sv[ws<NS>(s)][j], a[i][j], r);
             t = fmaf(xs[s][i], r, t);
           }
         }
         wo[s] = t;
       }
-      if (ln.active) emit(ps.w, wi, wo[0], wo[1]);
+      if (ln.active) emit<NS>(ps.w, wi, wo);
     }
   }
   // the channels' sh partials: a fixed butterfly, then one store a warp
 #pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
+  for (int s = 0; s < NS; ++s) {
     if (ps.sh.out[s]) {
 #pragma unroll
       for (int j = 0; j < D2; ++j) {
@@ -218,20 +303,21 @@ __device__ __forceinline__ void run_group(
         for (int off = kWarp / 2; off > 0; off >>= 1)
           v += __shfl_xor_sync(0xffffffffu, v, off);
         if (ln.lane == 0)
-          red[((ln.el * dm.n_slice + ln.slice) * kSlots + s) * dm.sh +
-              sh_off + j] = v;
+          red[((ln.el * dm.n_slice + ln.slice) * NS + s) * dm.sh + sh_off +
+              j] = v;
       }
     }
   }
 }
 
-template <int D1>
+template <int NS, int D1>
 __device__ __forceinline__ void run_chunk(
     const int* __restrict__ plan, const int* chunk, const int* desc,
     int lane, const float* __restrict__ ybar, const int* __restrict__ dst,
     const Pass& ps, const Dims& dm, float* red, long long e0, int te) {
   const int x_off = chunk[0];
   const int mul = chunk[2];
+  const float zero[NS] = {};
   Lane ln;
   ln.lane = lane;
   ln.active = desc[1] + lane < mul;
@@ -245,20 +331,21 @@ __device__ __forceinline__ void run_chunk(
     if (node >= dm.n_node) {  // sentinel: zero cotangents, no leg read
       if (ln.active) {
 #pragma unroll
-        for (int i = 0; i < D1; ++i) emit(ps.x, xe + i * mul, 0.f, 0.f);
+        for (int i = 0; i < D1; ++i) emit<NS>(ps.x, xe + i * mul, zero);
         for (int g = chunk[3]; g < chunk[4]; ++g) {
           const int* grp = plan + dm.off_group + 4 * g;
           for (int p = grp[2]; p < grp[3]; ++p)
-            emit(ps.w, ln.e * dm.w + plan[dm.off_path + 4 * p + 1] + ln.u,
-                 0.f, 0.f);
+            emit<NS>(ps.w,
+                     ln.e * dm.w + plan[dm.off_path + 4 * p + 1] + ln.u,
+                     zero);
         }
       }
       continue;
     }
     ln.g = ybar + static_cast<long long>(node) * dm.msg + ln.u;
-    float xs[kSlots][D1], accx[kSlots][D1];
+    float xs[NS][D1], accx[NS][D1];
 #pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
+    for (int s = 0; s < NS; ++s) {
       const bool need = (ps.sh.out[s] || ps.w.out[s]) && ln.active;
 #pragma unroll
       for (int i = 0; i < D1; ++i) {
@@ -270,27 +357,32 @@ __device__ __forceinline__ void run_chunk(
       const int* grp = plan + dm.off_group + 4 * g;
       switch (grp[1]) {
         case 1:
-          run_group<D1, 1>(plan, grp, ln, ps, dm, red, xs, accx);
+          run_group<NS, D1, 1>(plan, grp, ln, ps, dm, red, xs, accx);
           break;
         case 3:
-          run_group<D1, 3>(plan, grp, ln, ps, dm, red, xs, accx);
+          run_group<NS, D1, 3>(plan, grp, ln, ps, dm, red, xs, accx);
           break;
         case 5:
-          run_group<D1, 5>(plan, grp, ln, ps, dm, red, xs, accx);
+          run_group<NS, D1, 5>(plan, grp, ln, ps, dm, red, xs, accx);
           break;
         default:
-          run_group<D1, 7>(plan, grp, ln, ps, dm, red, xs, accx);
+          run_group<NS, D1, 7>(plan, grp, ln, ps, dm, red, xs, accx);
           break;
       }
     }
-    if (ln.active && live(ps.x)) {
+    if (ln.active && live<NS>(ps.x)) {
 #pragma unroll
-      for (int i = 0; i < D1; ++i)
-        emit(ps.x, xe + i * mul, accx[0][i], accx[1][i]);
+      for (int i = 0; i < D1; ++i) {
+        float v[NS];
+#pragma unroll
+        for (int s = 0; s < NS; ++s) v[s] = accx[s][i];
+        emit<NS>(ps.x, xe + i * mul, v);
+      }
     }
   }
 }
 
+template <int NS>
 __global__ void __launch_bounds__(kThreads, 1) cg_gmulti_kernel(
     const float* __restrict__ ybar, const int* __restrict__ dst,
     const int* __restrict__ plan_g, const __grid_constant__ Pass ps,
@@ -298,7 +390,7 @@ __global__ void __launch_bounds__(kThreads, 1) cg_gmulti_kernel(
   extern __shared__ int smem[];
   int* plan = smem;
   float* red = reinterpret_cast<float*>(smem + dm.plan_len);
-  const int red_len = dm.te * dm.n_slice * kSlots * dm.sh;
+  const int red_len = dm.te * dm.n_slice * NS * dm.sh;
   for (int q = threadIdx.x; q < dm.plan_len; q += blockDim.x)
     plan[q] = plan_g[q];
   const long long e0 = static_cast<long long>(blockIdx.x) * dm.te;
@@ -313,58 +405,54 @@ __global__ void __launch_bounds__(kThreads, 1) cg_gmulti_kernel(
     const int* chunk = plan + dm.off_chunk + 6 * desc[0];
     switch (chunk[1]) {
       case 1:
-        run_chunk<1>(plan, chunk, desc, lane, ybar, dst, ps, dm, red, e0, te);
+        run_chunk<NS, 1>(plan, chunk, desc, lane, ybar, dst, ps, dm, red, e0,
+                         te);
         break;
       case 3:
-        run_chunk<3>(plan, chunk, desc, lane, ybar, dst, ps, dm, red, e0, te);
+        run_chunk<NS, 3>(plan, chunk, desc, lane, ybar, dst, ps, dm, red, e0,
+                         te);
         break;
       case 5:
-        run_chunk<5>(plan, chunk, desc, lane, ybar, dst, ps, dm, red, e0, te);
+        run_chunk<NS, 5>(plan, chunk, desc, lane, ybar, dst, ps, dm, red, e0,
+                         te);
         break;
       default:
-        run_chunk<7>(plan, chunk, desc, lane, ybar, dst, ps, dm, red, e0, te);
+        run_chunk<NS, 7>(plan, chunk, desc, lane, ybar, dst, ps, dm, red, e0,
+                         te);
         break;
     }
   }
-  if (!live(ps.sh)) return;
+  if (!live<NS>(ps.sh)) return;
   __syncthreads();
   // sh outputs: each job's slices added in order
-  const int per_edge = dm.n_slice * kSlots * dm.sh;
+  const int per_edge = dm.n_slice * NS * dm.sh;
   for (int q = threadIdx.x; q < te * dm.sh; q += blockDim.x) {
     const int el = q / dm.sh;
     const int col = q - el * dm.sh;
     const float* r = red + el * per_edge + col;
-    float v[kSlots];
+    float v[NS];
 #pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
+    for (int s = 0; s < NS; ++s) {
       float p = 0.f;
       if (ps.sh.out[s]) {
         for (int sl = 0; sl < dm.n_slice; ++sl)
-          p += r[(sl * kSlots + s) * dm.sh];
+          p += r[(sl * NS + s) * dm.sh];
       }
       v[s] = p;
     }
-    emit(ps.sh, (e0 + el) * dm.sh + col, v[0], v[1]);
+    emit<NS>(ps.sh, (e0 + el) * dm.sh + col, v);
   }
 }
 
-}  // namespace
-
-// pool_ptrs: host array of n_pool device pointers (edge arrays); out_ptrs:
-// host array of the n_out group outputs; plan: the device copy of
-// GMultiPlan.packed(); plan_meta: host array (n_chunk, n_desc, n_slice,
-// offsets of chunks, groups, paths, pair starts, couplings, descs, plan
-// length); passes: host array [n_pass][18]: the pool indices of legs X0,
-// X1, S0, S1, W0, W1, then (group, add) of each slot of the x, sh and w
-// modes, -1 where unused (ops/cg_tables.py, gmulti_passes).  One launch
-// per pass.
-extern "C" int cg_gmulti_f32(const float* ybar, const void* const* pool_ptrs,
-                             int n_pool, void* const* out_ptrs, int n_out,
-                             const int* dst, const int* plan,
-                             const int* plan_meta, const int* passes,
-                             int n_pass, int n_edge, int n_node, int dim_x,
-                             int dim_sh, int dim_w, int dim_msg,
-                             int edges_per_block, void* stream) {
+// The passes of one launch of the kernel built for NS slots; the
+// arguments are those of cg_gmulti_f32.  With NS = 1 a pass may fill
+// slot 0 only, and the w slot's S leg is S0 or, where that is unset, S1.
+template <int NS>
+int launch(const float* ybar, const void* const* pool_ptrs, int n_pool,
+           void* const* out_ptrs, int n_out, const int* dst, const int* plan,
+           const int* plan_meta, const int* passes, int n_pass, int n_edge,
+           int n_node, int dim_x, int dim_sh, int dim_w, int dim_msg,
+           int edges_per_block, void* stream) {
   if (edges_per_block < 1 || n_pool < 1 || n_pool > kMaxPool || n_out < 1 ||
       n_out > kMaxOut || n_pass < 1 || plan_meta[1] < 1 ||
       plan_meta[7] % 2 != 0) {
@@ -389,13 +477,13 @@ extern "C" int cg_gmulti_f32(const float* ybar, const void* const* pool_ptrs,
   dm.plan_len = plan_meta[9];
   const size_t smem =
       (static_cast<size_t>(dm.plan_len) +
-       static_cast<size_t>(dm.te) * dm.n_slice * kSlots * dm.sh) *
+       static_cast<size_t>(dm.te) * dm.n_slice * NS * dm.sh) *
       sizeof(float);
   if (smem > static_cast<size_t>(kMaxSmem)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(cg_gmulti_kernel,
+    cudaFuncSetAttribute(cg_gmulti_kernel<NS>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
   }
@@ -420,24 +508,70 @@ extern "C" int cg_gmulti_f32(const float* ybar, const void* const* pool_ptrs,
       }
       md.same = md.out[0] != nullptr && md.out[0] == md.out[1];
     }
+    if (NS == 1) {
+      // one slot: nothing in slot 1, and the w job's S leg moves to S0
+      if (ps.x.out[1] || ps.sh.out[1] || ps.w.out[1] || ps.X[1] ||
+          ps.W[1] || (ps.S[0] && ps.S[1] && ps.S[0] != ps.S[1])) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      if (!ps.S[0]) ps.S[0] = ps.S[1];
+      ps.S[1] = nullptr;
+    }
     // every live slot has its legs: x (S[s], W[s]), sh (X[s], W[s]),
-    // w (X[s], S[1 - s])
-    for (int s = 0; s < kSlots; ++s) {
+    // w (X[s], S[ws(s)])
+    for (int s = 0; s < NS; ++s) {
       if ((ps.x.out[s] && (!ps.S[s] || !ps.W[s])) ||
           (ps.sh.out[s] && (!ps.X[s] || !ps.W[s])) ||
-          (ps.w.out[s] && (!ps.X[s] || !ps.S[1 - s]))) {
+          (ps.w.out[s] && (!ps.X[s] || !ps.S[ws<NS>(s)]))) {
         return static_cast<int>(cudaErrorInvalidValue);
       }
     }
     if (n_edge > 0) {
       const int warps = dm.n_desc < kMaxWarps ? dm.n_desc : kMaxWarps;
       const int blocks = (n_edge + edges_per_block - 1) / edges_per_block;
-      cg_gmulti_kernel<<<blocks, warps * kWarp, smem,
-                         static_cast<cudaStream_t>(stream)>>>(ybar, dst, plan,
-                                                              ps, dm);
+      cg_gmulti_kernel<NS><<<blocks, warps * kWarp, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+          ybar, dst, plan, ps, dm);
     }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaSuccess);
+}
+
+}  // namespace
+
+// pool_ptrs: host array of n_pool device pointers (edge arrays); out_ptrs:
+// host array of the n_out group outputs; plan: the device copy of
+// GMultiPlan.packed(); plan_meta: host array (n_chunk, n_desc, n_slice,
+// offsets of chunks, groups, paths, pair starts, couplings, descs, plan
+// length); passes: host array [n_pass][18]: the pool indices of legs X0,
+// X1, S0, S1, W0, W1, then (group, add) of each slot of the x, sh and w
+// modes, -1 where unused (ops/cg_tables.py, gmulti_passes).  One launch
+// per pass.
+extern "C" int cg_gmulti_f32(const float* ybar, const void* const* pool_ptrs,
+                             int n_pool, void* const* out_ptrs, int n_out,
+                             const int* dst, const int* plan,
+                             const int* plan_meta, const int* passes,
+                             int n_pass, int n_edge, int n_node, int dim_x,
+                             int dim_sh, int dim_w, int dim_msg,
+                             int edges_per_block, void* stream) {
+  return launch<2>(ybar, pool_ptrs, n_pool, out_ptrs, n_out, dst, plan,
+                   plan_meta, passes, n_pass, n_edge, n_node, dim_x, dim_sh,
+                   dim_w, dim_msg, edges_per_block, stream);
+}
+
+// The first-order backward's jobs (pool [x, sh, w], one job of each emit
+// mode at most, each its own group): the arguments of cg_gmulti_f32, the
+// kernel built for one slot.
+extern "C" int cg_multi_f32(const float* ybar, const void* const* pool_ptrs,
+                            int n_pool, void* const* out_ptrs, int n_out,
+                            const int* dst, const int* plan,
+                            const int* plan_meta, const int* passes,
+                            int n_pass, int n_edge, int n_node, int dim_x,
+                            int dim_sh, int dim_w, int dim_msg,
+                            int edges_per_block, void* stream) {
+  return launch<1>(ybar, pool_ptrs, n_pool, out_ptrs, n_out, dst, plan,
+                   plan_meta, passes, n_pass, n_edge, n_node, dim_x, dim_sh,
+                   dim_w, dim_msg, edges_per_block, stream);
 }

@@ -31,8 +31,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
-SOURCES = ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg', 'cg_gmulti',
-           'cg_quad', 'probe_copy', 'probe_feats')
+SOURCES = ('segment_sum', 'cg_agg', 'cg_gagg', 'cg_gmulti', 'cg_quad',
+           'probe_copy', 'probe_feats')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -47,14 +47,15 @@ SIGNATURES = {
     'segment_sum': ('seg_sum_sorted_f32', (_P, _P, _P) + (_I,) * 4 + (_P,)),
     'cg_agg': ('cg_agg_f32',
                (_P, _P, _P, _P, _P, _P, _P) + (_I,) * 6 + (_P,)),
-    'cg_multi': ('cg_multi_f32',
-                 (_P,) * 5 + (_P, _P, _P, _I) + (_P, _P, _I, _I)
-                 + (_P, _P, _P, _I, _I, _I) + (_I,) * 7 + (_P,)),
-    # pool pointers / dims and output pointers / dims are host arrays
+    # pool pointers, terms, output pointers and the plan's meta are host
+    # arrays
     'cg_gagg': ('cg_gagg_f32',
-                (_P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P)),
+                (_P, _I, _P, _I, _P, _P, _P, _P) + (_I,) * 5 + (_P,)),
     'cg_gmulti': ('cg_gmulti_f32',
                   (_P, _P, _I, _P, _I) + (_P,) * 4 + (_I,) * 8 + (_P,)),
+    # the first-order backward: cg_gmulti.cu's kernel built for one slot
+    'cg_multi': ('cg_multi_f32',
+                 (_P, _P, _I, _P, _I) + (_P,) * 4 + (_I,) * 8 + (_P,)),
     'cg_quad': ('cg_quad_f32',
                 (_P,) * 3 + (_I,) * 3 + (_P, _P, _P, _I) + (_P, _P, _I, _I)
                 + (_P, _I, _I, _I, _P)),
@@ -70,13 +71,15 @@ SIGNATURES = {
     'probe_dot': ('probe_dot_bf16x3_f32', (_P, _P, _P, _I, _I, _I, _P)),
     'probe_window': ('probe_window_f32', (_P, _P, _P, _I, _I, _P)),
 }
-# the source of each entry point: its own name, but for the probes'
-PROBE_ENTRIES = {
+# the source of each entry point: its own name, but for those that share
+# a source
+SHARED_SOURCES = {
+    'cg_gmulti': ('cg_multi',),
     'probe_copy': ('probe_copy_tiled', 'probe_colsum', 'probe_copy_ring'),
     'probe_feats': ('probe_transpose', 'probe_split', 'probe_dot',
                     'probe_window')}
 SOURCE_OF = {name: name for name in SIGNATURES}
-SOURCE_OF.update({name: src for src, names in PROBE_ENTRIES.items()
+SOURCE_OF.update({name: src for src, names in SHARED_SOURCES.items()
                   for name in names})
 KERNELS = tuple(SIGNATURES)
 

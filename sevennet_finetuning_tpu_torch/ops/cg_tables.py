@@ -11,21 +11,26 @@ tables are built once per ``CGLayout`` from its nonzero Wigner-3j terms
 ``terms``, an int32 ``[T, 4]`` array of ``(a, b, c, float bits of coef)``.
 
 - agg: row = [x | sh | w]; one CSR row per msg column (stride layout).
-- multi: row = [g | x | sh | w] with g = ybar[dst[e]]; outputs are the
-  requested jobs' columns concatenated in job order.  The xn and wn
-  columns are one work item each.  An shn column sums every term of its
-  filter component (hundreds to thousands), so its terms are cut into
+- multi (cg_quad's x / sh / w modes): row = [g | x | sh | w] with
+  g = ybar[dst[e]]; outputs are the requested jobs' columns concatenated
+  in job order.  The xn and wn columns are one work item each.  An shn
+  column sums every term of its filter component (hundreds to
+  thousands), so its terms are cut into
   chunks of at most ``SH_CHUNK``; each chunk is one item writing a
   partial sum, and a second pass adds a column's partials in order --
   a fixed-order reduction, so results do not vary from run to run.
-- gagg (the double backward's ybar cotangent, a sum of agg terms):
-  row = [pool_0 | pool_1 | ...]; a CSR over (msg column, agg term), so
-  the kernel keeps one sum per term and adds them left to right.
-- gmulti (every edge-side cotangent of the double backward) is not a
-  term table: ``gmulti_plan`` lists each path's couplings (k, i, j, c)
-  once, for every channel u and every job, and the kernel's threads
-  are the channels (see ``GMultiPlan``); ``gmulti_passes`` lays the
-  jobs (emit mode, two pool legs, group) into its slots.
+- gmulti (every edge-side cotangent of the double backward, and through
+  it multi, the first-order edge cotangents) is not a term table:
+  ``gmulti_plan`` lists each path's couplings (k, i, j, c) once, for
+  every channel u and every job, and the kernel's threads are the
+  channels (see ``GMultiPlan``); ``gmulti_passes`` lays the jobs (emit
+  mode, two pool legs, group) into its slots.  ``multi_table`` no longer
+  drives a kernel of its own: ``quad_table`` builds cg_quad's table from
+  it.
+- gagg (the double backward's ybar cotangent, a sum of agg terms over a
+  pool of edge arrays) is driven by ``gagg_plan``: the same chunks,
+  groups, paths and couplings, re-sorted so that a lane can form each
+  output component k from its own segment (k, i) (see ``GAggPlan``).
 - quad (the per-edge modes, no aggregation): row = the mode's three
   legs in ``_MODE_LEGS`` order.  'msg' is agg's table, one item per msg
   column; 'x', 'sh' and 'w' are multi's single xn / shn / wn job with its
@@ -189,36 +194,6 @@ def quad_table(layout: CGLayout, mode: str) -> MultiTable:
         out_dims=tab.out_dims)
 
 
-def _pool_offsets(pool_dims: Tuple[int, ...], base: int = 0):
-    offs = [base]
-    for d in pool_dims[:-1]:
-        offs.append(offs[-1] + d)
-    return offs
-
-
-@functools.lru_cache(maxsize=None)
-def gagg_table(layout: CGLayout, terms: Tuple[Tuple[int, int, int], ...],
-               pool_dims: Tuple[int, ...]) -> Tuple[np.ndarray, np.ndarray]:
-    """CSR over (msg column, agg term): ``start[col * n_terms + t]`` ..
-    ``start[col * n_terms + t + 1]`` are term t's entries of column col,
-    indexing row = [pool_0 | pool_1 | ...]; ``terms`` are (x, sh, w) pool
-    indices."""
-    start, entries = agg_table(layout)
-    P = _pool_offsets(pool_dims)
-    S0 = layout.dim_x
-    W0 = layout.dim_x + layout.dim_sh
-    cols: List[list] = []
-    for col in range(layout.dim_msg):
-        ents = entries[start[col]:start[col + 1]]
-        coef = ents[:, 3].copy().view(np.float32)
-        for (xi, si, wi) in terms:
-            cols.append([
-                (P[xi] + int(a), P[si] + int(b) - S0, P[wi] + int(c) - W0,
-                 float(cf))
-                for (a, b, c, _), cf in zip(ents, coef)])
-    return _pack(cols)
-
-
 # --- gmulti: the path-level coupling list of csrc/cg_gmulti.cu ---
 
 _EMIT_DIM = {'x': 'dim_x', 'sh': 'dim_sh', 'w': 'dim_w'}
@@ -249,7 +224,7 @@ class GMultiPlan:
     chunks: np.ndarray      # [n_chunk, 6] x_off, d1, mul, group begin, end,
                             #   id of the chunk's first slice
     groups: np.ndarray      # [n_group, 4] sh_off, d2, path begin, end
-    paths: np.ndarray       # [n_path, 4] msg_off, w_off, pair begin, 0
+    paths: np.ndarray       # [n_path, 4] msg_off, w_off, pair begin, d_out
     pair_start: np.ndarray  # per path d1 * d2 + 1 coupling offsets, one
                             #   segment per (i, j), i-major
     couplings: np.ndarray   # [n_coup, 2] k * mul, float bits of c
@@ -274,11 +249,10 @@ class GMultiPlan:
 
 
 @functools.lru_cache(maxsize=None)
-def gmulti_plan(layout: CGLayout, edges_per_block: int,
-                n_phase: Optional[int] = None) -> GMultiPlan:
-    """The layout's coupling list, its tiles of ``edges_per_block`` edges
-    split into ``n_phase`` phases for every chunk (None: the measured
-    rule, ``GMULTI_PHASES_ONE_DIM`` or one edge a work unit)."""
+def _path_list(layout: CGLayout):
+    """The layout's chunks, groups, paths, pair starts and couplings (the
+    sections of ``GMultiPlan`` but its descs), and the x chunks as
+    (x_off, d1, mul, groups) with chunks of no group between them."""
     by_x: Dict[int, list] = {}
     for grp in layout.groups:
         if max(grp.d1, grp.d2) > GMULTI_MAX_D:
@@ -307,7 +281,7 @@ def gmulti_plan(layout: CGLayout, edges_per_block: int,
             groups.append((grp.sh_off, grp.d2, len(paths),
                            len(paths) + len(grp.paths)))
             for p in grp.paths:
-                paths.append((p.msg_off, p.w_off, len(pair_start), 0))
+                paths.append((p.msg_off, p.w_off, len(pair_start), p.d_out))
                 w_cover[p.w_off:p.w_off + mul] += 1
                 pairs: List[list] = [[] for _ in range(d1 * grp.d2)]
                 for (k, i, j, c) in p.nnz:
@@ -319,7 +293,25 @@ def gmulti_plan(layout: CGLayout, edges_per_block: int,
     if not (w_cover == 1).all():
         raise ValueError('cg_gmulti: the paths do not cover every w column '
                          'exactly once')
+    coup = np.zeros((max(len(coups), 1), 2), np.int32)
+    if coups:
+        coup[:len(coups), 0] = [c[0] for c in coups]
+        coup[:len(coups), 1] = np.asarray([c[1] for c in coups],
+                                          np.float32).view(np.int32)
+    return (full, np.asarray(chunks, np.int32).reshape(-1, 6),
+            np.asarray(groups, np.int32).reshape(-1, 4),
+            np.asarray(paths, np.int32).reshape(-1, 4),
+            np.asarray(pair_start, np.int32), coup, n_slice)
 
+
+@functools.lru_cache(maxsize=None)
+def gmulti_plan(layout: CGLayout, edges_per_block: int,
+                n_phase: Optional[int] = None) -> GMultiPlan:
+    """The layout's coupling list, its tiles of ``edges_per_block`` edges
+    split into ``n_phase`` phases for every chunk (None: the measured
+    rule, ``GMULTI_PHASES_ONE_DIM`` or one edge a work unit)."""
+    full, chunks, groups, paths, pair_start, coup, n_slice = _path_list(
+        layout)
     if n_phase is None:
         n_phase = (GMULTI_PHASES_ONE_DIM if len({f[1] for f in full}) == 1
                    else edges_per_block)
@@ -329,19 +321,9 @@ def gmulti_plan(layout: CGLayout, edges_per_block: int,
     descs = [(q, sl * WARP, ph, n_phase)
              for q, (_, _, mul, _) in enumerate(full)
              for sl in range(-(-mul // WARP)) for ph in range(n_phase)]
-
-    coup = np.zeros((max(len(coups), 1), 2), np.int32)
-    if coups:
-        coup[:len(coups), 0] = [c[0] for c in coups]
-        coup[:len(coups), 1] = np.asarray([c[1] for c in coups],
-                                          np.float32).view(np.int32)
     return GMultiPlan(
-        chunks=np.asarray(chunks, np.int32).reshape(-1, 6),
-        groups=np.asarray(groups, np.int32).reshape(-1, 4),
-        paths=np.asarray(paths, np.int32).reshape(-1, 4),
-        pair_start=np.asarray(pair_start, np.int32),
-        couplings=coup,
-        descs=np.asarray(descs, np.int32).reshape(-1, 4),
+        chunks=chunks, groups=groups, paths=paths, pair_start=pair_start,
+        couplings=coup, descs=np.asarray(descs, np.int32).reshape(-1, 4),
         n_slice=n_slice)
 
 
@@ -423,6 +405,80 @@ def gmulti_term_count(layout: CGLayout, n_jobs: int) -> int:
     table's bound counts."""
     return n_jobs * sum(len(p.nnz) * g.mul for g in layout.groups
                         for p in g.paths)
+
+
+# --- gagg: the same couplings, one output component k a lane segment ---
+
+GAGG_UNIT = 12            # ints of a GAggPlan unit
+
+
+@dataclass(frozen=True)
+class GAggPlan:
+    """The layout's couplings for csrc/cg_gagg.cu.  A unit is one path and
+    one 32-channel slice of its x chunk (a warp per node and unit); a lane
+    is a channel u.  A message component k of a path is
+    w[u] * sum_i x[i, u] * B[k][i] with B[k][i] = sum c * sh[j] over the
+    path's couplings (k, i, j, c), which does not depend on u: lane
+    ``k * d1 + i`` (mod 32, in ``ceil(d1 * d3 / 32)`` halves) forms that
+    segment's B from its own coupling list, in steps, and the warp
+    exchanges the B values by shuffles."""
+
+    units: np.ndarray       # [n_unit, GAGG_UNIT] x_off, d1, mul, first
+                            #   channel, sh_off, d2, msg_off, w_off, d3,
+                            #   first coupling, steps, 0
+    couplings: np.ndarray   # [n, 2] j, float bits of c; per path a block
+                            #   [steps][halves][32 lanes], zero-padded
+
+    def packed(self) -> Tuple[np.ndarray, Tuple[int, ...]]:
+        """(one int32 array, meta = (n_unit, offset of the couplings,
+        total length)); the couplings start 8-byte aligned."""
+        head = self.units.reshape(-1)
+        pad = np.zeros(len(head) % 2, np.int32)
+        flat = np.concatenate([head, pad, self.couplings.reshape(-1)])
+        return (flat.astype(np.int32),
+                (len(self.units), len(head) + len(pad), len(flat)))
+
+
+@functools.lru_cache(maxsize=None)
+def gagg_plan(layout: CGLayout) -> GAggPlan:
+    """gmulti_plan's chunks, groups, paths and couplings as cg_gagg.cu's
+    units: each (i, j) segment's couplings (k * mul, c) of a path become
+    the (j, c) entries of segment (k, i), j ascending."""
+    _, chunks, groups, paths, pair_start, coup, _ = _path_list(layout)
+    coef = coup[:, 1].copy().view(np.float32)
+    units, entries = [], []
+    msg_cover = np.zeros(layout.dim_msg, np.int64)
+    for (x_off, d1, mul, gb, ge, _) in chunks:
+        for (sh_off, d2, pb, pe) in groups[gb:ge]:
+            for (msg_off, w_off, pair, d3) in paths[pb:pe]:
+                segs: List[list] = [[] for _ in range(d1 * d3)]
+                for i in range(d1):
+                    for j in range(d2):
+                        q0, q1 = pair_start[pair + i * d2 + j:
+                                            pair + i * d2 + j + 2]
+                        for q in range(q0, q1):
+                            k = int(coup[q, 0]) // mul
+                            segs[k * d1 + i].append((j, coef[q]))
+                steps = max(len(sg) for sg in segs)
+                lanes = -(-d1 * d3 // WARP) * WARP
+                block = np.zeros((steps, lanes, 2), np.int32)
+                for sgi, sg in enumerate(segs):
+                    for st, (j, c) in enumerate(sg):
+                        block[st, sgi] = (j, np.float32(c).view(np.int32))
+                first = sum(len(e) for e in entries)
+                entries.append(block.reshape(-1, 2))
+                for u0 in range(0, mul, WARP):
+                    units.append((x_off, d1, mul, u0, sh_off, d2, msg_off,
+                                  w_off, d3, first, steps, 0))
+                for k in range(d3):
+                    msg_cover[msg_off + k * mul:msg_off + (k + 1) * mul] += 1
+    if not (msg_cover == 1).all():
+        raise ValueError('cg_gagg: the paths do not cover every msg column '
+                         'exactly once')
+    return GAggPlan(
+        units=np.asarray(units, np.int32).reshape(-1, GAGG_UNIT),
+        couplings=(np.concatenate(entries) if entries
+                   else np.zeros((0, 2), np.int32)))
 
 
 _DEVICE_CACHE: Dict[tuple, tuple] = {}

@@ -7,11 +7,15 @@ three grouped calls, each an autograd Function whose backward calls only
 Functions of this family (so a third order works too):
 
 - ``CGNodeMulti``: several first-order edge cotangents xn / shn / wn over
-  one shared (ybar, x, sh, w, dst) -- ``CGNodeAgg``'s backward.  Kernel
-  ``csrc/cg_multi.cu``.
+  one shared (ybar, x, sh, w, dst) -- ``CGNodeAgg``'s backward.  It is
+  one ``cg_gmulti`` pass over the pool [x, sh, w], a job a group (xn the
+  x job of legs (sh, w), shn the sh job of (x, w), wn the w job of
+  (x, sh)), launched through ``csrc/cg_gmulti.cu``'s entry point built
+  for one job slot (``cg_multi_f32``; its launches count as ``cg_multi``).
 - ``CGNodeGAgg``: a sum of agg terms whose legs come from a pool of edge
   arrays -- the ybar cotangent of a double backward.  Kernel
-  ``csrc/cg_gagg.cu``.
+  ``csrc/cg_gagg.cu``, driven by the same path-level couplings
+  (``cg_tables.gagg_plan``).
 - ``CGNodeGMulti``: node-mode jobs (emit mode, two pool legs, group) over
   one shared ybar, grouped outputs -- every edge-side cotangent of a
   double backward.  Kernel ``csrc/cg_gmulti.cu``, driven by the layout's
@@ -37,8 +41,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from . import _cuda
-from .cg_tables import (gagg_table, gmulti_out_dims, gmulti_passes,
-                        gmulti_plan, multi_table, on_device)
+from .cg_tables import (gagg_plan, gmulti_out_dims, gmulti_passes,
+                        gmulti_plan, on_device)
 from .fused_conv import CGLayout
 from .fused_conv_agg import agg_plain, node_mode_plain
 from .scatter import row_offsets
@@ -50,8 +54,8 @@ _EMIT2NODE = {v: k for k, v in _EMIT.items()}
 # leg roles (b, c) of each emit mode, in cg_node leg order after ybar
 _EMIT_LEGS = {'x': ('sh', 'w'), 'sh': ('x', 'w'), 'w': ('x', 'sh')}
 
-# edges per block of the multi / gmulti kernels (consecutive, so they
-# mostly share one destination node and its staged ybar row)
+# edges per block of the gmulti kernel (consecutive, so they mostly share
+# one destination node and its ybar row)
 EDGES_PER_BLOCK = 16
 # pool pointers and terms a kernel launch takes (csrc/cg_g*.cu)
 MAX_POOL = 12
@@ -71,36 +75,28 @@ def multi_plain(ybar, x, sh, w, dst, jobs: Sequence[str],
         for j in jobs)
 
 
+# pool index of each leg in multi's pool [x, sh, w]
+_MULTI_POOL = {'x': 0, 'sh': 1, 'w': 2}
+
+
 def multi_cuda(ybar, x, sh, w, dst, jobs: Tuple[str, ...],
-               layout: CGLayout, n_node: int):
+               layout: CGLayout, n_node: int,
+               n_phase: Optional[int] = None):
     """The CUDA kernel: ybar [n_node, dim_msg], edge legs [E, dim] f32,
-    dst [E] int32 ascending -> one [E, dim] array per job."""
-    E = dst.shape[0]
-    _cuda.require(ybar, 'ybar', torch.float32, (n_node, layout.dim_msg))
-    _cuda.require(x, 'x', torch.float32, (E, layout.dim_x))
-    _cuda.require(sh, 'sh', torch.float32, (E, layout.dim_sh))
-    _cuda.require(w, 'w', torch.float32, (E, layout.dim_w))
-    _cuda.require(dst, 'dst', torch.int32, (E,))
-    tab = multi_table(layout, jobs)
-    item_start, item_out, terms, red_start, red_out = on_device(
-        ('multi', layout, jobs),
-        (tab.item_start, tab.item_out, tab.terms, tab.red_start,
-         tab.red_out), x.device)
-    outs = [torch.empty((E, d), dtype=x.dtype, device=x.device)
-            for d in tab.out_dims]
-    ptrs = [o.data_ptr() for o in outs] + [0] * (3 - len(outs))
-    dims = list(tab.out_dims) + [0] * (3 - len(outs))
-    fn = _cuda.kernel('cg_multi')
-    _cuda.LAUNCHES['cg_multi'] += 1
-    _cuda.check('cg_multi', fn(
-        ybar.data_ptr(), x.data_ptr(), sh.data_ptr(), w.data_ptr(),
-        dst.data_ptr(), item_start.data_ptr(), item_out.data_ptr(),
-        terms.data_ptr(), len(tab.item_out), red_start.data_ptr(),
-        red_out.data_ptr(), len(tab.red_start) - 1, tab.n_part,
-        *ptrs, *dims, E, n_node, layout.dim_msg, layout.dim_x,
-        layout.dim_sh, layout.dim_w, EDGES_PER_BLOCK,
-        _cuda.stream_ptr(x.device)))
-    return tuple(outs)
+    dst [E] int32 ascending -> one [E, dim] array per job, each job at
+    most once; one launch of ``cg_gmulti.cu`` built for one slot.
+    ``n_phase`` as for ``gmulti_cuda``."""
+    return _gmulti_launch('cg_multi', ybar, [x, sh, w], dst,
+                          multi_jobs(jobs), jobs, layout, n_node, n_phase)
+
+
+def multi_jobs(jobs: Tuple[str, ...]):
+    """Multi's jobs as gmulti jobs over the pool [x, sh, w], each job its
+    own group: (emit mode, b, c, job)."""
+    if len(set(jobs)) != len(jobs):
+        raise ValueError(f'multi jobs {jobs}: each job at most once')
+    return tuple((_EMIT[j], *(_MULTI_POOL[leg] for leg in _JOB_LEGS[j]), j)
+                 for j in jobs)
 
 
 class _Pool:
@@ -227,23 +223,30 @@ def gagg_cuda(pool, dst, terms, layout: CGLayout, n_node: int):
     roles = {}
     for (xi, si, wi) in terms:
         roles.update({xi: 'x', si: 'sh', wi: 'w'})
-    pool_dims = _pool_dims(layout, pool, roles)
-    key = ('gagg', layout, terms, pool_dims)
-    start, entries = on_device(key, gagg_table(layout, terms, pool_dims),
-                               dst.device)
+    _pool_dims(layout, pool, roles)
+    flat, meta, n_unit = _gagg_args(layout)
+    (plan,) = on_device(('gagg', layout), (flat,), dst.device)
     offs = row_offsets(dst, n_node)
     out = torch.empty((n_node, layout.dim_msg), dtype=torch.float32,
                       device=dst.device)
-    row = sum(pool_dims)
-    tile_e = max(1, min(32, (96 * 1024 // 4) // row))
     fn = _cuda.kernel('cg_gagg')
-    _cuda.LAUNCHES['cg_gagg'] += 1
+    if n_node and n_unit:
+        _cuda.LAUNCHES['cg_gagg'] += 1
     _cuda.check('cg_gagg', fn(
-        _cuda.host_ptrs(pool), _cuda.host_ints(pool_dims), len(pool),
-        offs.data_ptr(), start.data_ptr(), entries.data_ptr(), len(terms),
-        out.data_ptr(), n_node, layout.dim_msg, tile_e,
+        _cuda.host_ptrs(pool), len(pool),
+        _cuda.host_ints([i for term in terms for i in term]), len(terms),
+        offs.data_ptr(), plan.data_ptr(), meta, out.data_ptr(), n_node,
+        layout.dim_x, layout.dim_sh, layout.dim_w, layout.dim_msg,
         _cuda.stream_ptr(dst.device)))
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _gagg_args(layout: CGLayout):
+    """Host side of a gagg launch, per layout: the packed plan, its meta
+    as a C int array and the number of units."""
+    flat, meta = gagg_plan(layout).packed()
+    return flat, _cuda.host_ints(meta), meta[0]
 
 
 class CGNodeGAgg(torch.autograd.Function):
@@ -317,14 +320,23 @@ def gmulti_cuda(ybar, pool, dst, jobs, groups, layout: CGLayout,
     launch per pass (``gmulti_passes``).  ``n_phase``: the plan's phases
     (``gmulti_plan``, None for its measured rule; any count gives the
     same bits)."""
+    if len(groups) > MAX_POOL:
+        raise ValueError(f'{len(groups)} groups; the kernel takes at most '
+                         f'{MAX_POOL}')
+    return _gmulti_launch('cg_gmulti', ybar, pool, dst, jobs, groups, layout,
+                          n_node, n_phase)
+
+
+def _gmulti_launch(entry: str, ybar, pool, dst, jobs, groups,
+                   layout: CGLayout, n_node: int, n_phase: Optional[int]):
+    """The passes of grouped jobs through the C entry point ``entry`` of
+    ``csrc/cg_gmulti.cu`` (``cg_gmulti``: two slots of each emit mode;
+    ``cg_multi``: one), counted one launch a pass under its name."""
     E = dst.shape[0]
     _cuda.require(ybar, 'ybar', torch.float32, (n_node, layout.dim_msg))
     _require_pool(pool, E)
     _cuda.require(dst, 'dst', torch.int32, (E,))
     gidx = {g: i for i, g in enumerate(groups)}
-    if len(groups) > MAX_POOL:
-        raise ValueError(f'{len(groups)} groups; the kernel takes at most '
-                         f'{MAX_POOL}')
     norm = tuple((m, bi, ci, gidx[g]) for (m, bi, ci, g) in jobs)
     roles = {}
     for (m, bi, ci, _) in norm:
@@ -336,10 +348,10 @@ def gmulti_cuda(ybar, pool, dst, jobs, groups, layout: CGLayout,
                         (flat,), dst.device)
     outs = [torch.empty((E, d), dtype=torch.float32, device=dst.device)
             for d in out_dims]
-    fn = _cuda.kernel('cg_gmulti')
+    fn = _cuda.kernel(entry)
     if E:
-        _cuda.LAUNCHES['cg_gmulti'] += n_pass
-    _cuda.check('cg_gmulti', fn(
+        _cuda.LAUNCHES[entry] += n_pass
+    _cuda.check(entry, fn(
         ybar.data_ptr(), _cuda.host_ptrs(pool), len(pool),
         _cuda.host_ptrs(outs), len(outs), dst.data_ptr(), plan.data_ptr(),
         meta, passes, n_pass, E, n_node, layout.dim_x, layout.dim_sh,

@@ -1,5 +1,6 @@
 """The phases of the ``cg_gmulti`` plan, measured: the kernel's time at
-SevenNet-0's convolution layouts for each phase count.
+SevenNet-0's convolution layouts for each phase count, for the job sets
+of ``cg_gmulti`` and of ``cg_multi`` (the same kernel built for one slot).
 
 A block of ``csrc/cg_gmulti.cu`` splits its tile of edges into ``n_phase``
 phases for every 32-channel slice, one work unit each, so the count sets
@@ -9,8 +10,12 @@ how many warps a block runs and how many edges each walks
     python -m sevennet_finetuning_tpu_torch.tools.gmulti_phases [--ckpt P]
 
 At blocks 0, 1 and 4 of the checkpoint's model (blocks 1-3 share one
-layout) and for the two job sets of a train step (``CGNodeMulti.backward``'s
-six jobs, and the four without the sh group), on random legs over a graph
+layout) and for the job sets of a train step -- ``CGNodeMulti.backward``'s
+six jobs, the four without the sh group, and ``CGNodeAgg.backward``'s
+first-order jobs (xn, shn, wn at blocks 1-4, shn, wn at block 0) through
+``multi_cuda`` (the one-slot build, ``cg_multi``) and, for comparison,
+the same jobs through ``gmulti_cuda`` (the two-slot build) -- on random
+legs over a graph
 of the batch-8 collate's size (768 nodes, 38,080 edge slots, 34,604 live,
 ascending destinations from numpy seed 0), times ``gmulti_cuda`` for each
 of ``PHASES`` with CUDA events (ms per launch over 20 launches after
@@ -35,7 +40,8 @@ import torch
 from ..ops.cg_tables import gmulti_plan
 from ..ops.fused_conv import layout_from_spec
 from ..ops.fused_conv_multi import (EDGES_PER_BLOCK, gmulti_cuda,
-                                    gmulti_plain)
+                                    gmulti_plain, multi_cuda, multi_jobs,
+                                    multi_plain)
 from .bench_dma import card_line, time_ms
 
 CKPT = (Path(__file__).resolve().parents[2]
@@ -50,6 +56,12 @@ SIX = ((('x', 1, 5, 'x'), ('x', 4, 2, 'x'), ('sh', 0, 5, 'sh'),
         ('sh', 3, 2, 'sh'), ('w', 0, 4, 'w'), ('w', 3, 1, 'w')),
        ('x', 'sh', 'w'))
 FOUR = (tuple(j for j in SIX[0] if j[3] != 'sh'), ('x', 'w'))
+
+
+def multi_job_set(block: int):
+    """CGNodeAgg.backward's first-order jobs at a block: block 0's input
+    is the embedding, which needs no cotangent."""
+    return ('shn', 'wn') if block == 0 else ('xn', 'shn', 'wn')
 
 
 def layouts(ckpt: Path):
@@ -82,15 +94,29 @@ def main(argv=None) -> int:
         dims = (layout.dim_x, layout.dim_sh, layout.dim_w)
         pool = [randn(N_SLOT, d) for d in dims + dims]
         ybar = randn(N_NODE, layout.dim_msg)
-        for label, (jobs, groups) in (('6 jobs', SIX), ('4 jobs', FOUR)):
+        legs = pool[:3]
+        mjobs = multi_job_set(t)
+        label_m = '+'.join(mjobs)
+        cases = [(label, lambda p, jg=jg: gmulti_cuda(
+                      ybar, pool, dst, *jg, layout, N_NODE, n_phase=p),
+                  lambda jg=jg: gmulti_plain(ybar, pool, dst, *jg, layout,
+                                             N_NODE))
+                 for label, jg in (('6 jobs', SIX), ('4 jobs', FOUR))]
+        cases += [
+            (f'multi {label_m}', lambda p: multi_cuda(
+                ybar, *legs, dst, mjobs, layout, N_NODE, n_phase=p),
+             lambda: multi_plain(ybar, *legs, dst, mjobs, layout, N_NODE)),
+            (f'multi {label_m} (two-slot build)', lambda p: gmulti_cuda(
+                ybar, legs, dst, multi_jobs(mjobs), mjobs, layout, N_NODE,
+                n_phase=p),
+             lambda: multi_plain(ybar, *legs, dst, mjobs, layout, N_NODE))]
+        for label, run, plain in cases:
             case = f'block {t} {label}'
-            want = gmulti_plain(ybar, pool, dst, jobs, groups, layout,
-                                N_NODE)
+            want = plain()
             scale = max(float(w.abs().max()) for w in want)
             first = None
             for p in PHASES:
-                got = gmulti_cuda(ybar, pool, dst, jobs, groups, layout,
-                                  N_NODE, n_phase=p)
+                got = run(p)
                 err = max(float((g - w).abs().max())
                           for g, w in zip(got, want))
                 if first is None:
@@ -104,10 +130,7 @@ def main(argv=None) -> int:
             row = {p: [] for p in PHASES}
             for _ in range(ROUNDS):
                 for p in PHASES:
-                    row[p].append(time_ms(
-                        lambda i: gmulti_cuda(ybar, pool, dst, jobs, groups,
-                                              layout, N_NODE, n_phase=p),
-                        n_it=20))
+                    row[p].append(time_ms(lambda i, p=p: run(p), n_it=20))
             rule = int(gmulti_plan(layout, EDGES_PER_BLOCK).descs[0, 3])
             times[case] = row
             best[case] = min(PHASES, key=lambda p: min(row[p]))

@@ -7,10 +7,12 @@
 - the JAX Pallas kernels in interpret mode (``agg_pallas``,
   ``multi_pallas``, ``segment_sum_sorted``) at small E against the port's
   plain versions;
-- a CPU evaluator of the host-built term tables that drive the CUDA
-  kernels (``ops/cg_tables.py``), walked the way the kernels walk them,
-  against the plain versions -- so a table bug shows here, before the
-  card;
+- a CPU evaluator of the host-built term tables (``ops/cg_tables.py``:
+  ``agg_table``, which drives ``cg_agg.cu``, and ``multi_table``, from
+  which ``quad_table`` builds ``cg_quad.cu``'s x / sh / w tables), walked
+  the way the kernels walk them, against the plain versions -- so a table
+  bug shows here, before the card (``cg_multi`` runs ``cg_gmulti.cu``'s
+  plan: ``tests/test_torch_double_backward.py`` walks it);
 - a float32 walk of ``csrc/segment_sum.cu``'s order (each row's edges
   in edge order, in either of ``segment_plan``'s shapes) against the
   plain version, bit for bit: empty rows, a sentinel tail, N << E;
@@ -287,7 +289,8 @@ def eval_agg_table(layout, x, sh, w, dst, n_node):
 
 
 def eval_multi_table(layout, jobs, ybar, x, sh, w, dst, n_node):
-    """cg_multi.cu: per edge, items (columns or shn chunks), then the
+    """multi_table as cg_quad.cu walks its items (quad_table keeps them
+    and maps the rows): per edge, items (columns or shn chunks), then the
     ordered reduction of each shn column's partial sums."""
     tab = cg_tables.multi_table(layout, jobs)
     g = np.where((dst < n_node)[:, None],

@@ -5,10 +5,13 @@
   and on SevenNet-0's interior layout (block 1 of the in-repo checkpoint)
   with few edges, including sentinel edges and an all-sentinel edge tile
   (the Pallas kernels' edge tile is 128);
-- CPU evaluators of what drives ``csrc/cg_gagg.cu`` (``gagg_table``) and
-  ``csrc/cg_gmulti.cu`` (the path-level coupling list ``gmulti_plan`` and
-  the passes ``gmulti_passes``), walked the way the kernels walk them,
-  against the plain versions, for every job set a third order asks for;
+- float32 numpy walks of ``csrc/cg_gagg.cu`` (its units and lane
+  couplings, ``gagg_plan``) and ``csrc/cg_gmulti.cu`` (the path-level
+  coupling list ``gmulti_plan`` and the passes ``gmulti_passes``, also
+  as the one-slot build that computes ``CGNodeMulti``'s first-order
+  jobs), in the kernels' order, against the plain versions and the
+  Pallas kernels in interpret mode (``gagg_pallas``, ``multi_pallas``),
+  for every job set a third order asks for;
 - ``CGNodeMulti``'s backward against ``jax.vjp`` of JAX ``cg_node_multi``,
   with some cotangents absent and some inputs constant;
 - grad-of-grad of ``conv_aggregate`` (``autograd.grad`` with
@@ -34,7 +37,8 @@ from sevennet_finetuning_tpu.ops import fused_conv as j_fc
 from sevennet_finetuning_tpu.ops.fused_conv_agg import (
     cg_node_apply as j_cg_node_apply)
 from sevennet_finetuning_tpu.ops.fused_conv_agg_kernel import gagg_pallas
-from sevennet_finetuning_tpu.ops.fused_conv_bwd_kernel import gmulti_pallas
+from sevennet_finetuning_tpu.ops.fused_conv_bwd_kernel import (
+    gmulti_pallas, multi_pallas)
 from sevennet_finetuning_tpu.ops.fused_conv_multi import (
     cg_node_multi as j_cg_node_multi)
 from sevennet_finetuning_tpu.ops.tensor_product import (
@@ -46,7 +50,8 @@ from sevennet_finetuning_tpu_torch.ops.fused_conv import layout_from_spec
 from sevennet_finetuning_tpu_torch.ops.fused_conv_agg import conv_aggregate
 from sevennet_finetuning_tpu_torch.ops.fused_conv_multi import (
     EDGES_PER_BLOCK, CGNodeGAgg, CGNodeGMulti, CGNodeMulti, cg_node_gagg,
-    cg_node_gmulti, cg_node_multi, gagg_plain, gmulti_plain)
+    cg_node_gmulti, cg_node_multi, gagg_plain, gmulti_plain, multi_jobs,
+    multi_plain)
 from sevennet_finetuning_tpu_torch.ops.tensor_product import uvu_tp_spec
 
 torch.set_num_threads(2)
@@ -74,8 +79,9 @@ def _layouts(irreps):
 
 
 @pytest.fixture(scope='module')
-def interior():
-    """SevenNet-0's interior convolution layout (block 1), both packages."""
+def sevennet0():
+    """SevenNet-0's convolution layouts at blocks 0, 1 (interior) and 4,
+    both packages: {block: (JAX layout, port layout)}."""
     from sevennet_finetuning_tpu.model.build import (
         build_model_spec as j_build)
     from sevennet_finetuning_tpu.train.checkpoint import (
@@ -84,12 +90,17 @@ def interior():
     from sevennet_finetuning_tpu_torch.train.checkpoint import (
         load_checkpoint)
 
-    jl = j_fc.layout_from_spec(
-        j_build(j_load(str(CKPT))['config']).blocks[1].conv_tp)
-    tl = layout_from_spec(
-        build_model_spec(load_checkpoint(str(CKPT))['config'])
-        .blocks[1].conv_tp)
-    return jl, tl
+    j_spec = j_build(j_load(str(CKPT))['config'])
+    t_spec = build_model_spec(load_checkpoint(str(CKPT))['config'])
+    return {b: (j_fc.layout_from_spec(j_spec.blocks[b].conv_tp),
+                layout_from_spec(t_spec.blocks[b].conv_tp))
+            for b in (0, 1, 4)}
+
+
+@pytest.fixture(scope='module')
+def interior(sevennet0):
+    """SevenNet-0's interior convolution layout (block 1), both packages."""
+    return sevennet0[1]
 
 
 def _close(got, want, rtol=RTOL):
@@ -193,19 +204,62 @@ def _segment_sums(vals, start):
     return out
 
 
-def eval_gagg_table(layout, pool, dst, terms, n_node):
-    """cg_gagg.cu: per node, per (column, term) its entries over the
-    node's edges in order; then the terms added left to right."""
-    pool_dims = tuple(p.shape[1] for p in pool)
-    start, entries = cg_tables.gagg_table(layout, terms, pool_dims)
-    rows = np.concatenate(pool, axis=1).astype(np.float64)
-    per = _segment_sums(_term_values(rows, entries[:start[-1]]), start)
-    per = per.reshape(len(dst), layout.dim_msg, len(terms))
-    out = np.zeros((n_node, layout.dim_msg))
+F32 = np.float32
+
+
+def walk_gagg_plan(layout, pool, dst, terms, n_node, writes=None):
+    """cg_gagg.cu in numpy, float32, in the kernel's order: per unit (a
+    path and a 32-channel slice of its x chunk) and term, each edge's
+    message -- lane k * d1 + i forms B[k][i] = sum c * S[j] from its
+    coupling steps, then m[k] = W * sum_i X[i] * B[k][i] -- summed over
+    each node's edges in order, then the terms added left to right and
+    each lane's columns written.  ``writes`` ([n_node, dim_msg] ints)
+    counts the writes of every output element."""
+    plan = cg_tables.gagg_plan(layout)
+    coef = plan.couplings[:, 1].copy().view(np.float32)
+    jj = plan.couplings[:, 0]
+    pool = [p.astype(F32) for p in pool]
+    out = np.full((n_node, layout.dim_msg), np.nan, F32)
     offs = np.searchsorted(dst, np.arange(n_node + 1))
-    for n in range(n_node):
-        acc = per[offs[n]:offs[n + 1]].sum(axis=0)      # [dim_msg, T]
-        out[n] = acc.sum(axis=1)
+    deg = np.diff(offs)
+    lanes = np.arange(cg_tables.WARP)
+    for (x_off, d1, mul, u0, sh_off, d2, msg_off, w_off, d3, first, steps,
+         _) in plan.units:
+        width = -(-d1 * d3 // cg_tables.WARP) * cg_tables.WARP
+        blk = slice(first, first + steps * width)
+        bj = jj[blk].reshape(steps, width)
+        bc = coef[blk].reshape(steps, width)
+        u = u0 + lanes
+        act = u < mul
+        uc = np.where(act, u, mul - 1)
+        msgs = []
+        for (xi, si, wi) in terms:
+            s = pool[si][:, sh_off:sh_off + d2]
+            b = np.zeros((len(dst), width), F32)
+            for st in range(steps):
+                b = b + bc[st] * s[:, bj[st]]
+            xv = [pool[xi][:, x_off + i * mul + uc] for i in range(d1)]
+            wv = pool[wi][:, w_off + uc]
+            m = np.zeros((len(dst), d3, cg_tables.WARP), F32)
+            for k in range(d3):
+                mk = np.zeros((len(dst), cg_tables.WARP), F32)
+                for i in range(d1):
+                    mk = mk + b[:, k * d1 + i, None] * xv[i]
+                m[:, k] = wv * mk
+            msgs.append(m)
+        accs = [np.zeros((n_node, d3, cg_tables.WARP), F32) for _ in terms]
+        for p in range(deg.max(initial=0)):
+            has = deg > p
+            for acc, m in zip(accs, msgs):
+                acc[has] = acc[has] + m[offs[:-1][has] + p]
+        total = accs[0]
+        for acc in accs[1:]:
+            total = total + acc
+        for k in range(d3):
+            cols = msg_off + k * mul + u[act]
+            out[:, cols] = total[:, k][:, act]
+            if writes is not None:
+                writes[:, cols] += 1
     return out
 
 
@@ -226,13 +280,18 @@ def _emit(out, slots, rows, cols, vals):
             out[o][rows, cols] = out[o][rows, cols] + v if add else v
 
 
-def eval_gmulti_plan(layout, ybar, pool, dst, jobs, groups, n_node):
+def eval_gmulti_plan(layout, ybar, pool, dst, jobs, groups, n_node,
+                     one_slot=False):
     """cg_gmulti.cu in numpy, float32, in the kernel's order: per pass and
     per 32-channel slice of each chunk, per path A[i][j] = sum of c *
     g[k, u] over its coupling list, the jobs' contractions of A (slot s of
     x reads legs S[s], W[s]; of sh X[s], W[s]; of w X[s], S[1 - s]), each
     sh column's xor butterfly over the slice's lanes, and after the tile
-    the slices added in order."""
+    the slices added in order.  ``one_slot``: the build for one slot
+    (``cg_multi``), whose w slot reads S[0] (S1 folded in), whose x and
+    sh jobs contract A[i][j] = sum of c * (g[k, u] * W[u]) and add each
+    path's part, and whose w job adds X[i] * S[j] * sum of c * g[k, u]
+    for each (i, j)."""
     gidx = {g: i for i, g in enumerate(groups)}
     norm = tuple((m, b, c, gidx[g]) for m, b, c, g in jobs)
     plan = cg_tables.gmulti_plan(layout, EDGES_PER_BLOCK)
@@ -249,7 +308,10 @@ def eval_gmulti_plan(layout, ybar, pool, dst, jobs, groups, n_node):
     rows = np.arange(E)[:, None]
     zero = np.zeros((E, 32), F32)
     for ps in passes:
-        X, S, W = ps[0:2], ps[2:4], ps[4:6]
+        X, S, W = ps[0:2], ps[2:4].copy(), ps[4:6]
+        if one_slot:
+            S[0] = S[0] if S[0] >= 0 else S[1]
+        ws = (lambda s: 0) if one_slot else (lambda s: 1 - s)
         slots = {m: [(int(ps[6 + (q * 2 + s) * 2]),
                       int(ps[7 + (q * 2 + s) * 2])) for s in range(2)]
                  for q, m in enumerate(cg_tables.GMULTI_MODES)}
@@ -267,7 +329,7 @@ def eval_gmulti_plan(layout, ybar, pool, dst, jobs, groups, n_node):
                 accx = [[zero] * d1 for _ in range(2)]
                 for (sh_off, d2, pb, pe) in plan.groups[gb:ge]:
                     sv = [pool[S[s]][:, sh_off:sh_off + d2, None]
-                          if on['x'][s] or on['w'][1 - s]
+                          if on['x'][s] or on['w'][ws(s)]
                           else np.zeros((E, d2, 1), F32) for s in range(2)]
                     acc_sh = [[zero] * d2 for _ in range(2)]
                     for (msg_off, w_off, pair, _) in plan.paths[pb:pe]:
@@ -277,14 +339,33 @@ def eval_gmulti_plan(layout, ybar, pool, dst, jobs, groups, n_node):
                               for s in range(2)]
                         seg = plan.pair_start[pair:pair + d1 * d2 + 1]
                         A = [[zero] * d2 for _ in range(d1)]
+                        wo = [zero, zero]
                         for i in range(d1):
                             for j in range(d2):
+                                ag = zero
                                 for q in range(seg[i * d2 + j],
                                                seg[i * d2 + j + 1]):
-                                    A[i][j] = A[i][j] + coef[q] * g[
-                                        :, msg_off + koff[q] + uc]
-                        wo = [zero, zero]
-                        for s in range(2):
+                                    gq = g[:, msg_off + koff[q] + uc]
+                                    if not one_slot:
+                                        A[i][j] = A[i][j] + coef[q] * gq
+                                        continue
+                                    A[i][j] = A[i][j] + coef[q] * (gq * wv[0])
+                                    ag = ag + coef[q] * gq
+                                if one_slot:
+                                    wo[0] = wo[0] + (
+                                        xs[0][i] * sv[0][:, j]) * ag
+                        if one_slot:
+                            for i in range(d1 if on['x'][0] else 0):
+                                t = zero
+                                for j in range(d2):
+                                    t = t + sv[0][:, j] * A[i][j]
+                                accx[0][i] = accx[0][i] + t
+                            for j in range(d2 if on['sh'][0] else 0):
+                                t = zero
+                                for i in range(d1):
+                                    t = t + xs[0][i] * A[i][j]
+                                acc_sh[0][j] = acc_sh[0][j] + t
+                        for s in range(0 if one_slot else 2):
                             if on['x'][s]:
                                 for i in range(d1):
                                     t = zero
@@ -301,7 +382,7 @@ def eval_gmulti_plan(layout, ybar, pool, dst, jobs, groups, n_node):
                                 for i in range(d1):
                                     r = zero
                                     for j in range(d2):
-                                        r = r + sv[1 - s][:, j] * A[i][j]
+                                        r = r + sv[ws(s)][:, j] * A[i][j]
                                     wo[s] = wo[s] + xs[s][i] * r
                         _emit(outs, slots['w'], rows, wcol[act],
                               [v[:, act] for v in wo])
@@ -332,7 +413,7 @@ def test_gagg_gmulti_tables_match_plain(name):
     ybar, pool, dst = _pool_data(tl, 29, N, seed=4)
     tdst = torch.from_numpy(dst)
     want = gagg_plain(_t(*pool), tdst, GAGG_TERMS, tl, N)
-    _close(eval_gagg_table(tl, pool, dst, GAGG_TERMS, N), want.numpy())
+    _close(walk_gagg_plan(tl, pool, dst, GAGG_TERMS, N), want.numpy())
     # a lone group, a group of one job, and the six-job backward
     for jobs, groups in ((GMULTI_JOBS, GMULTI_GROUPS),
                          ((('w', 3, 1, 'w'),), ('w',)),
@@ -352,7 +433,7 @@ def test_sevennet0_interior_tables_match_plain(interior):
     ybar, pool, dst = _pool_data(tl, 8, N, seed=5)
     tdst = torch.from_numpy(dst)
     want = gagg_plain(_t(*pool), tdst, GAGG_TERMS, tl, N)
-    _close(eval_gagg_table(tl, pool, dst, GAGG_TERMS, N), want.numpy())
+    _close(walk_gagg_plan(tl, pool, dst, GAGG_TERMS, N), want.numpy())
     for jobs, groups in ((GMULTI_JOBS, GMULTI_GROUPS), GMULTI_NO_SH):
         want = gmulti_plain(torch.from_numpy(ybar), _t(*pool), tdst, jobs,
                             groups, tl, N)
@@ -374,6 +455,121 @@ def test_sevennet0_interior_tables_match_plain(interior):
     norm = tuple((m, b, c, GMULTI_GROUPS.index(g))
                  for m, b, c, g in GMULTI_JOBS)
     assert len(cg_tables.gmulti_passes(norm, 3)) == 1
+
+
+# gagg terms over the pool [x, sh, w, ct_x, ct_sh, ct_w]: one term; the
+# three of CGNodeMulti.backward (pool leg 0 shared by two terms); six
+GAGG_TERM_SETS = {1: ((0, 1, 2),), 3: GAGG_TERMS,
+                  6: GAGG_TERMS + ((3, 4, 2), (0, 4, 5), (3, 1, 5))}
+
+
+@pytest.mark.parametrize('n_terms', sorted(GAGG_TERM_SETS))
+def test_gagg_plan_walk_matches_plain_and_pallas(n_terms):
+    """The walk of cg_gagg.cu against gagg_plain and JAX gagg_pallas in
+    interpret mode: node 2 has no edges (zeros), the last three edges are
+    sentinels, and every output element is written once."""
+    jl, tl = _layouts(SMALL)
+    terms = GAGG_TERM_SETS[n_terms]
+    N, E = 7, 29
+    _, pool, dst = _pool_data(tl, E, N, seed=20 + n_terms)
+    dst[:E - 3] = np.sort(np.random.default_rng(n_terms).choice(
+        [0, 1, 3, 4, 5, 6], E - 3)).astype(np.int32)
+    writes = np.zeros((N, tl.dim_msg), np.int64)
+    got = walk_gagg_plan(tl, pool, dst, terms, N, writes)
+    assert (writes == 1).all()
+    assert np.all(got[2] == 0.0)
+    want = gagg_plain(_t(*pool), torch.from_numpy(dst), terms, tl, N)
+    _close(got, want.numpy())
+    want = gagg_pallas([jnp.asarray(p) for p in pool], jnp.asarray(dst),
+                       layout=jl, terms=terms, n_node=N, interpret=True)
+    _close(got, want)
+
+
+@pytest.mark.parametrize('name', ['small', 'tiny', 'sevennet0'])
+def test_gagg_plan_writes_each_msg_column_once(name, sevennet0):
+    """Per node, the units' lanes (a path's components k, a slice's
+    active channels u) cover every msg column exactly once; each unit's
+    coupling block holds every coupling of its path once, in the lane of
+    its (k, i) segment; SevenNet-0's interior block has 30 units."""
+    layouts = ({'small': [_layouts(SMALL)[1]], 'tiny': [_layouts(TINY)[1]]}
+               .get(name) or [tl for _, tl in sevennet0.values()])
+    for tl in layouts:
+        plan = cg_tables.gagg_plan(tl)
+        cover = np.zeros(tl.dim_msg, np.int64)
+        coef = plan.couplings[:, 1].copy().view(np.float32)
+        for (x_off, d1, mul, u0, sh_off, d2, msg_off, w_off, d3, first,
+             steps, _) in plan.units:
+            u = np.arange(u0, min(u0 + cg_tables.WARP, mul))
+            for k in range(d3):
+                cover[msg_off + k * mul + u] += 1
+            path = next(p for g in tl.groups for p in g.paths
+                        if (p.msg_off, g.x_off, g.sh_off) == (msg_off, x_off,
+                                                              sh_off))
+            assert (path.w_off, path.d_out) == (w_off, d3)
+            width = -(-d1 * d3 // cg_tables.WARP) * cg_tables.WARP
+            blk = slice(first, first + steps * width)
+            got = sorted(
+                (int(lane) // d1, int(lane) % d1, int(j), float(c))
+                for st in range(steps)
+                for lane, (j, c) in enumerate(zip(
+                    plan.couplings[blk, 0].reshape(steps, width)[st],
+                    coef[blk].reshape(steps, width)[st]))
+                if c != 0.0)
+            want = sorted((k, i, j, float(np.float32(c)))
+                          for (k, i, j, c) in path.nnz if c != 0.0)
+            assert got == want
+        assert (cover == 1).all()
+    if name == 'sevennet0':
+        assert len(cg_tables.gagg_plan(sevennet0[1][1]).units) == 30
+
+
+def walk_multi_plan(layout, jobs, ybar, x, sh, w, dst, n_node):
+    """CGNodeMulti's jobs as multi_cuda launches them: one pass of
+    cg_gmulti.cu over the pool [x, sh, w] (a job a group) that fills slot
+    0 of its modes only, walked by eval_gmulti_plan as the kernel built
+    for one slot."""
+    gjobs = multi_jobs(jobs)
+    passes = cg_tables.gmulti_passes(
+        tuple((m, b, c, q) for q, (m, b, c, _) in enumerate(gjobs)),
+        len(jobs))
+    assert len(passes) == 1
+    (ps,) = passes
+    assert ps[1] == ps[5] == -1                      # X1, W1 unused
+    assert -1 in (ps[2], ps[3]) or ps[2] == ps[3]    # S1 folds into S0
+    slots = ps[6:].reshape(3, cg_tables.GMULTI_SLOTS, 2)
+    assert (slots[:, 1, 0] == -1).all()              # no slot 1
+    return eval_gmulti_plan(layout, ybar, [x, sh, w], dst, gjobs, jobs,
+                            n_node, one_slot=True)
+
+
+MULTI_JOB_SETS = (('xn', 'shn', 'wn'), ('shn', 'wn'), ('xn',), ('shn',),
+                  ('wn',), ('xn', 'wn'))
+
+
+@pytest.mark.parametrize('name', ['small', 'tiny', 0, 1, 4])
+def test_multi_plan_walk_matches_plain_and_pallas(name, sevennet0):
+    """Every job set of the first-order backward (the train step's and
+    serving's (xn, shn, wn) and block 0's (shn, wn), each single job,
+    xn + wn) through the one-pass walk, against multi_plain and JAX
+    multi_pallas in interpret mode, at the narrow layouts and SevenNet-0's
+    blocks 0, 1 and 4; sentinel edges get zero cotangents."""
+    jl, tl = (sevennet0[name] if isinstance(name, int)
+              else _layouts({'small': SMALL, 'tiny': TINY}[name]))
+    N, E = (3, 7) if isinstance(name, int) else (7, 23)
+    ybar, pool, dst = _pool_data(tl, E, N, seed=30)
+    x, sh, w = pool[:3]
+    full = ('xn', 'shn', 'wn')
+    ref = dict(zip(full, multi_pallas(
+        jnp.asarray(ybar), jnp.asarray(x), jnp.asarray(sh), jnp.asarray(w),
+        jnp.asarray(dst), layout=jl, jobs=full, n_node=N, interpret=True)))
+    for jobs in MULTI_JOB_SETS:
+        got = walk_multi_plan(tl, jobs, ybar, x, sh, w, dst, N)
+        want = multi_plain(torch.from_numpy(ybar), *_t(x, sh, w),
+                           torch.from_numpy(dst), jobs, tl, N)
+        for j, g, wp in zip(jobs, got, want):
+            _close(g, wp.numpy())
+            _close(g, ref[j])
+            assert np.all(g[-3:] == 0.0)             # sentinel edges
 
 
 def test_gmulti_plan_phases_follow_the_measured_rule():
