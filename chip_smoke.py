@@ -23,7 +23,8 @@ and exits non-zero if any fails:
               the 768 nodes and at each distinct shape a train step
               launches, the per-graph energy and virial among them; the
               double backward's gagg of 3 terms, and of 1 term (cg_agg's
-              function, timed beside it), and gmulti of 6 jobs in 3
+              function: its yardstick, timed and its bits compared beside
+              cg_agg), and gmulti of 6 jobs in 3
               groups, and without its sh group; cg_multi (cg_gmulti.cu
               built for one slot) with the block's jobs, with one job
               each of xn, shn, wn, and with xn + wn; the per-edge cg_quad
@@ -32,8 +33,8 @@ and exits non-zero if any fails:
               max|kernel - plain| <= 2e-6 * max|plain| (segment_sum:
               bit for bit against the plain version on the host CPU, which
               adds in edge order, as the kernel does); segment_sum,
-              cg_multi, cg_gagg and cg_gmulti must give the same bits in
-              two launches at every timed shape.  Times
+              cg_agg, cg_multi, cg_gagg and cg_gmulti must give the same
+              bits in two launches at every timed shape.  Times
               come from CUDA events after warm-up; the bound is the larger
               of bytes over 3.35 TB/s and fp32 operations over 67 TFLOP/s
               (H100 SXM data sheet), counted at the live edges;
@@ -168,7 +169,7 @@ KERNEL_PATH.update({name: 'probes' for name in PROBES})
 # the entry point whose launches run it, so the instances of a template
 # add up to one profile row (the profiled paths launch no probe)
 KERNEL_FAMILIES = (
-    ('seg_sum_', 'segment_sum'), ('cg_agg_kernel', 'cg_agg'),
+    ('seg_sum_', 'segment_sum'), ('cg_agg_bulk_kernel', 'cg_agg'),
     ('cg_gagg_kernel', 'cg_gagg'), ('cg_gmulti_kernel<1>', 'cg_multi'),
     ('cg_gmulti_kernel<2>', 'cg_gmulti'), ('cg_quad_kernel', 'cg_quad'))
 # launches of one reEWC train step (PERF.md explains each count)
@@ -527,7 +528,7 @@ def phase_kernels(calc, batch, n_real_edge):
     from sevennet_finetuning_tpu_torch.ops.fused_conv import (
         _MODE_LEGS, _MODE_OUT, layout_from_spec)
     from sevennet_finetuning_tpu_torch.ops.fused_conv_agg import (
-        agg_cuda, agg_plain)
+        agg_config, agg_cuda, agg_plain)
     from sevennet_finetuning_tpu_torch.ops.fused_conv_kernel import (
         quad_cuda, quad_plain)
     from sevennet_finetuning_tpu_torch.ops.fused_conv_multi import (
@@ -645,6 +646,17 @@ def phase_kernels(calc, batch, n_real_edge):
         got = agg_cuda(x, sh, w, dst, layout, N)
         want = agg_plain(x, sh, w, dst, layout, N)
         err = compare(f'cg_agg block {t}', got, want)
+        same_bits(f'cg_agg block {t}',
+                  lambda: agg_cuda(x, sh, w, dst, layout, N))
+        # one-term cg_gagg computes the same function (fusing the w
+        # product into its sums, where cg_agg rounds it as JAX does): the
+        # yardstick, timed below (cg_gagg's "1 term" case)
+        same = torch.equal(got, gagg_cuda([x, sh, w], dst, ((0, 1, 2),),
+                                          layout, N))
+        log(f'  cg_agg block {t}: the same bits as one-term cg_gagg: '
+            f'{same}')
+        # the bound counts the per-term table the first kernel read, so
+        # the times of every PR compare
         n_terms = agg_table(layout)[1].shape[0]
         b_ms, b_by = bound_ms(
             leg_bytes + 4 * E + 4 * N * layout.dim_msg + 16 * n_terms,
@@ -652,12 +664,14 @@ def phase_kernels(calc, batch, n_real_edge):
         agg_cases.append(dict(
             shape=f'block {t}: E={E} N={N} dims x/sh/w/msg '
                   f'{layout.dim_x}/{layout.dim_sh}/{layout.dim_w}/'
-                  f'{layout.dim_msg}',
-            max_abs_err=err,
+                  f'{layout.dim_msg}, launch {agg_config(layout)}',
+            max_abs_err=err, bit_identical=True,
             ms=cuda_ms(lambda: agg_cuda(x, sh, w, dst, layout, N)),
             plain_ms=cuda_ms(lambda: agg_plain(x, sh, w, dst, layout, N),
                              iters=5),
-            library_ms=None, bound_ms=b_ms, bound_by=b_by))
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            device_us=device_us_per_call(
+                lambda: agg_cuda(x, sh, w, dst, layout, N))))
 
         # the block's jobs (block 0's input, the embedding, needs no
         # cotangent), one job each of xn, shn, wn (the counterpart of
@@ -701,7 +715,7 @@ def phase_kernels(calc, batch, n_real_edge):
             return 4 * live * sum(pool_dims[i] for i in set(used))
 
         # CGNodeMulti.backward's three terms; then one term on [x, sh, w],
-        # cg_agg's function, timed beside it.  The bound counts the
+        # cg_agg's function (its yardstick).  The bound counts the
         # per-term table the first kernel read, whose entries are the
         # scalar couplings x terms, so the times compare
         terms = ((0, 1, 5), (0, 4, 2), (3, 1, 2))

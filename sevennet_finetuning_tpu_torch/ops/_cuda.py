@@ -25,7 +25,7 @@ import shutil
 import subprocess
 from collections import Counter
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 import torch
 
@@ -45,8 +45,9 @@ _F = ctypes.c_float
 # c_void_p: ctypes would otherwise pass them as 32-bit ints)
 SIGNATURES = {
     'segment_sum': ('seg_sum_sorted_f32', (_P, _P, _P) + (_I,) * 4 + (_P,)),
-    'cg_agg': ('cg_agg_f32',
-               (_P, _P, _P, _P, _P, _P, _P) + (_I,) * 6 + (_P,)),
+    # the plan's meta, the launch config and the shared-memory layout are
+    # host arrays
+    'cg_agg': ('cg_agg_f32', (_P,) * 10 + (_I,) * 6 + (_P,)),
     # pool pointers, terms, output pointers and the plan's meta are host
     # arrays
     'cg_gagg': ('cg_gagg_f32',
@@ -107,28 +108,31 @@ def nvcc_path() -> str:
     raise RuntimeError('nvcc not found: the CUDA kernels cannot be built')
 
 
-def _lib_path(name: str) -> Path:
-    src = (CSRC / f'{name}.cu').read_bytes()
+def _lib_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
+    src = (CSRC / f'{name}.cu').read_bytes() + ' '.join(defines).encode()
     digest = hashlib.sha1(src).hexdigest()[:12]
     return BUILD_DIR / f'lib{name}-{digest}.so'
 
 
-def build_all(names: Iterable[str] = SOURCES) -> None:
-    """Compile the named sources in parallel (one nvcc each).  Compiler
-    output (register and shared-memory use from ``-Xptxas -v``) goes to
-    ``<lib>.log``."""
+def build_all(names: Iterable[str] = SOURCES,
+              defines: Tuple[str, ...] = ()) -> None:
+    """Compile the named sources in parallel (one nvcc each), with
+    ``-D`` ``defines`` if given (a measurement build, a library of its
+    own).  Compiler output (register and shared-memory use from
+    ``-Xptxas -v``) goes to ``<lib>.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     procs = {}
     for name in names:
-        out = _lib_path(name)
+        out = _lib_path(name, defines)
         if out.exists():
             continue
         nvcc = nvcc or nvcc_path()
         tmp = out.with_suffix(f'.{os.getpid()}.tmp')
         log = open(out.with_suffix('.log'), 'w')
         procs[name] = (subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')],
+            [nvcc, *NVCC_FLAGS, *(f'-D{d}' for d in defines), '-o', str(tmp),
+             str(CSRC / f'{name}.cu')],
             stdout=log, stderr=subprocess.STDOUT), tmp, out, log)
     failed = []
     for name, (proc, tmp, out, log) in procs.items():
@@ -165,6 +169,21 @@ def kernel(name: str):
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     _FNS[name] = fn
+    return fn
+
+
+def variant_kernel(name: str, defines: Tuple[str, ...]):
+    """The C entry point ``name`` from its source built with ``-D``
+    ``defines``: the measurement builds of tools/ (``SOURCE_OF``'s
+    source, a library of its own), never launched on a user path."""
+    src = SOURCE_OF[name]
+    path = _lib_path(src, defines)
+    if not path.exists():
+        build_all([src], defines)
+    fn_name, argtypes = SIGNATURES[name]
+    fn = getattr(ctypes.CDLL(str(path)), fn_name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
     return fn
 
 

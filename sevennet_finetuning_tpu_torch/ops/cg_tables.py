@@ -10,7 +10,12 @@ tables are built once per ``CGLayout`` from its nonzero Wigner-3j terms
 (``CGPath.nnz``) and stored as CSR: ``start[col]..start[col + 1]`` index
 ``terms``, an int32 ``[T, 4]`` array of ``(a, b, c, float bits of coef)``.
 
-- agg: row = [x | sh | w]; one CSR row per msg column (stride layout).
+- agg: row = [x | sh | w]; one CSR row per msg column (stride layout);
+  ``quad_table`` runs it as cg_quad.cu's msg mode.  cg_agg.cu is driven
+  by ``agg_plan`` instead: the paths and couplings of gagg's plan as B
+  entries (formed once per edge, shared by every channel) and (node,
+  unit) items spread over a block's warps, with its shared memory
+  ``agg_smem`` and its bulk-copy spans ``agg_span``.
 - multi (cg_quad's x / sh / w modes): row = [g | x | sh | w] with
   g = ybar[dst[e]]; outputs are the requested jobs' columns concatenated
   in job order.  The xn and wn columns are one work item each.  An shn
@@ -440,13 +445,14 @@ class GAggPlan:
 
 
 @functools.lru_cache(maxsize=None)
-def gagg_plan(layout: CGLayout) -> GAggPlan:
-    """gmulti_plan's chunks, groups, paths and couplings as cg_gagg.cu's
-    units: each (i, j) segment's couplings (k * mul, c) of a path become
-    the (j, c) entries of segment (k, i), j ascending."""
+def _path_segments(layout: CGLayout):
+    """Every path of gmulti_plan's list as (x_off, d1, mul, sh_off, d2,
+    msg_off, w_off, d3, segs), chunk by chunk: segs[k * d1 + i] lists the
+    couplings (j, c) of output component k and x component i, j
+    ascending.  Checks that the paths cover every msg column once."""
     _, chunks, groups, paths, pair_start, coup, _ = _path_list(layout)
     coef = coup[:, 1].copy().view(np.float32)
-    units, entries = [], []
+    out = []
     msg_cover = np.zeros(layout.dim_msg, np.int64)
     for (x_off, d1, mul, gb, ge, _) in chunks:
         for (sh_off, d2, pb, pe) in groups[gb:ge]:
@@ -459,26 +465,206 @@ def gagg_plan(layout: CGLayout) -> GAggPlan:
                         for q in range(q0, q1):
                             k = int(coup[q, 0]) // mul
                             segs[k * d1 + i].append((j, coef[q]))
-                steps = max(len(sg) for sg in segs)
-                lanes = -(-d1 * d3 // WARP) * WARP
-                block = np.zeros((steps, lanes, 2), np.int32)
-                for sgi, sg in enumerate(segs):
-                    for st, (j, c) in enumerate(sg):
-                        block[st, sgi] = (j, np.float32(c).view(np.int32))
-                first = sum(len(e) for e in entries)
-                entries.append(block.reshape(-1, 2))
-                for u0 in range(0, mul, WARP):
-                    units.append((x_off, d1, mul, u0, sh_off, d2, msg_off,
-                                  w_off, d3, first, steps, 0))
+                out.append((int(x_off), int(d1), int(mul), int(sh_off),
+                            int(d2), int(msg_off), int(w_off), int(d3),
+                            segs))
                 for k in range(d3):
                     msg_cover[msg_off + k * mul:msg_off + (k + 1) * mul] += 1
     if not (msg_cover == 1).all():
-        raise ValueError('cg_gagg: the paths do not cover every msg column '
-                         'exactly once')
+        raise ValueError('cg_gagg / cg_agg: the paths do not cover every '
+                         'msg column exactly once')
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def gagg_plan(layout: CGLayout) -> GAggPlan:
+    """gmulti_plan's chunks, groups, paths and couplings as cg_gagg.cu's
+    units: each (i, j) segment's couplings (k * mul, c) of a path become
+    the (j, c) entries of segment (k, i), j ascending."""
+    units, entries = [], []
+    for (x_off, d1, mul, sh_off, d2, msg_off, w_off, d3,
+         segs) in _path_segments(layout):
+        steps = max(len(sg) for sg in segs)
+        lanes = -(-d1 * d3 // WARP) * WARP
+        block = np.zeros((steps, lanes, 2), np.int32)
+        for sgi, sg in enumerate(segs):
+            for st, (j, c) in enumerate(sg):
+                block[st, sgi] = (j, np.float32(c).view(np.int32))
+        first = sum(len(e) for e in entries)
+        entries.append(block.reshape(-1, 2))
+        for u0 in range(0, mul, WARP):
+            units.append((x_off, d1, mul, u0, sh_off, d2, msg_off,
+                          w_off, d3, first, steps, 0))
     return GAggPlan(
         units=np.asarray(units, np.int32).reshape(-1, GAGG_UNIT),
         couplings=(np.concatenate(entries) if entries
                    else np.zeros((0, 2), np.int32)))
+
+
+# --- agg: csrc/cg_agg.cu, a block per node group fed by bulk copies ---
+
+AGG_ITEM = 10             # ints of an AggPlan item
+AGG_MAX_STEPS = 7         # couplings of one B entry: at most d2 <= 7
+AGG_ENTRY = 2 + 2 * AGG_MAX_STEPS
+AGG_MAX_STAGES = 8        # ring stages (the kernel's mbarriers)
+AGG_MAX_NODES = 8         # nodes of one block
+AGG_MAX_WARPS = 16
+# bytes of dynamic shared memory a block may ask for: the card's 232,448
+# less the kernel's static 128 (its mbarriers and node offsets)
+AGG_SMEM_MAX = 232448 - 128
+
+
+@dataclass(frozen=True)
+class AggConfig:
+    """A launch of cg_agg.cu: ``tile`` edges a ring stage, ``stages``
+    stages, ``nodes`` destination nodes a block, ``warps`` warps a
+    block."""
+
+    tile: int
+    stages: int
+    nodes: int
+    warps: int
+
+
+@dataclass(frozen=True)
+class AggPlan:
+    """A layout's work for csrc/cg_agg.cu at a node count and warp count.
+
+    An item is one (node of the block, unit): a unit is one path and a
+    32-channel slice of its x chunk, as in ``GAggPlan``; a lane is a
+    channel u.  Per edge, a path's message component k is
+    w[u] * sum_i x[i, u] * B[k][i] with B[k][i] = sum_j c * sh[j], which
+    does not depend on u: the block forms each edge's B row once (an
+    entry a (path, k, i), its couplings in steps) in shared memory, and
+    the warps read it by broadcast.  A path's B block starts 16-byte
+    aligned (``b_off``, a multiple of 4 floats), so it loads as float4s.
+    The items go to the warps by estimated cost (longest first, to the
+    least loaded warp); each item is one warp's, so every output column
+    has one writer and one order."""
+
+    items: np.ndarray       # [n_item, AGG_ITEM] node, x_off, d1, mul, first
+                            #   channel, w_off, d3, msg_off, b_off, 0
+    warp_start: np.ndarray  # [warps + 1] each warp's items
+    entries: np.ndarray     # [n_entry, AGG_ENTRY] B column, steps, then
+                            #   (sh column j, float bits of c) per step
+    b_row: int              # floats of one edge's B row (a multiple of 4)
+
+    def packed(self) -> Tuple[np.ndarray, Tuple[int, ...]]:
+        """(one int32 array, meta = (n_entry, offsets of warp_start, items
+        and entries, total length))."""
+        flat, offs = [], []
+        for a in (self.warp_start, self.items, self.entries):
+            offs.append(sum(map(len, flat)))
+            flat.append(a.reshape(-1))
+        flat = np.concatenate(flat).astype(np.int32)
+        return flat, (len(self.entries), *offs, len(flat))
+
+
+def _agg_item_cost(d1: int, d3: int) -> int:
+    """Instructions a lane spends on one edge of a unit: d1 x loads, the
+    w load, the B row's float4 loads, d1 * d3 + d3 multiply-adds."""
+    return d1 + 1 + -(-d1 * d3 // 4) + d1 * d3 + d3
+
+
+@functools.lru_cache(maxsize=None)
+def agg_plan(layout: CGLayout, nodes: int, warps: int) -> AggPlan:
+    """``_path_segments`` as cg_agg.cu's items and B entries for blocks of
+    ``nodes`` nodes and ``warps`` warps."""
+    if not (1 <= nodes <= AGG_MAX_NODES and 1 <= warps <= AGG_MAX_WARPS):
+        raise ValueError(f'cg_agg: {nodes} nodes, {warps} warps a block')
+    units, entries = [], []
+    b_row = 0
+    for (x_off, d1, mul, sh_off, _, msg_off, w_off, d3,
+         segs) in _path_segments(layout):
+        for q, sg in enumerate(segs):
+            if len(sg) > AGG_MAX_STEPS:
+                raise ValueError(f'cg_agg: {len(sg)} couplings of one B '
+                                 f'entry (at most {AGG_MAX_STEPS})')
+            ent = np.zeros(AGG_ENTRY, np.int32)
+            ent[:2] = (b_row + q, len(sg))
+            for st, (j, c) in enumerate(sg):
+                ent[2 + 2 * st:4 + 2 * st] = (
+                    sh_off + j, np.float32(c).view(np.int32))
+            entries.append(ent)
+        for u0 in range(0, mul, WARP):
+            units.append((x_off, d1, mul, u0, w_off, d3, msg_off, b_row))
+        b_row += -(-d1 * d3 // 4) * 4
+    items = [(g, *unit, 0) for g in range(nodes) for unit in units]
+    cost = [_agg_item_cost(it[2], it[6]) for it in items]
+    load = [0] * warps
+    mine: List[list] = [[] for _ in range(warps)]
+    for q in sorted(range(len(items)), key=lambda q: (-cost[q], q)):
+        w = min(range(warps), key=lambda w: (load[w], w))
+        load[w] += cost[q]
+        mine[w].append(q)
+    order = [q for w in range(warps) for q in sorted(mine[w])]
+    warp_start = np.cumsum([0] + [len(m) for m in mine]).astype(np.int32)
+    return AggPlan(
+        items=np.asarray([items[q] for q in order],
+                         np.int32).reshape(-1, AGG_ITEM),
+        warp_start=warp_start,
+        entries=np.asarray(entries, np.int32).reshape(-1, AGG_ENTRY),
+        b_row=max(b_row, 4))
+
+
+@dataclass(frozen=True)
+class AggSmem:
+    """cg_agg.cu's dynamic shared memory, in floats: ``stages`` stages of
+    [x span | sh span | w span] (each span a 16-byte aligned copy of a
+    tile's rows, ``*_cap`` floats), then two B buffers of ``tile`` rows,
+    then the block's accumulators [nodes, dim_msg].  Every section starts
+    16-byte aligned."""
+
+    x_cap: int
+    sh_cap: int
+    w_cap: int
+    stage: int
+    b_base: int
+    acc_base: int
+    total: int
+
+    @property
+    def nbytes(self) -> int:
+        return 4 * self.total
+
+
+def _cap(tile: int, dim: int) -> int:
+    """Floats of a staging buffer: a tile's rows start up to 3 floats
+    past the 16-byte boundary the copy starts at, and the copy ends up to
+    3 floats past them."""
+    return -(-(tile * dim + 6) // 4) * 4
+
+
+def agg_smem(layout: CGLayout, cfg: AggConfig, b_row: int) -> AggSmem:
+    if not (cfg.tile >= 1 and 2 <= cfg.stages <= AGG_MAX_STAGES):
+        # a tile is issued stages - 1 tiles ahead of its use
+        raise ValueError(f'cg_agg: tiles of {cfg.tile} edges, '
+                         f'{cfg.stages} stages')
+    x_cap = _cap(cfg.tile, layout.dim_x)
+    sh_cap = _cap(cfg.tile, layout.dim_sh)
+    w_cap = _cap(cfg.tile, layout.dim_w)
+    stage = x_cap + sh_cap + w_cap
+    b_base = cfg.stages * stage
+    acc_base = b_base + 2 * cfg.tile * b_row
+    acc = -(-cfg.nodes * layout.dim_msg // 4) * 4
+    return AggSmem(x_cap=x_cap, sh_cap=sh_cap, w_cap=w_cap, stage=stage,
+                   b_base=b_base, acc_base=acc_base, total=acc_base + acc)
+
+
+def agg_span(e0: int, ne: int, dim: int, total: int):
+    """The staging of one edge array's rows [e0, e0 + ne) of width
+    ``dim`` (``total`` floats in the array), as cg_agg.cu computes it:
+    (a0, bulk, tail_end, off).  Floats [a0, a0 + bulk) come by one bulk
+    copy (16-byte aligned start and size: a0 and bulk are multiples of 4;
+    the copy never reads past the array's last whole 16 bytes), floats
+    [a0 + bulk, tail_end) by plain loads (only where the rows reach into
+    the array's last partial 16 bytes), each float f to buffer position
+    f - a0; row r of the tile starts at buffer position off + r * dim."""
+    f0, f1 = e0 * dim, (e0 + ne) * dim
+    a0 = f0 // 4 * 4
+    a1 = min(-(-f1 // 4) * 4, total // 4 * 4)
+    bulk = max(a1 - a0, 0)
+    return a0, bulk, max(f1, a0 + bulk), f0 - a0
 
 
 _DEVICE_CACHE: Dict[tuple, tuple] = {}

@@ -14,7 +14,9 @@ gives the ``cg_node`` modes:
 
 ``CGNodeAgg`` is 'agg' as an autograd Function: its forward is the CUDA
 kernel ``csrc/cg_agg.cu`` on CUDA tensors (the plain version on CPU
-tensors), and its backward asks ``CGNodeMulti`` (ops/fused_conv_multi.py)
+tensors; the kernel's plan and launch are ``cg_tables.agg_plan`` and
+``agg_config``), and its backward asks ``CGNodeMulti``
+(ops/fused_conv_multi.py)
 for exactly the edge cotangents autograd needs -- the transpose of the
 JAX package's ``cg_node_linsum``.  Edge legs are edge-major [E, dim];
 ``dst`` is ascending with padded edges at the sentinel n_node, whose
@@ -23,12 +25,16 @@ cotangent g is 0.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+from typing import Dict, Optional
+
 import torch
 
 from . import _cuda
-from .cg_tables import agg_table, on_device
+from .cg_tables import AGG_SMEM_MAX, AggConfig, agg_plan, agg_smem
 from .fused_conv import CGLayout, cg_modes
-from .scatter import gather_zero_oob, row_offsets, segment_sum_plain
+from .scatter import gather_zero_oob, segment_sum_plain
 
 _EDGE_JOBS = ('xn', 'shn', 'wn')
 _EMIT = {'xn': 'x', 'shn': 'sh', 'wn': 'w'}
@@ -48,32 +54,87 @@ def node_mode_plain(mode: str, ybar, b, c, dst, layout: CGLayout,
     return cg_modes(_EMIT[mode], g, b, c, layout)
 
 
-def agg_tile_edges(layout: CGLayout) -> int:
-    """Edges staged per tile: as many x/sh/w rows as fit in 48 KB."""
-    row = layout.dim_x + layout.dim_sh + layout.dim_w
-    return max(1, min(32, (48 * 1024 // 4) // row))
+# cg_agg.cu's launch, measured at SevenNet-0's layouts (tools/agg_sweep.py:
+# every tile, stage count, node count and warp count that fits, by device
+# time): layouts of many units (30 at the interior block) run fastest with
+# one node and 16 warps a block and tiles of 6 edges in 2 stages (92 KB,
+# two blocks an SM); layouts of few (12 and 7 at blocks 0 and 4) with 2
+# nodes, 8 warps and tiles of 12 (61-72 KB).  More stages never paid: the
+# arithmetic, not the copies, sets the time
+AGG_FEW_UNITS = 16
+AGG_FEW = AggConfig(tile=12, stages=2, nodes=2, warps=8)
+AGG_MANY = AggConfig(tile=6, stages=2, nodes=1, warps=16)
 
 
-def agg_cuda(x, sh, w, dst, layout: CGLayout, n_node: int):
+@functools.lru_cache(maxsize=None)
+def agg_config(layout: CGLayout) -> AggConfig:
+    """The launch of cg_agg.cu at a layout: ``AGG_FEW`` where a node has
+    fewer than ``AGG_FEW_UNITS`` units, else ``AGG_MANY``; the tile halves
+    until the block fits the card's shared memory."""
+    n_unit = len(agg_plan(layout, 1, 1).items)
+    cfg = AGG_FEW if n_unit < AGG_FEW_UNITS else AGG_MANY
+    b_row = agg_plan(layout, cfg.nodes, cfg.warps).b_row
+    while agg_smem(layout, cfg, b_row).nbytes > AGG_SMEM_MAX:
+        if cfg.tile == 1:
+            raise ValueError('cg_agg: a tile of one edge does not fit')
+        cfg = dataclasses.replace(cfg, tile=cfg.tile // 2)
+    return cfg
+
+
+# per (layout object, cfg, device): the layout, the plan on the device and
+# the launch's host arrays; keyed by the layout's id, so a call hashes no
+# layout (a SevenNet-0 layout takes ~15 us to hash)
+_LAUNCH: Dict[tuple, tuple] = {}
+
+
+def _agg_launch(layout: CGLayout, cfg: Optional[AggConfig],
+                device: torch.device):
+    key = (id(layout), cfg, device)
+    hit = _LAUNCH.get(key)
+    if hit is not None and hit[0] is layout:
+        return hit[1:]
+    use = cfg or agg_config(layout)
+    plan = agg_plan(layout, use.nodes, use.warps)
+    flat, meta = plan.packed()
+    sm = agg_smem(layout, use, plan.b_row)
+    _LAUNCH[key] = (layout, torch.as_tensor(flat).to(device), (
+        _cuda.host_ints(meta),
+        _cuda.host_ints((use.tile, use.stages, use.nodes, use.warps)),
+        _cuda.host_ints((sm.x_cap, sm.sh_cap, sm.stage, sm.b_base,
+                         sm.acc_base, plan.b_row, sm.total))))
+    return _LAUNCH[key][1:]
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it at a new (16-byte aligned) allocation: the bulk
+    copies need 16-byte aligned rows."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def agg_cuda(x, sh, w, dst, layout: CGLayout, n_node: int,
+             cfg: Optional[AggConfig] = None):
     """The CUDA kernel: x [E, dim_x], sh [E, dim_sh], w [E, dim_w] f32
-    (stride layout), dst [E] int32 ascending -> [n_node, dim_msg]."""
+    (stride layout), dst [E] int32 ascending -> [n_node, dim_msg];
+    ``cfg`` overrides ``agg_config`` (tools/agg_sweep.py)."""
     E = dst.shape[0]
     _cuda.require(x, 'x', torch.float32, (E, layout.dim_x))
     _cuda.require(sh, 'sh', torch.float32, (E, layout.dim_sh))
     _cuda.require(w, 'w', torch.float32, (E, layout.dim_w))
     _cuda.require(dst, 'dst', torch.int32, (E,))
-    col_start, terms = on_device(('agg', layout), agg_table(layout),
-                                 x.device)
-    offs = row_offsets(dst, n_node)
+    plan, c_args = _agg_launch(layout, cfg, x.device)
+    x, sh, w = (_aligned16(t) for t in (x, sh, w))
+    # the kernel writes the node ranges (row_offsets' values) here itself
+    offs = torch.empty(n_node + 1, dtype=torch.int32, device=x.device)
     out = torch.empty((n_node, layout.dim_msg), dtype=x.dtype,
                       device=x.device)
     fn = _cuda.kernel('cg_agg')
-    _cuda.LAUNCHES['cg_agg'] += 1
+    if n_node:
+        _cuda.LAUNCHES['cg_agg'] += 1
     _cuda.check('cg_agg', fn(
-        x.data_ptr(), sh.data_ptr(), w.data_ptr(), offs.data_ptr(),
-        col_start.data_ptr(), terms.data_ptr(), out.data_ptr(), n_node,
-        layout.dim_x, layout.dim_sh, layout.dim_w, layout.dim_msg,
-        agg_tile_edges(layout), _cuda.stream_ptr(x.device)))
+        x.data_ptr(), sh.data_ptr(), w.data_ptr(), dst.data_ptr(),
+        offs.data_ptr(), plan.data_ptr(), *c_args, out.data_ptr(), E,
+        n_node, layout.dim_x, layout.dim_sh, layout.dim_w, layout.dim_msg,
+        _cuda.stream_ptr(x.device)))
     return out
 
 
