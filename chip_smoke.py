@@ -12,8 +12,9 @@ and exits non-zero if any fails:
               bandwidth probe and the Hopper feature probes) at the TPU
               tools' shapes on numpy-seeded inputs (seed 0), each held
               against its plain version (bit for bit; the column sum
-              within 2e-6 x the column's sum of |x|, the wgmma product
-              within 2e-6 x max|plain|) and timed with its library call;
+              within 2e-6 x the column's sum of |x| and the same bits in
+              two launches, the wgmma product within 2e-6 x max|plain|)
+              and timed with its library call;
               then both tools' ``main()`` as a user runs them, with the
               launch counts set to 0 before: the feature probes' OK lines
               and the bench sweep's GB/s table with the card line;
@@ -28,13 +29,14 @@ and exits non-zero if any fails:
               groups, and without its sh group; cg_multi (cg_gmulti.cu
               built for one slot) with the block's jobs, with one job
               each of xn, shn, wn, and with xn + wn; the per-edge cg_quad
-              in each mode msg / x / sh / w) and hold it against
+              in each mode msg / x / sh / w, with its profiler device us a
+              call) and hold it against
               its plain PyTorch version:
               max|kernel - plain| <= 2e-6 * max|plain| (segment_sum:
               bit for bit against the plain version on the host CPU, which
               adds in edge order, as the kernel does); segment_sum,
-              cg_agg, cg_multi, cg_gagg and cg_gmulti must give the same
-              bits in two launches at every timed shape.  Times
+              cg_agg, cg_multi, cg_gagg, cg_gmulti and cg_quad must give
+              the same bits in two launches at every timed shape.  Times
               come from CUDA events after warm-up; the bound is the larger
               of bytes over 3.35 TB/s and fp32 operations over 67 TFLOP/s
               (H100 SXM data sheet), counted at the live edges;
@@ -74,7 +76,10 @@ and exits non-zero if any fails:
               convolution denominators' 2e-3); one pass must
               launch cg_quad msg 19 / x 20 / sh 19 / w 19, segment-sum 20
               and none of agg, multi, gagg, gmulti.  Prints ms per forward
-              plus fij, sorted and unsorted, and peak memory.
+              plus fij, sorted and unsorted, and peak memory; profiles one
+              forward + fij and one whole pass (the census's: forward, fij
+              with create_graph, parameter gradient), each csrc family's
+              profiled launches equal to its census.
 
 Before the last line it prints the card's name and power limit and a
 JSON line with every kernel's numbers; the last line is
@@ -406,9 +411,12 @@ def phase_probes():
         if not ok:
             raise AssertionError(f'probe_colsum te={te} disagrees with its '
                                  'plain version or the float64 sum')
+        same_bits(f'probe_colsum te={te}', lambda: B.colsum_cuda(xs[0], te))
         b_ms, b_by = bound_ms(nbytes + 4 * B.D, B.E * B.D)
         cases.append(dict(
             shape=f'te={te}: [{B.E}, {B.D}] -> [1, {B.D}]', max_abs_err=err,
+            bit_identical=True,
+            device_us=device_us_per_call(lambda: B.colsum_cuda(xs[0], te)),
             ms=slab_ms(lambda i: B.colsum_cuda(xs[i], te)),
             plain_ms=slab_ms(lambda i: B.colsum_plain(xs[i], te)),
             library_ms=slab_ms(lambda i: torch.sum(xs[i], 0, keepdim=True)),
@@ -524,13 +532,13 @@ def phase_kernels(calc, batch, n_real_edge):
     from sevennet_finetuning_tpu_torch import keys as K
     from sevennet_finetuning_tpu_torch.ops import _cuda, scatter
     from sevennet_finetuning_tpu_torch.ops.cg_tables import (
-        agg_table, gmulti_passes, gmulti_term_count, multi_table)
+        gmulti_passes, gmulti_term_count)
     from sevennet_finetuning_tpu_torch.ops.fused_conv import (
         _MODE_LEGS, _MODE_OUT, layout_from_spec)
     from sevennet_finetuning_tpu_torch.ops.fused_conv_agg import (
-        agg_config, agg_cuda, agg_plain)
+        _EMIT, agg_config, agg_cuda, agg_plain)
     from sevennet_finetuning_tpu_torch.ops.fused_conv_kernel import (
-        quad_cuda, quad_plain)
+        quad_config, quad_cuda, quad_plain)
     from sevennet_finetuning_tpu_torch.ops.fused_conv_multi import (
         _EMIT_LEGS, _JOB_LEGS, gagg_cuda, gagg_plain, gmulti_cuda, gmulti_plain,
         multi_cuda, multi_plain)
@@ -657,7 +665,7 @@ def phase_kernels(calc, batch, n_real_edge):
             f'{same}')
         # the bound counts the per-term table the first kernel read, so
         # the times of every PR compare
-        n_terms = agg_table(layout)[1].shape[0]
+        n_terms = gmulti_term_count(layout, 1)
         b_ms, b_by = bound_ms(
             leg_bytes + 4 * E + 4 * N * layout.dim_msg + 16 * n_terms,
             live * (4 * n_terms + layout.dim_msg))
@@ -689,11 +697,11 @@ def phase_kernels(calc, batch, n_real_edge):
             err = compare(f'cg_multi block {t} {sub}', got, want)
             same_bits(f'cg_multi block {t} {sub}',
                       lambda: multi_cuda(ybar, x, sh, w, dst, sub, layout, N))
-            tab = multi_table(layout, sub)
+            n_terms = gmulti_term_count(layout, len(sub))
             b_ms, b_by = bound_ms(
                 job_leg_bytes(sub) + 4 * E + 4 * N * layout.dim_msg
-                + 4 * E * sum(tab.out_dims) + 16 * tab.terms.shape[0],
-                live * 4 * tab.terms.shape[0])
+                + 4 * E * sum(dims[_EMIT[j]] for j in sub) + 16 * n_terms,
+                live * 4 * n_terms)
             multi_cases.append(dict(
                 shape=f'block {t} {label} {"+".join(sub)}: E={E} N={N}',
                 max_abs_err=err, bit_identical=True,
@@ -801,17 +809,22 @@ def phase_kernels(calc, batch, n_real_edge):
             got = quad_cuda(mode, *legs, layout)
             want = quad_plain(mode, *legs, layout)
             err = compare(f'cg_quad block {t} {mode}', got, want)
+            same_bits(f'cg_quad block {t} {mode}',
+                      lambda: quad_cuda(mode, *legs, layout))
             width = (sum(a.shape[1] for a in legs)
                      + layout.mode_dims[_MODE_OUT[mode]])
             b_ms, b_by = bound_ms(4 * live * width, live * quad_flops)
             quad_cases.append(dict(
                 shape=f'block {t} {mode}: E={E} legs '
-                      f'{"/".join(str(a.shape[1]) for a in legs)}',
-                max_abs_err=err,
+                      f'{"/".join(str(a.shape[1]) for a in legs)}, launch '
+                      f'{quad_config(layout, mode)}',
+                max_abs_err=err, bit_identical=True,
                 ms=cuda_ms(lambda: quad_cuda(mode, *legs, layout)),
                 plain_ms=cuda_ms(lambda: quad_plain(mode, *legs, layout),
                                  iters=5),
-                library_ms=None, bound_ms=b_ms, bound_by=b_by))
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                device_us=device_us_per_call(
+                    lambda: quad_cuda(mode, *legs, layout))))
     rows['cg_agg'] = agg_cases
     rows['cg_multi'] = multi_cases
     rows['cg_gagg'] = gagg_cases
@@ -1433,6 +1446,12 @@ def phase_unsorted(batch):
         f'(same run, in turns)')
     profile_device('unsorted forward + fij',
                    lambda: force_pass(unsorted_energy, model, data))
+    # the whole pass of the census: forward, fij with create_graph and
+    # the parameter gradient (cg_quad 77 launches)
+    profile_device('unsorted whole pass (forward, fij with create_graph, '
+                   'parameter gradient)',
+                   lambda: force_pass(unsorted_energy, model, data,
+                                      weights[pt]))
     return counts
 
 

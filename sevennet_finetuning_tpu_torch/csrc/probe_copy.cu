@@ -20,9 +20,18 @@
 //   E / te blocks leaves SMs idle when te is large: that is part of what
 //   the sweep measures, as the TPU sweep measured its tile sizes.
 // - column sum in two passes: Hopper blocks run in no order and cannot
-//   carry the TPU's o_ref += (bench_dma.py:107) across the grid, so pass 1
-//   writes one partial row per tile and pass 2 sums the partials in tile
-//   order.  No atomics: every run gives the same bits.
+//   carry the TPU's o_ref += (bench_dma.py:107) across the grid.  Pass 1
+//   cuts the rows into slabs of `slab` rows and the float4 columns into
+//   bands of 32, one block a (slab, band), enough blocks to fill every SM
+//   several times (504 at the TPU tool's shape); each warp of the block
+//   takes a contiguous stripe of the slab's rows, a lane one float4
+//   column, and keeps SUM_DEPTH 16-byte loads in flight before adding
+//   them in row order; the block adds its warps' sums in warp order and
+//   writes the slab's partial row.  Pass 2 adds the partial rows in slab
+//   order.  The schedule does not follow the TPU's tile te (its grid
+//   step), which only has to divide the rows, as it does there
+//   (tools/bench_dma.py, colsum_stripes, mirrors it).  No atomics: every
+//   run gives the same bits.
 // - bulk-copy ring: a persistent grid (one block per SM) walks its tiles
 //   through an S-slot ring in shared memory.  cp.async.bulk brings a tile
 //   in with completion on the slot's mbarrier, the block multiplies it in
@@ -44,7 +53,9 @@
 namespace {
 
 constexpr int COPY_THREADS = 512;
-constexpr int SUM_THREADS = 256;
+constexpr int SUM_WARPS = 8;      // bench_dma.COLSUM_WARPS
+constexpr int SUM_THREADS = 32 * SUM_WARPS;
+constexpr int SUM_DEPTH = 8;      // loads in flight per lane
 constexpr int RING_THREADS = 256;
 constexpr int RING_HEADER = 128;  // bytes of shared memory for the mbarriers
 constexpr int RING_MAX_SLOTS = RING_HEADER / 8;
@@ -125,34 +136,72 @@ __global__ void __launch_bounds__(COPY_THREADS)
   }
 }
 
-// pass 1: part[tile, :] = sum of the tile's te rows, row by row in order
+// pass 1: part[slab, band's columns] = the sum of the slab's rows (block
+// (band, slab)): each warp a contiguous stripe of the slab's rows, added
+// in row order, SUM_DEPTH rows' loads in flight at a time; then the
+// warps' sums in warp order
 __global__ void __launch_bounds__(SUM_THREADS)
-    colsum_partial_kernel(const float4* __restrict__ x,
-                          float4* __restrict__ part, int te, int cols4) {
-  const float4* src = x + static_cast<long long>(blockIdx.x) * te * cols4;
-  for (int q = threadIdx.x; q < cols4; q += SUM_THREADS) {
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 8
-    for (int r = 0; r < te; ++r) {
-      const float4 v = src[static_cast<long long>(r) * cols4 + q];
-      acc.x += v.x;
-      acc.y += v.y;
-      acc.z += v.z;
-      acc.w += v.w;
+    colsum_slab_kernel(const float4* __restrict__ x,
+                       float4* __restrict__ part, int rows, int cols4,
+                       int slab) {
+  __shared__ float4 wsum[SUM_WARPS][32];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int q = blockIdx.x * 32 + lane;  // the lane's float4 column
+  const bool active = q < cols4;
+  const int r0 = blockIdx.y * slab;
+  const int n = min(slab, rows - r0);
+  const int per = (n + SUM_WARPS - 1) / SUM_WARPS;
+  const int w0 = r0 + min(n, warp * per);
+  const int w1 = r0 + min(n, (warp + 1) * per);
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int r = w0; r < w1; r += SUM_DEPTH) {
+    float4 v[SUM_DEPTH];
+#pragma unroll
+    for (int d = 0; d < SUM_DEPTH; ++d) {
+      v[d] = active && r + d < w1
+                 ? __ldcs(x + static_cast<long long>(r + d) * cols4 + q)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    part[static_cast<long long>(blockIdx.x) * cols4 + q] = acc;
+#pragma unroll
+    for (int d = 0; d < SUM_DEPTH; ++d) {
+      acc.x += v[d].x;
+      acc.y += v[d].y;
+      acc.z += v[d].z;
+      acc.w += v[d].w;
+    }
+  }
+  wsum[warp][lane] = acc;
+  __syncthreads();
+  if (warp == 0 && active) {
+    float4 s = wsum[0][lane];
+#pragma unroll
+    for (int w = 1; w < SUM_WARPS; ++w) {
+      s.x += wsum[w][lane].x;
+      s.y += wsum[w][lane].y;
+      s.z += wsum[w][lane].z;
+      s.w += wsum[w][lane].w;
+    }
+    part[static_cast<long long>(blockIdx.y) * cols4 + q] = s;
   }
 }
 
-// pass 2: out[col] = sum over tiles of part[tile, col], in tile order
+// pass 2: out[col] = sum over slabs of part[slab, col], in slab order,
+// SUM_DEPTH slabs' loads in flight at a time
 __global__ void colsum_final_kernel(const float* __restrict__ part,
-                                    float* __restrict__ out, int n_tiles,
+                                    float* __restrict__ out, int n_slab,
                                     int cols) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= cols) return;
   float acc = 0.f;
-  for (int t = 0; t < n_tiles; ++t) {
-    acc += part[static_cast<long long>(t) * cols + col];
+  for (int t = 0; t < n_slab; t += SUM_DEPTH) {
+    float v[SUM_DEPTH];
+#pragma unroll
+    for (int d = 0; d < SUM_DEPTH; ++d)
+      v[d] = t + d < n_slab ? part[static_cast<long long>(t + d) * cols + col]
+                            : 0.f;
+#pragma unroll
+    for (int d = 0; d < SUM_DEPTH; ++d) acc += v[d];
   }
   out[col] = acc;
 }
@@ -272,19 +321,25 @@ extern "C" int probe_copy_tiled_f32(const float* x, float* y, int rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+// x [rows, cols] (cols a multiple of 4) -> out [cols]; part: scratch of
+// ceil(rows / slab) x cols floats.  te, the TPU tool's tile, must divide
+// the rows; the schedule does not use it.
 extern "C" int probe_colsum_f32(const float* x, float* part, float* out,
-                                int rows, int cols, int te, void* stream) {
-  const int n_tiles = rows / te;
-  if (n_tiles <= 0 || cols % 4 != 0) {
+                                int rows, int cols, int te, int slab,
+                                void* stream) {
+  if (te <= 0 || rows % te != 0 || rows <= 0 || slab <= 0 ||
+      cols % 4 != 0 || cols <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int n_slab = (rows + slab - 1) / slab;
+  const int cols4 = cols / 4;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  colsum_partial_kernel<<<n_tiles, SUM_THREADS, 0, s>>>(
-      reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(part), te,
-      cols / 4);
+  colsum_slab_kernel<<<dim3((cols4 + 31) / 32, n_slab), SUM_THREADS, 0, s>>>(
+      reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(part),
+      rows, cols4, slab);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  colsum_final_kernel<<<(cols + 255) / 256, 256, 0, s>>>(part, out, n_tiles,
+  colsum_final_kernel<<<(cols + 255) / 256, 256, 0, s>>>(part, out, n_slab,
                                                         cols);
   return static_cast<int>(cudaGetLastError());
 }

@@ -327,7 +327,7 @@ def run_blocks(spec: ModelSpec, params, x: torch.Tensor,
                                   'halo_split) is not ported: ROADMAP A.8')
     if remat:
         raise NotImplementedError('per-block rematerialization is not '
-                                  'ported: ROADMAP A.5')
+                                  'ported: ROADMAP A.3')
     for blk in spec.blocks:
         if blk.block_type != 'nequip' or blk.conv_kind != 'cg':
             raise NotImplementedError(

@@ -57,14 +57,14 @@ SIGNATURES = {
     # the first-order backward: cg_gmulti.cu's kernel built for one slot
     'cg_multi': ('cg_multi_f32',
                  (_P, _P, _I, _P, _I) + (_P,) * 4 + (_I,) * 8 + (_P,)),
-    'cg_quad': ('cg_quad_f32',
-                (_P,) * 3 + (_I,) * 3 + (_P, _P, _P, _I) + (_P, _P, _I, _I)
-                + (_P, _I, _I, _I, _P)),
+    # the mode, the legs, the plan; its meta, the launch config and the
+    # shared-memory layout are host arrays
+    'cg_quad': ('cg_quad_f32', (_I,) + (_P,) * 8 + (_I,) * 5 + (_P,)),
     # the measurement probes of tools/ (csrc/probe_copy.cu,
     # csrc/probe_feats.cu)
     'probe_copy_tiled': ('probe_copy_tiled_f32',
                          (_P, _P, _I, _I, _I, _I, _F, _P)),
-    'probe_colsum': ('probe_colsum_f32', (_P, _P, _P, _I, _I, _I, _P)),
+    'probe_colsum': ('probe_colsum_f32', (_P, _P, _P, _I, _I, _I, _I, _P)),
     'probe_copy_ring': ('probe_copy_ring_f32',
                         (_P, _P, _I, _I, _I, _I, _I, _I, _F, _P)),
     'probe_transpose': ('probe_transpose_f32', (_P, _P, _I, _I, _P)),
@@ -200,6 +200,12 @@ def stream_ptr(device: torch.device) -> int:
     if index is None:
         index = torch.cuda.current_device()
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it at a new (16-byte aligned) allocation: bulk
+    copies need 16-byte aligned rows."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def require(t: torch.Tensor, name: str, dtype, shape=None) -> None:

@@ -1,46 +1,29 @@
-"""Host-built term tables that drive the cg_node CUDA kernels.
+"""Host-built plans that drive the convolution's CUDA kernels.
 
-Every output column of the fused convolution is a short sum of
-triple products of staged row entries,
+Every plan lists the layout's couplings (the nonzero Wigner-3j terms of
+each path, ``CGPath.nnz``) once per path, not unrolled over the
+multiplicity: a kernel's lane is one channel u of an x chunk, and the
+lanes of a warp read the same coupling by broadcast.
 
-    out[col] = sum_t  coef_t * row[a_t] * row[b_t] * row[c_t],
-
-where ``row`` is one edge's legs concatenated in shared memory.  The
-tables are built once per ``CGLayout`` from its nonzero Wigner-3j terms
-(``CGPath.nnz``) and stored as CSR: ``start[col]..start[col + 1]`` index
-``terms``, an int32 ``[T, 4]`` array of ``(a, b, c, float bits of coef)``.
-
-- agg: row = [x | sh | w]; one CSR row per msg column (stride layout);
-  ``quad_table`` runs it as cg_quad.cu's msg mode.  cg_agg.cu is driven
-  by ``agg_plan`` instead: the paths and couplings of gagg's plan as B
-  entries (formed once per edge, shared by every channel) and (node,
-  unit) items spread over a block's warps, with its shared memory
-  ``agg_smem`` and its bulk-copy spans ``agg_span``.
-- multi (cg_quad's x / sh / w modes): row = [g | x | sh | w] with
-  g = ybar[dst[e]]; outputs are the requested jobs' columns concatenated
-  in job order.  The xn and wn columns are one work item each.  An shn
-  column sums every term of its filter component (hundreds to
-  thousands), so its terms are cut into
-  chunks of at most ``SH_CHUNK``; each chunk is one item writing a
-  partial sum, and a second pass adds a column's partials in order --
-  a fixed-order reduction, so results do not vary from run to run.
 - gmulti (every edge-side cotangent of the double backward, and through
-  it multi, the first-order edge cotangents) is not a term table:
-  ``gmulti_plan`` lists each path's couplings (k, i, j, c) once, for
-  every channel u and every job, and the kernel's threads are the
-  channels (see ``GMultiPlan``); ``gmulti_passes`` lays the jobs (emit
-  mode, two pool legs, group) into its slots.  ``multi_table`` no longer
-  drives a kernel of its own: ``quad_table`` builds cg_quad's table from
-  it.
+  it multi, the first-order edge cotangents): ``gmulti_plan`` lists each
+  path's couplings (k, i, j, c) once, for every channel u and every job
+  (see ``GMultiPlan``); ``gmulti_passes`` lays the jobs (emit mode, two
+  pool legs, group) into its slots.
 - gagg (the double backward's ybar cotangent, a sum of agg terms over a
   pool of edge arrays) is driven by ``gagg_plan``: the same chunks,
   groups, paths and couplings, re-sorted so that a lane can form each
   output component k from its own segment (k, i) (see ``GAggPlan``).
-- quad (the per-edge modes, no aggregation): row = the mode's three
-  legs in ``_MODE_LEGS`` order.  'msg' is agg's table, one item per msg
-  column; 'x', 'sh' and 'w' are multi's single xn / shn / wn job with its
-  row [g | x | sh | w] mapped onto the mode's row (g is the per-edge
-  cotangent itself, no ybar[dst] gather).
+- agg (cg_agg.cu, the forward): ``agg_plan``, the paths' B entries
+  (``_b_rows``: B[k][i] = sum_j c sh[j], formed once per edge and shared
+  by every channel) and (node, unit) items spread over a block's warps,
+  with its shared memory ``agg_smem`` and its bulk-copy spans
+  ``agg_span``.
+- quad (cg_quad.cu, the per-edge modes msg / x / sh / w, no
+  aggregation): ``quad_plan``, the same B entries and units of a chunk
+  slice as (unit, edge) items, the sh mode's coefficients at the
+  selection rule's entries (``w3j_pattern``) and
+  the order of its column sums, with its shared memory ``quad_smem``.
 """
 
 from __future__ import annotations
@@ -53,151 +36,6 @@ import numpy as np
 import torch
 
 from .fused_conv import _MODE_LEGS, CGLayout
-
-SH_CHUNK = 64
-
-_JOB_DIM = {'xn': 'dim_x', 'shn': 'dim_sh', 'wn': 'dim_w'}
-
-
-def _pack(terms: List[List[Tuple[int, int, int, float]]]):
-    """Per-column term lists -> (start [n+1] int32, terms [T, 4] int32)."""
-    start = np.zeros(len(terms) + 1, np.int32)
-    start[1:] = np.cumsum([len(t) for t in terms])
-    flat = [t for col in terms for t in col]
-    arr = np.zeros((max(len(flat), 1), 4), np.int32)
-    if flat:
-        abc = np.array([t[:3] for t in flat], np.int32)
-        coef = np.array([t[3] for t in flat], np.float32)
-        arr[:len(flat), :3] = abc
-        arr[:len(flat), 3] = coef.view(np.int32)
-    return start, arr
-
-
-def _iter_terms(layout: CGLayout):
-    """(grp, path, k, i, j, coef, u) for every nonzero scalar coupling."""
-    for grp in layout.groups:
-        for p in grp.paths:
-            for (k, i, j, c) in p.nnz:
-                for u in range(grp.mul):
-                    yield grp, p, k, i, j, c, u
-
-
-@functools.lru_cache(maxsize=None)
-def agg_table(layout: CGLayout) -> Tuple[np.ndarray, np.ndarray]:
-    """CSR over msg columns; row = [x | sh | w]."""
-    X0, S0, W0 = 0, layout.dim_x, layout.dim_x + layout.dim_sh
-    cols: List[list] = [[] for _ in range(layout.dim_msg)]
-    for grp, p, k, i, j, c, u in _iter_terms(layout):
-        cols[p.msg_off + k * grp.mul + u].append((
-            X0 + grp.x_off + i * grp.mul + u,
-            S0 + grp.sh_off + j,
-            W0 + p.w_off + u,
-            c,
-        ))
-    return _pack(cols)
-
-
-@dataclass(frozen=True)
-class MultiTable:
-    item_start: np.ndarray   # [n_items + 1]
-    item_out: np.ndarray     # [n_items]: >= 0 output column, < 0 partial
-    terms: np.ndarray        # [T, 4]
-    red_start: np.ndarray    # [n_red + 1] into the partials
-    red_out: np.ndarray      # [n_red] output column of each reduction
-    n_part: int
-    out_dims: Tuple[int, ...]
-
-
-@functools.lru_cache(maxsize=None)
-def multi_table(layout: CGLayout, jobs: Tuple[str, ...]) -> MultiTable:
-    """Work items for the requested backward jobs; row = [g | x | sh | w]."""
-    G0 = 0
-    X0 = layout.dim_msg
-    S0 = X0 + layout.dim_x
-    W0 = S0 + layout.dim_sh
-    per_job: Dict[str, List[list]] = {
-        j: [[] for _ in range(getattr(layout, _JOB_DIM[j]))] for j in jobs}
-    for grp, p, k, i, j, c, u in _iter_terms(layout):
-        xa = X0 + grp.x_off + i * grp.mul + u
-        sa = S0 + grp.sh_off + j
-        ga = G0 + p.msg_off + k * grp.mul + u
-        wa = W0 + p.w_off + u
-        if 'xn' in per_job:
-            per_job['xn'][grp.x_off + i * grp.mul + u].append(
-                (sa, ga, wa, c))
-        if 'shn' in per_job:
-            per_job['shn'][grp.sh_off + j].append((xa, ga, wa, c))
-        if 'wn' in per_job:
-            per_job['wn'][p.w_off + u].append((xa, sa, ga, c))
-
-    items: List[list] = []
-    item_out: List[int] = []
-    red_start = [0]
-    red_out: List[int] = []
-    n_part = 0
-    base = 0
-    for job in jobs:
-        for col, terms in enumerate(per_job[job]):
-            if job != 'shn':
-                items.append(terms)
-                item_out.append(base + col)
-                continue
-            for s in range(0, len(terms), SH_CHUNK):
-                items.append(terms[s:s + SH_CHUNK])
-                item_out.append(-(n_part + 1))
-                n_part += 1
-            red_start.append(n_part)
-            red_out.append(base + col)
-        base += len(per_job[job])
-    item_start, packed = _pack(items)
-    return MultiTable(
-        item_start=item_start,
-        item_out=np.asarray(item_out, np.int32),
-        terms=packed,
-        red_start=np.asarray(red_start, np.int32),
-        red_out=np.asarray(red_out if red_out else [0], np.int32),
-        n_part=n_part,
-        out_dims=tuple(getattr(layout, _JOB_DIM[j]) for j in jobs),
-    )
-
-
-_QUAD_JOB = {'x': 'xn', 'sh': 'shn', 'w': 'wn'}
-
-
-@functools.lru_cache(maxsize=None)
-def quad_table(layout: CGLayout, mode: str) -> MultiTable:
-    """Work items of one per-edge mode; row = the mode's legs in
-    ``_MODE_LEGS[mode]`` order, outputs the mode's [E, dim] columns."""
-    if mode == 'msg':
-        start, terms = agg_table(layout)
-        return MultiTable(
-            item_start=start,
-            item_out=np.arange(layout.dim_msg, dtype=np.int32),
-            terms=terms, red_start=np.zeros(1, np.int32),
-            red_out=np.zeros(1, np.int32), n_part=0,
-            out_dims=(layout.dim_msg,))
-    tab = multi_table(layout, (_QUAD_JOB[mode],))
-    dims = layout.mode_dims
-    # multi's row offsets -> the mode's row offsets (-1: a leg it lacks)
-    remap = np.full(sum(dims.values()), -1, np.int64)
-    old = dict(zip(('g', 'x', 'sh', 'w'),
-                   np.cumsum([0] + [dims[k] for k in ('g', 'x', 'sh')])))
-    pos = 0
-    for leg in _MODE_LEGS[mode]:
-        remap[old[leg]:old[leg] + dims[leg]] = np.arange(pos,
-                                                         pos + dims[leg])
-        pos += dims[leg]
-    terms = tab.terms.copy()
-    n = int(tab.item_start[-1])
-    terms[:n, :3] = remap[tab.terms[:n, :3]]
-    if (terms[:n, :3] < 0).any():
-        raise AssertionError(f'quad {mode}: a term reads a leg the mode '
-                             'does not take')
-    return MultiTable(
-        item_start=tab.item_start, item_out=tab.item_out, terms=terms,
-        red_start=tab.red_start, red_out=tab.red_out, n_part=tab.n_part,
-        out_dims=tab.out_dims)
-
 
 # --- gmulti: the path-level coupling list of csrc/cg_gmulti.cu ---
 
@@ -560,10 +398,49 @@ class AggPlan:
         return flat, (len(self.entries), *offs, len(flat))
 
 
+@functools.lru_cache(maxsize=None)
+def _b_rows(layout: CGLayout):
+    """The B entries of every path (``_path_segments`` order) as
+    [n_entry, AGG_ENTRY] int32 rows (B column, steps, then (sh column j,
+    float bits of c) per step), each path's B block offset (a multiple of
+    4 floats) and the floats of one edge's B row (a multiple of 4)."""
+    entries, b_offs = [], []
+    b_row = 0
+    for (_, d1, _, sh_off, _, _, _, d3, segs) in _path_segments(layout):
+        for q, sg in enumerate(segs):
+            if len(sg) > AGG_MAX_STEPS:
+                raise ValueError(f'{len(sg)} couplings of one B entry (at '
+                                 f'most {AGG_MAX_STEPS})')
+            ent = np.zeros(AGG_ENTRY, np.int32)
+            ent[:2] = (b_row + q, len(sg))
+            for st, (j, c) in enumerate(sg):
+                ent[2 + 2 * st:4 + 2 * st] = (
+                    sh_off + j, np.float32(c).view(np.int32))
+            entries.append(ent)
+        b_offs.append(b_row)
+        b_row += -(-d1 * d3 // 4) * 4
+    return (np.asarray(entries, np.int32).reshape(-1, AGG_ENTRY),
+            tuple(b_offs), max(b_row, 4))
+
+
 def _agg_item_cost(d1: int, d3: int) -> int:
     """Instructions a lane spends on one edge of a unit: d1 x loads, the
     w load, the B row's float4 loads, d1 * d3 + d3 multiply-adds."""
     return d1 + 1 + -(-d1 * d3 // 4) + d1 * d3 + d3
+
+
+def _spread(cost: List[int], warps: int):
+    """Items to warps by cost, longest first to the least loaded warp:
+    (the items' order, warp by warp and ascending within a warp, and each
+    warp's start in it, [warps + 1] int32)."""
+    load = [0] * warps
+    mine: List[list] = [[] for _ in range(warps)]
+    for q in sorted(range(len(cost)), key=lambda q: (-cost[q], q)):
+        w = min(range(warps), key=lambda w: (load[w], w))
+        load[w] += cost[q]
+        mine[w].append(q)
+    order = [q for w in range(warps) for q in sorted(mine[w])]
+    return order, np.cumsum([0] + [len(m) for m in mine]).astype(np.int32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -572,39 +449,18 @@ def agg_plan(layout: CGLayout, nodes: int, warps: int) -> AggPlan:
     ``nodes`` nodes and ``warps`` warps."""
     if not (1 <= nodes <= AGG_MAX_NODES and 1 <= warps <= AGG_MAX_WARPS):
         raise ValueError(f'cg_agg: {nodes} nodes, {warps} warps a block')
-    units, entries = [], []
-    b_row = 0
-    for (x_off, d1, mul, sh_off, _, msg_off, w_off, d3,
-         segs) in _path_segments(layout):
-        for q, sg in enumerate(segs):
-            if len(sg) > AGG_MAX_STEPS:
-                raise ValueError(f'cg_agg: {len(sg)} couplings of one B '
-                                 f'entry (at most {AGG_MAX_STEPS})')
-            ent = np.zeros(AGG_ENTRY, np.int32)
-            ent[:2] = (b_row + q, len(sg))
-            for st, (j, c) in enumerate(sg):
-                ent[2 + 2 * st:4 + 2 * st] = (
-                    sh_off + j, np.float32(c).view(np.int32))
-            entries.append(ent)
-        for u0 in range(0, mul, WARP):
-            units.append((x_off, d1, mul, u0, w_off, d3, msg_off, b_row))
-        b_row += -(-d1 * d3 // 4) * 4
+    entries, b_offs, b_row = _b_rows(layout)
+    units = [(x_off, d1, mul, u0, w_off, d3, msg_off, b_off)
+             for (x_off, d1, mul, _, _, msg_off, w_off, d3, _), b_off
+             in zip(_path_segments(layout), b_offs)
+             for u0 in range(0, mul, WARP)]
     items = [(g, *unit, 0) for g in range(nodes) for unit in units]
-    cost = [_agg_item_cost(it[2], it[6]) for it in items]
-    load = [0] * warps
-    mine: List[list] = [[] for _ in range(warps)]
-    for q in sorted(range(len(items)), key=lambda q: (-cost[q], q)):
-        w = min(range(warps), key=lambda w: (load[w], w))
-        load[w] += cost[q]
-        mine[w].append(q)
-    order = [q for w in range(warps) for q in sorted(mine[w])]
-    warp_start = np.cumsum([0] + [len(m) for m in mine]).astype(np.int32)
+    order, warp_start = _spread(
+        [_agg_item_cost(it[2], it[6]) for it in items], warps)
     return AggPlan(
         items=np.asarray([items[q] for q in order],
                          np.int32).reshape(-1, AGG_ITEM),
-        warp_start=warp_start,
-        entries=np.asarray(entries, np.int32).reshape(-1, AGG_ENTRY),
-        b_row=max(b_row, 4))
+        warp_start=warp_start, entries=entries, b_row=b_row)
 
 
 @dataclass(frozen=True)
@@ -665,6 +521,269 @@ def agg_span(e0: int, ne: int, dim: int, total: int):
     a1 = min(-(-f1 // 4) * 4, total // 4 * 4)
     bulk = max(a1 - a0, 0)
     return a0, bulk, max(f1, a0 + bulk), f0 - a0
+
+
+# --- quad: csrc/cg_quad.cu, the per-edge modes fed by bulk copies ---
+
+QUAD_MODES = ('msg', 'x', 'sh', 'w')
+QUAD_UNIT = 7             # ints of a QuadPlan unit
+QUAD_PATH = 5             # ints of a QuadPlan path
+QUAD_MAX_STAGES = 8       # ring stages (the kernel's mbarriers)
+QUAD_MAX_WARPS = 16
+QUAD_MAX_TILE = 64
+QUAD_SH_EDGES = 2         # edges of an sh item
+# bytes of dynamic shared memory a block may ask for: the card's 232,448
+# less the kernel's static 64 (its mbarriers)
+QUAD_SMEM_MAX = 232448 - 64
+
+
+@dataclass(frozen=True)
+class QuadConfig:
+    """A launch of cg_quad.cu: ``tile`` edges a ring stage, ``stages``
+    stages, ``warps`` warps a block."""
+
+    tile: int
+    stages: int
+    warps: int
+
+
+@dataclass(frozen=True)
+class QuadPlan:
+    """A layout's work in one per-edge mode for csrc/cg_quad.cu, for tiles
+    of ``tile`` edges and blocks of ``warps`` warps.
+
+    A unit is 32 channels (a slice) of one x chunk, a lane one channel u:
+    for msg and w one path of the chunk (``lo`` = the path, ``hi`` = lo +
+    1), for x every group of the chunk (``lo``..``hi``; a chunk without
+    groups writes zeros), for sh one group (``lo``, ``hi`` = lo + 1), its
+    lanes' partial sums added by the warp into ``red``..``red + d2`` of
+    the edge's row of partials.  An item is a unit and an edge of the
+    tile (in the sh mode an edge pair: the edge and the next, if the tile
+    has it); the items go to the warps by estimated cost (``_spread``),
+    so every output column of an edge has one writer.  The sh columns are
+    then summed from the partials in a fixed order (``col_start`` /
+    ``col_parts``): per group covering the column, in group order, its
+    slices in order.  B entries (msg, x, w) are ``_b_rows``'.  The sh
+    mode reads each path's couplings as ``coef``: the float bits of
+    C[i][j][k] at every entry of ``w3j_pattern(d1, d2, d3)`` in its
+    order (zero where the pattern has an entry the path lacks), padded
+    to a multiple of 4 floats, at ``paths``' c_off; the kernel knows
+    the pattern at compile time and its lanes read the values by
+    broadcast as float4s."""
+
+    units: np.ndarray       # [n_unit, QUAD_UNIT] x_off, d1, mul, first
+                            #   channel, lo, hi, red
+    groups: np.ndarray      # [n_group, 4] sh_off, d2, path begin, end
+    paths: np.ndarray       # [n_path, QUAD_PATH] msg_off, w_off, d3,
+                            #   b_off, c_off (sh: its coefficients)
+    entries: np.ndarray     # [n_entry, AGG_ENTRY] (msg, x, w; else empty)
+    warp_start: np.ndarray  # [warps + 1] each warp's items
+    items: np.ndarray       # [n_item, 2] unit, edge of the tile
+    col_start: np.ndarray   # [dim_sh + 1] (sh; else [1]) into col_parts
+    col_parts: np.ndarray   # [n_part, 3] first partial, slices, stride
+    coef: np.ndarray        # [n_coef] float bits (sh; else empty)
+    b_row: int              # floats of an edge's B row (0 in the sh mode)
+    n_red: int              # floats of an edge's partials (sh; else 0)
+
+    def packed(self) -> Tuple[np.ndarray, Tuple[int, ...]]:
+        """(one int32 array of every section, meta = (n_entry, offsets of
+        units, groups, paths, entries, warp_start, items, col_start,
+        col_parts, coef, coef length, total length)); the items start
+        8-byte aligned (read as int2), the coefficients 16-byte aligned
+        (float4)."""
+        flat, offs = [], []
+        for a in (self.units, self.groups, self.paths, self.entries,
+                  self.warp_start, self.items, self.col_start,
+                  self.col_parts, self.coef):
+            pad = {id(self.items): 2, id(self.coef): 4}.get(id(a), 1)
+            n = sum(map(len, flat))
+            if n % pad:
+                flat.append(np.zeros(pad - n % pad, np.int32))
+            offs.append(sum(map(len, flat)))
+            flat.append(a.reshape(-1))
+        flat = np.concatenate(flat).astype(np.int32)
+        return flat, (len(self.entries), *offs, len(self.coef), len(flat))
+
+
+@functools.lru_cache(maxsize=None)
+def w3j_pattern(d1: int, d2: int, d3: int) -> Tuple[Tuple[int, int, int],
+                                                    ...]:
+    """The entries (i, j, k) at which a real-basis Wigner-3j block of
+    irrep dims d1 x d2 -> d3 may be nonzero, in (i, j, k) order: with
+    l = (d - 1) / 2 and m = index - l, |m3| is |m1| + |m2| or
+    ||m1| - |m2||, and the negative m's and l1 + l2 + l3 have an even
+    sum (the product of cos / sin harmonics).  It is every l <= 2 block's
+    nonzero set exactly and holds every l <= 3 block's (a few accidental
+    zeros more); csrc/cg_quad.cu compiles the same rule (quad_nz)."""
+    l1, l2, l3 = (int(d) // 2 for d in (d1, d2, d3))
+    out = []
+    for i in range(d1):
+        for j in range(d2):
+            for k in range(d3):
+                m1, m2, m3 = abs(i - l1), abs(j - l2), abs(k - l3)
+                odd = (i < l1) + (j < l2) + (k < l3) + l1 + l2 + l3
+                if m3 in (m1 + m2, abs(m1 - m2)) and odd % 2 == 0:
+                    out.append((i, j, k))
+    return tuple(out)
+
+
+def quad_max_dim(layout: CGLayout) -> int:
+    """The largest irrep dim of the layout's paths (x, sh and output
+    irreps): cg_quad.cu runs a kernel built for dims up to 5 where it is
+    at most 5, else one built for dims up to 7 (``GMULTI_MAX_D``)."""
+    d = max((max(g.d1, g.d2, *(p.d_out for p in g.paths))
+             for g in layout.groups), default=1)
+    if d > GMULTI_MAX_D:
+        raise ValueError(f'cg_quad takes irreps of dim <= {GMULTI_MAX_D}, '
+                         f'got {d}')
+    return d
+
+
+def _quad_unit_cost(mode: str, d1: int, paths) -> int:
+    """Instructions a lane spends on one edge of a unit over its paths
+    ((d2, d3, selection-rule entries) each): loads, products, adds,
+    stores."""
+    if mode in ('msg', 'w'):
+        (_, d3, _), = paths
+        return d1 + 2 + -(-d1 * d3 // 4) + 2 * d1 * d3 + 3 * d3
+    if mode == 'x':
+        return 2 * d1 + sum(1 + 2 * d3 + -(-d1 * d3 // 4) + d1 * d3
+                            for (_, d3, _) in paths)
+    d2 = paths[0][0]
+    return d1 + 10 * d2 + sum(1 + 2 * d3 + -(-n // 4) + n + d1 * d2
+                              for (_, d3, n) in paths)
+
+
+@functools.lru_cache(maxsize=None)
+def quad_plan(layout: CGLayout, mode: str, tile: int,
+              warps: int) -> QuadPlan:
+    """``_path_list`` as cg_quad.cu's units and items in ``mode``."""
+    if mode not in QUAD_MODES:
+        raise ValueError(f'cg_quad mode {mode}')
+    if not (1 <= tile <= QUAD_MAX_TILE and 1 <= warps <= QUAD_MAX_WARPS):
+        raise ValueError(f'cg_quad: tiles of {tile} edges, {warps} warps')
+    quad_max_dim(layout)
+    _, chunks, groups, paths, pair_start, coup, _ = _path_list(layout)
+    entries, b_offs, b_row = _b_rows(layout)
+    # per path: (d2, d3, selection-rule entries), its row and (sh) its
+    # coefficients at the rule's entries
+    info, coefs = [], []
+    path_rows = np.zeros((len(paths), QUAD_PATH), np.int32)
+    n_coef = 0
+    cval = coup[:, 1].copy().view(np.float32)
+    for gi, (_, d2, pb, pe) in enumerate(groups):
+        d1, mul = next((int(c[1]), int(c[2])) for c in chunks
+                       if c[3] <= gi < c[4])
+        d2 = int(d2)
+        for p in range(pb, pe):
+            msg_off, w_off, pair, d3 = (int(v) for v in paths[p])
+            at = {e: q for q, e in enumerate(w3j_pattern(d1, d2, d3))}
+            info.append((d2, d3, len(at)))
+            path_rows[p] = (msg_off, w_off, d3, b_offs[p], n_coef)
+            if mode != 'sh':
+                continue
+            vals = np.zeros(-(-len(at) // 4) * 4, np.float32)
+            for i in range(d1):
+                for j in range(d2):
+                    for q in range(pair_start[pair + i * d2 + j],
+                                   pair_start[pair + i * d2 + j + 1]):
+                        e = (i, j, int(coup[q, 0]) // mul)
+                        if e not in at:
+                            raise ValueError(
+                                f'cg_quad: coupling {e} of a {d1} x {d2} '
+                                f'-> {d3} path lies outside the selection '
+                                'rule')
+                        vals[at[e]] = cval[q]
+            coefs.append(vals.view(np.int32))
+            n_coef += len(vals)
+    units, cost = [], []
+    red, red_of = 0, {}     # sh: each group's first partial and slices
+    for (x_off, d1, mul, gb, ge, _) in chunks:
+        slices = range(0, mul, WARP)
+        if mode == 'x':
+            for u0 in slices:
+                units.append((x_off, d1, mul, u0, gb, ge, 0))
+                cost.append(_quad_unit_cost(
+                    mode, d1, [info[p] for g in range(gb, ge)
+                               for p in range(groups[g, 2], groups[g, 3])]))
+            continue
+        for g in range(gb, ge):
+            pb, pe = int(groups[g, 2]), int(groups[g, 3])
+            if mode == 'sh':
+                for s, u0 in enumerate(slices):
+                    units.append((x_off, d1, mul, u0, g, g + 1,
+                                  red + s * int(groups[g, 1])))
+                    cost.append(_quad_unit_cost(
+                        mode, d1, [info[p] for p in range(pb, pe)]))
+                red_of[g] = (red, len(slices))
+                red += len(slices) * int(groups[g, 1])
+                continue
+            for p in range(pb, pe):
+                for u0 in slices:
+                    units.append((x_off, d1, mul, u0, p, p + 1, 0))
+                    cost.append(_quad_unit_cost(mode, d1, [info[p]]))
+    step = QUAD_SH_EDGES if mode == 'sh' else 1
+    items = [(q, le) for le in range(0, tile, step)
+             for q in range(len(units))]
+    order, warp_start = _spread([cost[q] for q, _ in items], warps)
+    col_start, col_parts = [0], []
+    for col in range(layout.dim_sh if mode == 'sh' else 0):
+        for g, (first, n_slice) in sorted(red_of.items()):
+            sh_off, d2 = int(groups[g, 0]), int(groups[g, 1])
+            if sh_off <= col < sh_off + d2:
+                col_parts.append((first + col - sh_off, n_slice, d2))
+        col_start.append(len(col_parts))
+    use_b = mode != 'sh'
+    return QuadPlan(
+        units=np.asarray(units, np.int32).reshape(-1, QUAD_UNIT),
+        groups=groups, paths=path_rows,
+        entries=entries if use_b else np.zeros((0, AGG_ENTRY), np.int32),
+        warp_start=warp_start,
+        items=np.asarray([items[q] for q in order], np.int32).reshape(-1, 2),
+        col_start=np.asarray(col_start, np.int32),
+        col_parts=np.asarray(col_parts, np.int32).reshape(-1, 3),
+        coef=(np.concatenate(coefs) if coefs else np.zeros(0, np.int32)),
+        b_row=b_row if use_b else 0, n_red=red)
+
+
+@dataclass(frozen=True)
+class QuadSmem:
+    """cg_quad.cu's dynamic shared memory, in floats: ``stages`` stages of
+    the mode's three legs' spans (``caps``: each a 16-byte aligned copy of
+    a tile's rows), then two B buffers of ``tile`` rows (msg, x, w), then
+    two buffers of ``tile`` rows of sh partials and the paths'
+    coefficients (sh).  Every section starts 16-byte aligned."""
+
+    caps: Tuple[int, int, int]
+    stage: int
+    b_base: int
+    red_base: int
+    red_row: int
+    coef_base: int
+    total: int
+
+    @property
+    def nbytes(self) -> int:
+        return 4 * self.total
+
+
+def quad_smem(layout: CGLayout, mode: str, cfg: QuadConfig,
+              plan: QuadPlan) -> QuadSmem:
+    if not (1 <= cfg.tile <= QUAD_MAX_TILE
+            and 2 <= cfg.stages <= QUAD_MAX_STAGES):
+        # a tile is issued stages - 1 tiles ahead of its use
+        raise ValueError(f'cg_quad: tiles of {cfg.tile} edges, '
+                         f'{cfg.stages} stages')
+    caps = tuple(_cap(cfg.tile, layout.mode_dims[leg])
+                 for leg in _MODE_LEGS[mode])
+    stage = sum(caps)
+    b_base = cfg.stages * stage
+    red_base = b_base + 2 * cfg.tile * plan.b_row
+    red_row = -(-plan.n_red // 4) * 4
+    coef_base = red_base + 2 * cfg.tile * red_row
+    return QuadSmem(caps=caps, stage=stage, b_base=b_base,
+                    red_base=red_base, red_row=red_row,
+                    coef_base=coef_base, total=coef_base + len(plan.coef))
 
 
 _DEVICE_CACHE: Dict[tuple, tuple] = {}

@@ -105,12 +105,6 @@ def _agg_launch(layout: CGLayout, cfg: Optional[AggConfig],
     return _LAUNCH[key][1:]
 
 
-def _aligned16(t: torch.Tensor) -> torch.Tensor:
-    """t, or a copy of it at a new (16-byte aligned) allocation: the bulk
-    copies need 16-byte aligned rows."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def agg_cuda(x, sh, w, dst, layout: CGLayout, n_node: int,
              cfg: Optional[AggConfig] = None):
     """The CUDA kernel: x [E, dim_x], sh [E, dim_sh], w [E, dim_w] f32
@@ -122,7 +116,7 @@ def agg_cuda(x, sh, w, dst, layout: CGLayout, n_node: int,
     _cuda.require(w, 'w', torch.float32, (E, layout.dim_w))
     _cuda.require(dst, 'dst', torch.int32, (E,))
     plan, c_args = _agg_launch(layout, cfg, x.device)
-    x, sh, w = (_aligned16(t) for t in (x, sh, w))
+    x, sh, w = (_cuda.aligned16(t) for t in (x, sh, w))
     # the kernel writes the node ranges (row_offsets' values) here itself
     offs = torch.empty(n_node + 1, dtype=torch.int32, device=x.device)
     out = torch.empty((n_node, layout.dim_msg), dtype=x.dtype,

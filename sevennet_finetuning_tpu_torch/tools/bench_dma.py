@@ -23,7 +23,9 @@ Kernels (``csrc/probe_copy.cu``), each wrapper beside its plain version:
 
 - ``copy_tiled``: y = x * C, one block per row tile or column strip
   (``bs_copy``, bench_dma.py:84);
-- ``colsum``: the column sum in two passes (``bs_read``, :109);
+- ``colsum``: the column sum in two passes, slabs of rows by bands of
+  columns, then the slabs' partial rows (``bs_read``, :109);
+  ``colsum_stripes`` lays out its first pass;
 - ``copy_ring``: y = x * C through an S-slot ring of bulk copies in
   shared memory (``manual_copy``, :167); ``ring_variants`` plans the
   shapes that fit a block's shared memory.
@@ -51,6 +53,11 @@ RING_MAX_SLOTS = RING_HEADER // 8
 EM_TILES = (128, 256, 512, 1024)
 FM_TILES = (256, 512)
 READ_TILES = (256, 512)
+# the column sum's first pass: slabs of COLSUM_SLAB_ROWS rows, a block a
+# slab and a band of 32 float4 columns, COLSUM_WARPS warps a block
+# (84 x 6 = 504 blocks at E x D: several a streaming multiprocessor)
+COLSUM_SLAB_ROWS = 256
+COLSUM_WARPS = 8
 # ring shapes tried, (rows per tile, slots, copies per tile row); the
 # planner keeps those that fit
 RING_CANDIDATES = tuple((rows, slots, 1) for rows in (8, 16, 32, 64)
@@ -95,21 +102,42 @@ def colsum_plain(x: torch.Tensor, te: int) -> torch.Tensor:
     return x.view(rows // te, te, cols).sum(1).sum(0, keepdim=True)
 
 
+def colsum_stripes(rows: int):
+    """The first pass's rows, as ``probe_colsum``'s kernel takes them:
+    (slab, warp, first row, end row) of every warp's contiguous stripe,
+    each warp of a slab's block ``ceil(n / COLSUM_WARPS)`` rows of the
+    slab's n (the last stripes shorter or empty).  Every band of columns
+    takes the same stripes."""
+    out = []
+    for k in range(-(-rows // COLSUM_SLAB_ROWS)):
+        r0 = k * COLSUM_SLAB_ROWS
+        n = min(COLSUM_SLAB_ROWS, rows - r0)
+        per = -(-n // COLSUM_WARPS)
+        for w in range(COLSUM_WARPS):
+            out.append((k, w, r0 + min(n, w * per),
+                        r0 + min(n, (w + 1) * per)))
+    return out
+
+
 def colsum_cuda(x: torch.Tensor, te: int) -> torch.Tensor:
-    """The column sum by the kernel: partial rows per ``te``-row tile,
-    then the partials in tile order (no atomics)."""
+    """The column sum by the kernel: a partial row per slab of
+    ``COLSUM_SLAB_ROWS`` rows, then the partials in slab order (no
+    atomics).  ``te``, the TPU tool's tile, must divide the rows; the
+    schedule does not use it."""
     _cuda.require(x, 'x', torch.float32)
     rows, cols = x.shape
     if te <= 0 or rows % te or cols % 4:
         raise ValueError(f'colsum: tile {te} does not divide '
                          f'{tuple(x.shape)}')
-    part = torch.empty((rows // te, cols), dtype=x.dtype, device=x.device)
+    x = _cuda.aligned16(x)
+    part = torch.empty((-(-rows // COLSUM_SLAB_ROWS), cols), dtype=x.dtype,
+                       device=x.device)
     out = torch.empty((1, cols), dtype=x.dtype, device=x.device)
     fn = _cuda.kernel('probe_colsum')
     _cuda.LAUNCHES['probe_colsum'] += 1
     _cuda.check('probe_colsum', fn(
         x.data_ptr(), part.data_ptr(), out.data_ptr(), rows, cols, te,
-        _cuda.stream_ptr(x.device)))
+        COLSUM_SLAB_ROWS, _cuda.stream_ptr(x.device)))
     return out
 
 

@@ -7,12 +7,6 @@
 - the JAX Pallas kernels in interpret mode (``agg_pallas``,
   ``multi_pallas``, ``segment_sum_sorted``) at small E against the port's
   plain versions;
-- a CPU evaluator of the host-built term tables (``ops/cg_tables.py``:
-  ``agg_table``, ``cg_quad.cu``'s msg table, and ``multi_table``, from
-  which ``quad_table`` builds ``cg_quad.cu``'s x / sh / w tables), walked
-  the way the kernels walk them, against the plain versions -- so a table
-  bug shows here, before the card (``cg_multi`` runs ``cg_gmulti.cu``'s
-  plan: ``tests/test_torch_double_backward.py`` walks it);
 - a float32 walk of ``csrc/cg_agg.cu`` (its node-range kernel,
   ``cg_tables.agg_plan``, its shared memory ``agg_smem`` and its bulk
   copies ``agg_span``) tile by tile and stage by stage against the plain
@@ -271,125 +265,6 @@ def test_segment_sum_pallas_interpret_matches_port(D):
 # ---------------------------------------------------------------------------
 # the kernels' term tables, walked on the CPU the way the kernels walk them
 # ---------------------------------------------------------------------------
-
-def _term_values(rows, terms):
-    a, b, c = terms[:, 0], terms[:, 1], terms[:, 2]
-    coef = terms[:, 3].copy().view(np.float32).astype(np.float64)
-    return coef * rows[:, a] * rows[:, b] * rows[:, c]     # [E, T]
-
-
-def eval_agg_table(layout, x, sh, w, dst, n_node):
-    """agg_table (cg_quad.cu's msg table), per node, per edge in order,
-    per msg column its terms."""
-    start, terms = cg_tables.agg_table(layout)
-    rows = np.concatenate([x, sh, w], axis=1).astype(np.float64)
-    vals = _term_values(rows, terms[:start[-1]])
-    col_of_term = np.repeat(np.arange(layout.dim_msg), np.diff(start))
-    msg = np.zeros((len(dst), layout.dim_msg))
-    np.add.at(msg, (slice(None), col_of_term), vals)
-    out = np.zeros((n_node, layout.dim_msg))
-    offs = np.searchsorted(dst, np.arange(n_node + 1))
-    for n in range(n_node):
-        for e in range(offs[n], offs[n + 1]):
-            out[n] += msg[e]
-    return out
-
-
-def eval_multi_table(layout, jobs, ybar, x, sh, w, dst, n_node):
-    """multi_table as cg_quad.cu walks its items (quad_table keeps them
-    and maps the rows): per edge, items (columns or shn chunks), then the
-    ordered reduction of each shn column's partial sums."""
-    tab = cg_tables.multi_table(layout, jobs)
-    g = np.where((dst < n_node)[:, None],
-                 ybar[np.minimum(dst, n_node - 1)], 0.0)
-    rows = np.concatenate([g, x, sh, w], axis=1).astype(np.float64)
-    vals = _term_values(rows, tab.terms[:tab.item_start[-1]])
-    item_of_term = np.repeat(np.arange(len(tab.item_out)),
-                             np.diff(tab.item_start))
-    items = np.zeros((len(dst), len(tab.item_out)))
-    np.add.at(items, (slice(None), item_of_term), vals)
-    total = sum(tab.out_dims)
-    out = np.full((len(dst), total), np.nan)
-    part = np.zeros((len(dst), max(tab.n_part, 1)))
-    for it, o in enumerate(tab.item_out):
-        if o >= 0:
-            out[:, o] = items[:, it]
-        else:
-            part[:, -o - 1] = items[:, it]
-    for q in range(len(tab.red_start) - 1):
-        out[:, tab.red_out[q]] = part[:, tab.red_start[q]:
-                                      tab.red_start[q + 1]].sum(axis=1)
-    splits = np.cumsum(tab.out_dims)[:-1]
-    return np.split(out, splits, axis=1)
-
-
-def test_tables_cover_every_output_once():
-    _, t_spec = _specs(SEVENNET_LIKE)
-    tl = layout_from_spec(t_spec)
-    start, _ = cg_tables.agg_table(tl)
-    assert len(start) == tl.dim_msg + 1
-    for jobs in [('xn', 'shn', 'wn'), ('shn', 'wn'), ('wn',), ('shn',)]:
-        tab = cg_tables.multi_table(tl, jobs)
-        direct = [int(o) for o in tab.item_out if o >= 0]
-        reduced = list(tab.red_out[:len(tab.red_start) - 1])
-        assert sorted(direct + reduced) == list(range(sum(tab.out_dims)))
-        sizes = np.diff(tab.item_start)
-        assert sizes.max() <= cg_tables.SH_CHUNK
-
-
-@pytest.mark.parametrize('name', sorted(LAYOUTS))
-def test_agg_table_matches_plain(name):
-    """agg_table, which drives cg_quad.cu's msg mode, against agg_plain
-    (cg_agg.cu runs agg_plan: test_agg_plan_walk_matches_plain_and_pallas
-    walks it)."""
-    _, t_spec = _specs(LAYOUTS[name])
-    tl = layout_from_spec(t_spec)
-    N = 8
-    d = _data(tl, E=31, N=N, seed=6)
-    t = _t(d)
-    want = agg_plain(t['x'], t['sh'], t['w'], t['dst'], tl, N)
-    got = eval_agg_table(tl, d['x'], d['sh'], d['w'], d['dst'], N)
-    _close(got, want.numpy())
-
-
-@pytest.mark.parametrize('name', sorted(LAYOUTS))
-@pytest.mark.parametrize('jobs', [('xn', 'shn', 'wn'), ('shn', 'wn'),
-                                  ('xn',)])
-def test_multi_table_matches_plain(name, jobs):
-    _, t_spec = _specs(LAYOUTS[name])
-    tl = layout_from_spec(t_spec)
-    N = 8
-    d = _data(tl, E=31, N=N, seed=7)
-    t = _t(d)
-    want = multi_plain(t['ybar'], t['x'], t['sh'], t['w'], t['dst'], jobs,
-                       tl, N)
-    got = eval_multi_table(tl, jobs, d['ybar'], d['x'], d['sh'], d['w'],
-                           d['dst'], N)
-    for g, w in zip(got, want):
-        _close(g, w.numpy())
-
-
-@pytest.mark.parametrize('block', [0, 1, 4])
-def test_sevennet0_tables_match_plain(sevennet_specs, block):
-    """agg_table (cg_quad.cu's msg mode) and multi_table (its x / sh / w
-    modes) at SevenNet-0's blocks against the plain versions."""
-    _, t_spec = sevennet_specs
-    tl = layout_from_spec(t_spec.blocks[block].conv_tp)
-    N = 4
-    d = _data(tl, E=14, N=N, seed=8, sentinel_tail=2)
-    t = _t(d)
-    want = agg_plain(t['x'], t['sh'], t['w'], t['dst'], tl, N)
-    _close(eval_agg_table(tl, d['x'], d['sh'], d['w'], d['dst'], N),
-           want.numpy())
-    jobs = ('shn', 'wn') if block == 0 else ('xn', 'shn', 'wn')
-    want = multi_plain(t['ybar'], t['x'], t['sh'], t['w'], t['dst'], jobs,
-                       tl, N)
-    got = eval_multi_table(tl, jobs, d['ybar'], d['x'], d['sh'], d['w'],
-                           d['dst'], N)
-    for g, w in zip(got, want):
-        _close(g, w.numpy())
-        assert np.all(g[-2:] == 0.0)      # sentinel edges: zero cotangent
-
 
 # ---------------------------------------------------------------------------
 # cg_agg.cu's plan, walked on the CPU in the kernel's order

@@ -269,6 +269,48 @@ def test_colsum_plain_matches_pallas(slab, te):
     assert (np.abs(got - ref) <= KERNEL_TOL * scale).all()
 
 
+@pytest.mark.parametrize('rows', [E, 1000, 7])
+def test_colsum_stripes_cover_every_row_once(rows):
+    """probe_colsum's first pass: every band of 32 float4 columns takes
+    the slabs' warp stripes; each (row, float4 column) is summed once, at
+    the TPU shape's rows and at row counts that are not a multiple of
+    the slab."""
+    slab_rows = bench_dma.COLSUM_SLAB_ROWS
+    cols4 = D // 4
+    n_band = -(-cols4 // 32)
+    count = np.zeros((rows, n_band * 32), np.int64)
+    stripes = bench_dma.colsum_stripes(rows)
+    assert len(stripes) == -(-rows // slab_rows) * bench_dma.COLSUM_WARPS
+    for band in range(n_band):
+        for k, _, r0, r1 in stripes:
+            assert k * slab_rows <= r0 <= r1 <= min(rows,
+                                                    (k + 1) * slab_rows)
+            count[r0:r1, band * 32:(band + 1) * 32] += 1
+    assert (count[:, :cols4] == 1).all()
+
+
+@pytest.mark.parametrize('rows', [E, 1000])
+def test_colsum_stripe_order_within_tolerance(slab, rows):
+    """The kernel's float32 order (each stripe row by row, the warps in
+    order, then the slabs in order) within 2e-6 x sum|x| of float64 and
+    of the plain version."""
+    x = slab[:rows]
+    part = {}
+    for k, w, r0, r1 in bench_dma.colsum_stripes(rows):
+        acc = np.zeros(D, np.float32)
+        for r in range(r0, r1):
+            acc = acc + x[r]
+        part[k] = acc if w == 0 else part[k] + acc
+    got = np.zeros(D, np.float32)
+    for k in sorted(part):
+        got = got + part[k]
+    scale = np.abs(x.astype(np.float64)).sum(0)
+    assert (np.abs(got - x.astype(np.float64).sum(0)) <= KERNEL_TOL
+            * scale).all()
+    want = bench_dma.colsum_plain(torch.as_tensor(x), 8).numpy()[0]
+    assert (np.abs(got - want) <= KERNEL_TOL * scale).all()
+
+
 @pytest.mark.parametrize('te,S,split', [(256, 2, 1), (256, 4, 2)])
 def test_copy_ring_plain_matches_pallas(slab, te, S, split):
     want = np.asarray(manual_copy(te, S, split)(jnp.asarray(slab)))

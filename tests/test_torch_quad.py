@@ -96,9 +96,12 @@ SPECS = {
 }
 SMALL = ('4x0e+3x1e+2x2e', '1x0e+1x1e+1x2e', '4x0e+4x1e+4x2e')
 TINY = ('1x0e+1x1e', '1x0e+1x1e', '1x0e+1x1e')
+# an lmax-3 layout takes cg_quad.cu's kernels built for irrep dims up to 7
 TABLE_LAYOUTS = {'small': SMALL, 'parity_lmax1': SPECS['parity_lmax1'],
                  'scalar_in': ('8x0e', '1x0e+1x1e+1x2e',
-                               '8x0e+8x1e+8x2e')}
+                               '8x0e+8x1e+8x2e'),
+                 'lmax3': ('6x0e+3x1o+2x3o', '1x0e+1x1o+1x2e+1x3o',
+                           '6x0e+6x1o+6x2e+6x3o')}
 
 
 def _layouts(irreps):
@@ -159,78 +162,407 @@ def test_zero_weight_edges_give_exact_zeros():
         (tl.dim_msg, 40)).astype(np.float32)
     dx = cg_apply('x', *(torch.from_numpy(a) for a in (g, sh, w)), tl)
     assert torch.all(dx[:, -5:] == 0.0)
-    assert np.all(eval_quad_table(tl, 'x', g.T, sh.T, w.T)[-5:] == 0.0)
+    walked = walk_quad_plan(tl, 'x', (g.T, sh.T, w.T), QUAD_SMALL_CFG, 4)
+    assert np.all(walked[-5:] == 0.0)
 
 
 # ---------------------------------------------------------------------------
-# the kernel's term table, walked on the CPU the way the kernel walks it
+# the kernel's schedule (cg_tables.quad_plan), walked on the CPU the way
+# csrc/cg_quad.cu walks it, in float32
 # ---------------------------------------------------------------------------
 
-def eval_quad_table(layout, mode, a, b, c):
-    """cg_quad.cu: per edge, every item (a column, or a chunk of an sh
-    column's terms) sums its terms in order; then each sh column adds its
-    partial sums in order.  a, b, c edge-major, float64 arithmetic."""
-    tab = cg_tables.quad_table(layout, mode)
-    rows = np.concatenate([a, b, c], axis=1).astype(np.float64)
-    E = rows.shape[0]
-    items = np.zeros((E, len(tab.item_out)))
-    for it in range(len(tab.item_out)):
-        for t in range(tab.item_start[it], tab.item_start[it + 1]):
-            i, j, k, bits = tab.terms[t]
-            coef = np.int32(bits).view(np.float32).astype(np.float64)
-            items[:, it] += coef * rows[:, i] * rows[:, j] * rows[:, k]
-    out = np.full((E, tab.out_dims[0]), np.nan)
-    part = np.zeros((E, max(tab.n_part, 1)))
-    for it, o in enumerate(tab.item_out):
-        if o >= 0:
-            out[:, o] = items[:, it]
-        else:
-            part[:, -o - 1] = items[:, it]
-    for q in range(len(tab.red_start) - 1):
-        out[:, tab.red_out[q]] = part[:, tab.red_start[q]:
-                                      tab.red_start[q + 1]].sum(axis=1)
+# which leg holds x, sh, w and g in each mode (cg_quad.cu's Legs)
+_ROLE = {'msg': dict(X=0, S=1, W=2), 'x': dict(G=0, S=1, W=2),
+         'sh': dict(G=0, X=1, W=2), 'w': dict(G=0, X=1, S=2)}
+
+
+def _fma(a, b, c):
+    """float32 fma: the product exact in float64, one rounding (up to a
+    double rounding, which no test here resolves)."""
+    f64 = functools.partial(np.asarray, dtype=np.float64)
+    return (f64(a) * f64(b) + f64(c)).astype(np.float32)
+
+
+def _f32(bits):
+    return np.asarray(bits, np.int32).view(np.float32)
+
+
+def walk_quad_plan(layout, mode, legs, cfg, n_blocks, writes=None,
+                   copies=None):
+    """cg_quad.cu on edge-major float32 legs: the persistent grid of
+    min(tiles, ``n_blocks``) blocks, each a contiguous run of tiles; each
+    tile's legs staged as agg_span's 16-byte aligned spans into the ring
+    stage at quad_smem's offsets; the tile's B rows; every warp's items
+    (a unit and an edge of the tile) with a lane per channel, in the
+    kernel's float32 order (the sh mode from the paths' coefficients at
+    the selection rule's entries); the sh partials added by the xor
+    butterfly,
+    then each sh column from its partials (per group its slices in order,
+    the groups in order).  ``writes`` [E, d_out] counts the writes of
+    each output element; ``copies`` collects (source float, destination
+    float, floats, floats read from the buffer, buffer capacity) of
+    every bulk copy."""
+    legs = [np.ascontiguousarray(a, np.float32) for a in legs]
+    E = legs[0].shape[0]
+    dims = [a.shape[1] for a in legs]
+    flat = [a.reshape(-1) for a in legs]
+    role = _ROLE[mode]
+    plan = cg_tables.quad_plan(layout, mode, cfg.tile, cfg.warps)
+    sm = cg_tables.quad_smem(layout, mode, cfg, plan)
+    d_out = layout.mode_dims[j_fc._MODE_OUT[mode]]
+    out = np.full((E, d_out), np.nan, np.float32)
+    lanes = np.arange(32)
+    n_tile = -(-E // cfg.tile)
+    grid = min(n_tile, n_blocks)
+
+    def record(e, cols):
+        if writes is not None:
+            np.add.at(writes, (e, cols), 1)
+
+    for blk in range(grid):
+        t0, t1 = blk * n_tile // grid, (blk + 1) * n_tile // grid
+        e_begin, e_end = t0 * cfg.tile, min(E, t1 * cfg.tile)
+        for c in range(t1 - t0):
+            e0 = e_begin + c * cfg.tile
+            ne = min(cfg.tile, e_end - e0)
+            pos = (c % cfg.stages) * sm.stage
+            rows = []
+            for f, d, cap in zip(flat, dims, sm.caps):
+                a0, bulk, f1, off = cg_tables.agg_span(e0, ne, d, E * d)
+                if copies is not None:
+                    copies.append((a0, pos, bulk, f1 - a0, cap))
+                buf = np.zeros(cap, np.float32)
+                buf[:f1 - a0] = f[a0:f1]
+                rows.append(buf[off:off + ne * d].reshape(ne, d))
+                pos += cap
+            B = np.zeros((ne, max(plan.b_row, 1)), np.float32)
+            for ent in plan.entries:
+                b = np.zeros(ne, np.float32)
+                for st in range(ent[1]):
+                    b = _fma(_f32(ent[3 + 2 * st]),
+                             rows[role['S']][:, ent[2 + 2 * st]], b)
+                B[:, ent[0]] = b
+            red = np.zeros((ne, max(plan.n_red, 1)), np.float32)
+            for it in range(plan.warp_start[-1]):
+                q, le = plan.items[it]
+                if le >= ne:
+                    continue
+                x_off, d1, mul, u0, lo, hi, r = plan.units[q]
+                u = u0 + lanes
+                act = u < mul
+                uc = np.where(act, u, mul - 1)
+                e = e0 + le
+                row = {k: rows[v][le] for k, v in role.items()}
+                if mode in ('msg', 'w'):
+                    msg_off, w_off, d3, b_off = plan.paths[lo][:4]
+                    bb = B[le, b_off:b_off + d1 * d3]
+                    xv = [row['X'][x_off + i * mul + uc] for i in range(d1)]
+                    m = []
+                    for k in range(d3):
+                        mk = bb[k * d1] * xv[0]
+                        for i in range(1, d1):
+                            mk = mk + bb[k * d1 + i] * xv[i]
+                        m.append(mk)
+                    if mode == 'msg':
+                        wv = row['W'][w_off + uc]
+                        for k in range(d3):
+                            out[e, (msg_off + k * mul + u)[act]] = (
+                                m[k] * wv)[act]
+                            record(e, (msg_off + k * mul + u)[act])
+                    else:
+                        acc = m[0] * row['G'][msg_off + uc]
+                        for k in range(1, d3):
+                            acc = acc + m[k] * row['G'][msg_off + k * mul + uc]
+                        out[e, (w_off + u)[act]] = acc[act]
+                        record(e, (w_off + u)[act])
+                elif mode == 'x':
+                    acc = [np.zeros(32, np.float32) for _ in range(d1)]
+                    for g in range(lo, hi):
+                        t = [np.zeros(32, np.float32) for _ in range(d1)]
+                        for p in range(*plan.groups[g][2:4]):
+                            msg_off, w_off, d3, b_off = plan.paths[p][:4]
+                            wv = row['W'][w_off + uc]
+                            for k in range(d3):
+                                gw = row['G'][msg_off + k * mul + uc] * wv
+                                for i in range(d1):
+                                    t[i] = _fma(B[le, b_off + k * d1 + i],
+                                                gw, t[i])
+                        acc = [a + b for a, b in zip(acc, t)]
+                    for i in range(d1):
+                        out[e, (x_off + i * mul + u)[act]] = acc[i][act]
+                        record(e, (x_off + i * mul + u)[act])
+                else:  # sh: the item's edge and the next
+                    _sh_pair(plan, rows, role, red, le, ne, lo, d1, mul,
+                             x_off, r, act, uc, lanes)
+            if mode == 'sh':
+                for le in range(ne):
+                    for col in range(d_out):
+                        v = np.float32(0)
+                        for first, n, stride in plan.col_parts[
+                                plan.col_start[col]:plan.col_start[col + 1]]:
+                            s_ = red[le, first]
+                            for t_ in range(1, n):
+                                s_ = s_ + red[le, first + t_ * stride]
+                            v = v + s_
+                        out[e0 + le, col] = v
+                        record(e0 + le, col)
     return out
 
 
+def _sh_pair(plan, rows, role, red, le, ne, lo, d1, mul, x_off, r, act,
+             uc, lanes):
+    """An sh item: its edge and the next (if the tile has it), each
+    lane's part from the paths' coefficients at the selection rule's
+    entries (``w3j_pattern``, in k order), the xor butterfly, lane 0's
+    sum to the edge's partials."""
+    _, d2, pb, pe = plan.groups[lo]
+    for le in range(le, min(le + 2, ne)):
+        row = {k: rows[v][le] for k, v in role.items()}
+        xv = [np.where(act, row['X'][x_off + i * mul + uc],
+                       np.float32(0)) for i in range(d1)]
+        acc = [np.zeros(32, np.float32) for _ in range(d2)]
+        for p in range(pb, pe):
+            msg_off, w_off, d3, _, c_off = plan.paths[p]
+            wv = row['W'][w_off + uc]
+            at = {e: q for q, e in enumerate(
+                cg_tables.w3j_pattern(d1, d2, d3))}
+            coef = _f32(plan.coef[c_off:c_off + len(at)])
+            gw = [row['G'][msg_off + k * mul + uc] * wv
+                  for k in range(d3)]
+            t = [np.zeros(32, np.float32) for _ in range(d2)]
+            for i in range(d1):
+                for j in range(d2):
+                    ks = [k for k in range(d3) if (i, j, k) in at]
+                    if not ks:
+                        continue
+                    sj = np.zeros(32, np.float32)
+                    for k in ks:
+                        sj = _fma(coef[at[i, j, k]], gw[k], sj)
+                    t[j] = _fma(xv[i], sj, t[j])
+            acc = [a_ + t_ for a_, t_ in zip(acc, t)]
+        for j in range(d2):
+            v = acc[j]
+            for off in (16, 8, 4, 2, 1):
+                v = v + v[lanes ^ off]
+            red[le, r + j] = v[0]
+
+
+def _check_copies(copies, cfg, sm):
+    """Every bulk copy: source, destination and size in whole 16-byte
+    units, the floats read from the buffer within its capacity, the
+    destination inside the ring."""
+    for a0, dst, bulk, used, cap in copies:
+        assert a0 % 4 == 0 and dst % 4 == 0 and bulk % 4 == 0
+        assert bulk <= used <= cap
+        assert dst + cap <= cfg.stages * sm.stage
+    assert sm.b_base % 4 == 0 and sm.red_base % 4 == 0
+
+
+def _walk_and_check(tl, mode, E, cfg, n_blocks, seed, tol=MODE_TOL):
+    """The walk on random legs: every output element written once, every
+    copy aligned, within ``tol`` x max of the plain version."""
+    legs = [a.T for a in _legs(tl, mode, E, seed=seed)]
+    want = quad_plain(mode, *(torch.from_numpy(a) for a in legs), tl)
+    writes = np.zeros(tuple(want.shape), np.int64)
+    copies = []
+    got = walk_quad_plan(tl, mode, legs, cfg, n_blocks, writes, copies)
+    assert (writes == 1).all(), (mode, np.unique(writes))
+    plan = cg_tables.quad_plan(tl, mode, cfg.tile, cfg.warps)
+    _check_copies(copies, cfg, cg_tables.quad_smem(tl, mode, cfg, plan))
+    _close(got, want.numpy(), tol, mode)
+    return got
+
+
+# a small launch: several tiles and blocks, a partial last tile, fewer
+# warps than items
+QUAD_SMALL_CFG = cg_tables.QuadConfig(tile=3, stages=2, warps=3)
+
+
 @pytest.mark.parametrize('mode', MODES)
-def test_quad_tables_cover_every_column_once(mode):
-    _, tl = _layouts(SMALL)
-    tab = cg_tables.quad_table(tl, mode)
-    direct = [int(o) for o in tab.item_out if o >= 0]
-    reduced = [int(o) for o in tab.red_out[:len(tab.red_start) - 1]]
-    assert sorted(direct + reduced) == list(range(tab.out_dims[0]))
-    if mode == 'sh':
-        assert np.diff(tab.item_start).max() <= cg_tables.SH_CHUNK
-    row = sum(tl.mode_dims[leg] for leg in _MODE_LEGS[mode])
-    n = tab.item_start[-1]
-    assert 0 <= tab.terms[:n, :3].min() and tab.terms[:n, :3].max() < row
+def test_quad_plan_writes_each_column_once(mode):
+    """Each (edge, output column) written once and every bulk copy
+    16-byte aligned, at SevenNet-0's layouts (blocks 0, 1-3, 4) under the
+    launch rule and a small launch, at an odd E (a partial last tile)."""
+    from sevennet_finetuning_tpu_torch.ops.fused_conv_kernel import (
+        quad_config)
+
+    spec = _sevennet0_spec()
+    for block in (0, 1, 4):
+        tl = layout_from_spec(spec.blocks[block].conv_tp)
+        # every unit once for each edge of a tile (sh: each edge pair)
+        plan = cg_tables.quad_plan(tl, mode, 4, 4)
+        step = cg_tables.QUAD_SH_EDGES if mode == 'sh' else 1
+        assert sorted(map(tuple, plan.items.tolist())) == [
+            (q, le) for q in range(len(plan.units))
+            for le in range(0, 4, step)]
+        for cfg, E, n_blocks in ((quad_config(tl, mode), 13, 2),
+                                 (QUAD_SMALL_CFG, 11, 3)):
+            _walk_and_check(tl, mode, E, cfg, n_blocks, seed=80 + block)
 
 
 @pytest.mark.parametrize('name', sorted(TABLE_LAYOUTS))
 @pytest.mark.parametrize('mode', MODES)
-def test_quad_table_matches_plain(name, mode):
+def test_quad_plan_walk_matches_plain(name, mode):
     _, tl = _layouts(TABLE_LAYOUTS[name])
-    legs = [a.T for a in _legs(tl, mode, 13, seed=20 + MODES.index(mode))]
-    want = quad_plain(mode, *(torch.from_numpy(a) for a in legs), tl)
-    _close(eval_quad_table(tl, mode, *legs), want.numpy(), FAMILY_TOL)
+    _walk_and_check(tl, mode, 13, QUAD_SMALL_CFG, 2,
+                    seed=20 + MODES.index(mode))
 
 
-@pytest.fixture(scope='module')
-def sevennet0_spec():
+@functools.lru_cache(maxsize=None)
+def _sevennet0_spec():
     from sevennet_finetuning_tpu_torch.train.checkpoint import (
         load_checkpoint)
 
     return build_model_spec(load_checkpoint(str(CKPT))['config'])
 
 
+@pytest.fixture(scope='module')
+def sevennet0_spec():
+    return _sevennet0_spec()
+
+
 @pytest.mark.parametrize('block', [0, 1, 4])
-def test_sevennet0_quad_tables_match_plain(sevennet0_spec, block):
+def test_sevennet0_quad_plan_walk_matches_plain(sevennet0_spec, block):
+    from sevennet_finetuning_tpu_torch.ops.fused_conv_kernel import (
+        quad_config)
+
     tl = layout_from_spec(sevennet0_spec.blocks[block].conv_tp)
     for mode in MODES:
-        legs = [a.T for a in _legs(tl, mode, 3, seed=30 + block)]
-        want = quad_plain(mode, *(torch.from_numpy(a) for a in legs), tl)
-        _close(eval_quad_table(tl, mode, *legs), want.numpy(), FAMILY_TOL,
-               mode)
+        _walk_and_check(tl, mode, 5, quad_config(tl, mode), 132,
+                        seed=30 + block)
+
+
+@pytest.mark.parametrize('block', [0, 1, 4])
+def test_quad_sh_combine_matches_cg_modes(sevennet0_spec, block):
+    """The sh mode's order (lane partials over each group's paths and
+    couplings, the xor butterfly, then per column the groups' slices in
+    order and the groups in order) against cg_modes, on legs whose
+    cotangent and weights vary over several orders of magnitude."""
+    tl = layout_from_spec(sevennet0_spec.blocks[block].conv_tp)
+    E = 4
+    rng = np.random.default_rng(90 + block)
+    g, x, w = (rng.standard_normal((E, tl.mode_dims[leg])).astype(np.float32)
+               * np.exp(rng.uniform(-3, 3, (1, tl.mode_dims[leg])))
+               .astype(np.float32)
+               for leg in _MODE_LEGS['sh'])
+    want = quad_plain('sh', *(torch.from_numpy(a) for a in (g, x, w)), tl)
+    plan = cg_tables.quad_plan(tl, 'sh', 2, 4)
+    # every sh column gets one part per group that covers it
+    n_groups = {c: sum(1 for grp in tl.groups
+                       if grp.sh_off <= c < grp.sh_off + grp.d2)
+                for c in range(tl.dim_sh)}
+    assert [int(n) for n in np.diff(plan.col_start)] == [
+        n_groups[c] for c in range(tl.dim_sh)]
+    got = walk_quad_plan(tl, 'sh', (g, x, w),
+                         cg_tables.QuadConfig(tile=2, stages=2, warps=4), 2)
+    _close(got, want.numpy(), MODE_TOL)
+
+
+def _rule_layouts():
+    """SevenNet-0's three conv layouts and the lmax-3 layout (irrep dims
+    of 7: the kernels built for them)."""
+    spec = _sevennet0_spec()
+    out = {f'block {b}': layout_from_spec(spec.blocks[b].conv_tp)
+           for b in (0, 1, 4)}
+    out['lmax3'] = _layouts(TABLE_LAYOUTS['lmax3'])[1]
+    return out
+
+
+@pytest.mark.parametrize('mode', MODES)
+def test_quad_config_fits_the_card(mode):
+    """The launch rule: two stages, the mode's warps (4 for sh tiles of
+    one edge), a tile of at least one edge whose block fits the card's
+    shared memory (227 KB less the kernel's static 64 bytes); at the
+    interior block tiles of about the rule's stage bytes (one edge in the
+    x and sh modes)."""
+    from sevennet_finetuning_tpu_torch.ops import fused_conv_kernel as fck
+
+    for name, tl in _rule_layouts().items():
+        cfg = fck.quad_config(tl, mode)
+        plan = cg_tables.quad_plan(tl, mode, cfg.tile, cfg.warps)
+        sm = cg_tables.quad_smem(tl, mode, cfg, plan)
+        assert cfg.stages == fck.QUAD_STAGES == 2
+        assert cfg.warps == (fck.QUAD_SH_ONE_EDGE_WARPS
+                             if mode == 'sh' and cfg.tile == 1
+                             else fck.QUAD_RULE[mode][1])
+        assert cfg.tile >= 1 and sm.nbytes <= cg_tables.QUAD_SMEM_MAX
+        assert sm.nbytes + 64 <= 232448, name
+        assert cg_tables.quad_max_dim(tl) == (7 if name == 'lmax3' else 5)
+    interior = fck.quad_config(_rule_layouts()['block 1'], mode)
+    assert interior.tile == {'msg': 3, 'x': 1, 'sh': 1, 'w': 2}[mode]
+
+
+@pytest.mark.parametrize('mode', MODES)
+def test_quad_cuda_refuses_cpu_tensors(mode):
+    """On CPU tensors the kernel's wrapper raises before any launch is
+    counted; ``quad`` runs the plain version there and counts nothing."""
+    from sevennet_finetuning_tpu_torch.ops import _cuda
+    from sevennet_finetuning_tpu_torch.ops import fused_conv_kernel as fck
+
+    _, tl = _layouts(SMALL)
+    legs = [torch.from_numpy(a.T.copy())
+            for a in _legs(tl, mode, 5, seed=95)]
+    before = (dict(_cuda.LAUNCHES), dict(fck.MODE_LAUNCHES))
+    with pytest.raises(ValueError, match='CUDA'):
+        fck.quad_cuda(mode, *legs, tl)
+    assert torch.equal(fck.quad(mode, *legs, tl),
+                       quad_plain(mode, *legs, tl))
+    assert (dict(_cuda.LAUNCHES), dict(fck.MODE_LAUNCHES)) == before
+
+
+@pytest.mark.parametrize('mode', MODES)
+def test_quad_plan_packed_sections(mode):
+    """QuadPlan.packed: each section at its meta offset, the items 8-byte
+    aligned (read as int2), the sh coefficients and every path's B and
+    coefficient offsets 16-byte aligned (read as float4s)."""
+    for name, tl in _rule_layouts().items():
+        plan = cg_tables.quad_plan(tl, mode, 3, 4)
+        flat, meta = plan.packed()
+        sections = (plan.units, plan.groups, plan.paths, plan.entries,
+                    plan.warp_start, plan.items, plan.col_start,
+                    plan.col_parts, plan.coef)
+        assert meta[0] == len(plan.entries)
+        assert meta[-2] == len(plan.coef) and meta[-1] == len(flat)
+        for off, arr in zip(meta[1:-2], sections):
+            arr = arr.reshape(-1)
+            assert np.array_equal(flat[off:off + len(arr)], arr), name
+        assert meta[6] % 2 == 0 and meta[9] % 4 == 0
+        assert (plan.paths[:, 3] % 4 == 0).all()
+        assert (plan.paths[:, 4] % 4 == 0).all()
+        assert plan.b_row % 4 == 0
+        assert len(plan.coef) == (0 if mode != 'sh' else sum(
+            -(-len(cg_tables.w3j_pattern(g.d1, g.d2, p.d_out)) // 4) * 4
+            for g in tl.groups for p in g.paths))
+
+
+@pytest.mark.parametrize('l1', [0, 1, 2, 3])
+def test_w3j_pattern_holds_every_coupling(l1):
+    """The selection rule cg_quad.cu compiles in: it holds every nonzero
+    of each real-basis Wigner-3j block with l1 and l2, l3 <= 3, and is
+    exactly the nonzero set for l <= 2."""
+    from sevennet_finetuning_tpu_torch.ops.wigner import wigner_3j
+
+    for l2 in range(4):
+        for l3 in range(abs(l1 - l2), min(l1 + l2, 3) + 1):
+            nz = {tuple(int(v) for v in e) for e in np.argwhere(
+                np.abs(np.asarray(wigner_3j(l1, l2, l3))) > 1e-12)}
+            pat = set(cg_tables.w3j_pattern(2 * l1 + 1, 2 * l2 + 1,
+                                            2 * l3 + 1))
+            assert nz <= pat, (l1, l2, l3)
+            if max(l1, l2, l3) <= 2:
+                assert nz == pat, (l1, l2, l3)
+
+
+@pytest.mark.parametrize('bad', ['mode', 'tile', 'warps', 'stages'])
+def test_quad_plan_rejects_bad_launch(bad):
+    _, tl = _layouts(SMALL)
+    args = dict(mode='msg', tile=2, warps=4, stages=2)
+    args[bad] = {'mode': 'agg', 'tile': 0, 'warps': 17, 'stages': 1}[bad]
+    with pytest.raises(ValueError, match='cg_quad'):
+        plan = cg_tables.quad_plan(tl, args['mode'], args['tile'],
+                                   args['warps'])
+        cg_tables.quad_smem(tl, args['mode'], cg_tables.QuadConfig(
+            args['tile'], args['stages'], args['warps']), plan)
 
 
 # ---------------------------------------------------------------------------
@@ -616,7 +948,7 @@ def test_run_blocks_refuses_unported_paths(narrow):
         run_blocks(spec, *args, exchange_fn=lambda v: v)
     with pytest.raises(NotImplementedError, match='A.8'):
         run_blocks(spec, *args, halo_split={})
-    with pytest.raises(NotImplementedError, match='A.5'):
+    with pytest.raises(NotImplementedError, match='A.3'):
         run_blocks(spec, *args, remat=True)
     for kind in ({'block_type': 'mace'}, {'block_type': 'custom'},
                  {'conv_kind': 'gaunt'}):
