@@ -14,7 +14,11 @@ and exits non-zero if any fails:
               against its plain version (bit for bit; the column sum
               within 2e-6 x the column's sum of |x| and the same bits in
               two launches, the wgmma product within 2e-6 x max|plain|)
-              and timed with its library call;
+              and timed with its library call (CUDA events and profiler
+              device us a call, each beside the library call's); the
+              tiled copy at every em / fm tile of the TPU sweep and the
+              ring at every shape of ``bench_dma.ring_variants``, each
+              case beside ``torch.mul`` and each row's worst factor;
               then both tools' ``main()`` as a user runs them, with the
               launch counts set to 0 before: the feature probes' OK lines
               and the bench sweep's GB/s table with the card line;
@@ -93,6 +97,7 @@ prints how far the card's and the JAX-CPU golden's loss trajectories and
 first-step gradients lie from the float64 ones (several minutes of CPU).
 """
 
+import itertools
 import json
 import subprocess
 import sys
@@ -158,6 +163,9 @@ SOURCES.update({
                          replaces='tools/test_mosaic_feats.py:123'),
 })
 PROBES = tuple(k for k in SOURCES if k.startswith('probe_'))
+# the case of a probe row that the kernels line reports (its table case)
+PROBE_CASE = {'probe_copy_tiled': 'em te=256',
+              'probe_copy_ring': 'rows=8 slots=4 split=2'}
 # the kernels each path must launch (the others it must not)
 PATH_KERNELS = {
     'serve': ('segment_sum', 'cg_agg', 'cg_multi'),
@@ -367,30 +375,52 @@ def phase_probes():
     nbytes = B.E * B.D * 4
 
     def slab_ms(fn):
-        return B.time_ms(lambda i: fn(i % B.N_SLABS), n_it=PROBE_IT)
+        return B.time_ms(lambda i: fn(i % B.N_SLABS))
+
+    def slab_device_us(fn):
+        turn = itertools.count()
+        return device_us_per_call(lambda: fn(next(turn) % B.N_SLABS))
 
     log(f'[probes] slabs of {B.E} x {B.D} float32 ({nbytes} bytes), '
         f'{B.N_SLABS} in turn')
     rows = {}
+    # warm-up: the card's clocks, the slabs' first touch
+    slab_ms(lambda i: torch.mul(xs[i], B.C, out=ys[i]))
 
-    # 8a: tiled copy, row tiles (em) and column strips (fm)
-    cases = []
-    for te, fm in ((256, False), (256, True)):
-        shape = (B.D, B.E) if fm else (B.E, B.D)
-        xv = [x.view(shape) for x in xs]
-        yv = [y.view(shape) for y in ys]
-        label = f'{"fm" if fm else "em"} te={te}'
-        err = compare(f'probe_copy_tiled {label}',
-                      B.copy_tiled_cuda(xv[0], te, fm),
+    def copy_case(name, label, xv, yv, kern):
+        """One case of 8a / 8c: kern(x, out=None) bit for bit against the
+        plain version, then timed beside torch.mul on the same slabs
+        (CUDA events over B.N_IT launches, profiler device us a call)."""
+        err = compare(f'{name} {label}', kern(xv[0]),
                       B.copy_tiled_plain(xv[0]), 0.0)
         b_ms, b_by = bound_ms(2 * nbytes, B.E * B.D)
-        cases.append(dict(
-            shape=f'{label}: [{shape[0]}, {shape[1]}] f32', max_abs_err=err,
-            ms=slab_ms(lambda i: B.copy_tiled_cuda(xv[i], te, fm,
-                                                   out=yv[i])),
-            plain_ms=slab_ms(lambda i: B.copy_tiled_plain(xv[i])),
+        case = dict(
+            shape=f'{label}: [{xv[0].shape[0]}, {xv[0].shape[1]}] f32',
+            max_abs_err=err,
             library_ms=slab_ms(lambda i: torch.mul(xv[i], B.C, out=yv[i])),
-            bound_ms=b_ms, bound_by=b_by))
+            ms=slab_ms(lambda i: kern(xv[i], out=yv[i])),
+            plain_ms=slab_ms(lambda i: B.copy_tiled_plain(xv[i])),
+            library_device_us=slab_device_us(
+                lambda i: torch.mul(xv[i], B.C, out=yv[i])),
+            device_us=slab_device_us(lambda i: kern(xv[i], out=yv[i])),
+            bound_ms=b_ms, bound_by=b_by)
+        case['factor'] = case['ms'] / case['library_ms']
+        if case['device_us'] and case['library_device_us']:
+            case['device_factor'] = (case['device_us']
+                                     / case['library_device_us'])
+        return case
+
+    # 8a: tiled copy at every tile of the TPU sweep, row tiles (em) and
+    # column strips (fm)
+    cases = []
+    for te, fm in ([(te, False) for te in B.EM_TILES]
+                   + [(te, True) for te in B.FM_TILES]):
+        shape = (B.D, B.E) if fm else (B.E, B.D)
+        cases.append(copy_case(
+            'probe_copy_tiled', f'{"fm" if fm else "em"} te={te}',
+            [x.view(shape) for x in xs], [y.view(shape) for y in ys],
+            lambda x, out=None, te=te, fm=fm: B.copy_tiled_cuda(
+                x, te, fm, out=out)))
     rows['probe_copy_tiled'] = cases
 
     # 8b: column sum, within 2e-6 x the column's sum of |x|
@@ -417,29 +447,28 @@ def phase_probes():
             shape=f'te={te}: [{B.E}, {B.D}] -> [1, {B.D}]', max_abs_err=err,
             bit_identical=True,
             device_us=device_us_per_call(lambda: B.colsum_cuda(xs[0], te)),
+            library_device_us=device_us_per_call(
+                lambda: torch.sum(xs[0], 0, keepdim=True)),
             ms=slab_ms(lambda i: B.colsum_cuda(xs[i], te)),
             plain_ms=slab_ms(lambda i: B.colsum_plain(xs[i], te)),
             library_ms=slab_ms(lambda i: torch.sum(xs[i], 0, keepdim=True)),
             bound_ms=b_ms, bound_by=b_by))
     rows['probe_colsum'] = cases
 
-    # 8c: the bulk-copy ring
+    # 8c: the bulk-copy rings at every shape of the sweep
     cases = []
-    for v in ((16, 4, 2), (32, 2, 1)):
-        label = f'rows={v[0]} slots={v[1]} split={v[2]}'
-        err = compare(f'probe_copy_ring {label}',
-                      B.copy_ring_cuda(xs[0], *v),
-                      B.copy_tiled_plain(xs[0]), 0.0)
-        b_ms, b_by = bound_ms(2 * nbytes, B.E * B.D)
-        cases.append(dict(
-            shape=f'{label}: [{B.E}, {B.D}] f32, '
-                  f'{B.ring_smem_bytes(v[0], v[1])} bytes of shared memory',
-            max_abs_err=err,
-            ms=slab_ms(lambda i: B.copy_ring_cuda(xs[i], *v, out=ys[i])),
-            plain_ms=slab_ms(lambda i: B.copy_tiled_plain(xs[i])),
-            library_ms=slab_ms(lambda i: torch.mul(xs[i], B.C, out=ys[i])),
-            bound_ms=b_ms, bound_by=b_by))
+    for v in B.ring_variants():
+        cases.append(copy_case(
+            'probe_copy_ring', f'rows={v[0]} slots={v[1]} split={v[2]}',
+            xs, ys,
+            lambda x, out=None, v=v: B.copy_ring_cuda(x, *v, out=out)))
+        cases[-1]['smem_bytes'] = B.ring_smem_bytes(v[0], v[1])
     rows['probe_copy_ring'] = cases
+    for name in ('probe_copy_tiled', 'probe_copy_ring'):
+        worst = max(rows[name], key=lambda c: c['factor'])
+        log(f'  {name}: worst factor against torch.mul {worst["factor"]:.3f} '
+            f'({worst["shape"]}), best '
+            f'{min(c["factor"] for c in rows[name]):.3f}')
 
     # 9a-9d at the TPU probe's shapes
     t = {k: torch.as_tensor(v, device=dev)
@@ -450,8 +479,9 @@ def phase_probes():
     wbytes = y.shape[0] // H.N_WINDOWS * y.shape[1] * 4
     m, k_dim, n_te = a.shape[1], a.shape[0], b.shape[1]
     probes = (
+        # the kernel and its library call both write into xt
         ('probe_transpose', f'[{x.shape[0]}, {x.shape[1]}] f32',
-         0.0, lambda: H.transpose_cuda(x),
+         0.0, lambda: H.transpose_cuda(x, out=xt),
          lambda: H.transpose_plain(x), lambda: xt.copy_(x.t()),
          (2 * 4 * x.numel(), 0, FP32_FLOP_PER_S)),
         # read x, write the f32 sum and three bf16 parts; ~9 fp32
@@ -476,20 +506,31 @@ def phase_probes():
     for name, shape, tol, kern, plain, library, (nb, nf, peak) in probes:
         err = compare(f'{name} [{shape}]', kern(), plain(), tol)
         b_ms, b_by = bound_ms(nb, nf, peak)
-        rows[name] = [dict(
+        case = dict(
             shape=shape, max_abs_err=err, ms=cuda_ms(kern, iters=PROBE_IT),
             plain_ms=cuda_ms(plain, iters=PROBE_IT),
             library_ms=None if library is None else cuda_ms(
                 library, iters=PROBE_IT),
-            bound_ms=b_ms, bound_by=b_by)]
+            device_us=device_us_per_call(kern),
+            library_device_us=None if library is None else
+            device_us_per_call(library),
+            bound_ms=b_ms, bound_by=b_by)
+        if case['device_us'] and case['library_device_us']:
+            case['device_factor'] = (case['device_us']
+                                     / case['library_device_us'])
+        rows[name] = [case]
 
     for name, cases in rows.items():
         for c in cases:
             lib = ('n/a' if c['library_ms'] is None
                    else f'{c["library_ms"]:.4f} ms')
+            dev = ''
+            if 'device_us' in c:
+                dev = (f'; device us a call {c["device_us"]}, library '
+                       f'{c.get("library_device_us")}')
             log(f'  {name} [{c["shape"]}]: kernel {c["ms"]:.4f} ms, plain '
                 f'{c["plain_ms"]:.4f} ms, library {lib}, bound '
-                f'{c["bound_ms"] * 1e3:.2f} us ({c["bound_by"]})')
+                f'{c["bound_ms"] * 1e3:.2f} us ({c["bound_by"]}){dev}')
 
     # the probes' own entry points, as a user runs them
     torch.cuda.synchronize()
@@ -1592,11 +1633,15 @@ def main():
             if path_counts[path].get(name, 0) == 0:
                 raise AssertionError(f'{name} was never launched on the '
                                      f'{path} path')
-    # the probes' rows: the first case (em te=256, te=256, the ring of 16
-    # rows, 4 slots, split 2, the feature probes' only case)
+    # the probes' rows: the case of PROBE_CASE (em te=256; the ring of 8
+    # rows, 4 slots, split 2), else the first (te=256, the feature
+    # probes' only case); 8a and 8c also give their worst factor against
+    # torch.mul over the sweep
     kernels = []
     for name, cases in {**rows, **probe_rows}.items():
-        c = (cases[2] if name == 'segment_sum' else cases[0]
+        c = (cases[2] if name == 'segment_sum' else
+             next(c for c in cases
+                  if c['shape'].startswith(PROBE_CASE.get(name, '')))
              if name in PROBES else
              next(c for c in cases if c['shape'].startswith('block 1')))
         kernels.append(dict(
@@ -1609,6 +1654,8 @@ def main():
             plain_ms=c['plain_ms'], bound_ms=c['bound_ms'],
             bound_by=c['bound_by'], library_ms=c['library_ms'],
             shape=c['shape'], cases=cases))
+        if 'factor' in c:
+            kernels[-1]['worst_factor'] = max(k['factor'] for k in cases)
     print(card, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -66,7 +66,7 @@ SIGNATURES = {
                          (_P, _P, _I, _I, _I, _I, _F, _P)),
     'probe_colsum': ('probe_colsum_f32', (_P, _P, _P, _I, _I, _I, _I, _P)),
     'probe_copy_ring': ('probe_copy_ring_f32',
-                        (_P, _P, _I, _I, _I, _I, _I, _I, _F, _P)),
+                        (_P, _P, _I, _I, _I, _I, _I, _F, _P)),
     'probe_transpose': ('probe_transpose_f32', (_P, _P, _I, _I, _P)),
     'probe_split': ('probe_split_f32', (_P, _P, _P, _I, _P)),
     'probe_dot': ('probe_dot_bf16x3_f32', (_P, _P, _P, _I, _I, _I, _P)),

@@ -21,14 +21,18 @@ is then 1.  The card is required: there is no CPU path.
 
 Kernels (``csrc/probe_copy.cu``), each wrapper beside its plain version:
 
-- ``copy_tiled``: y = x * C, one block per row tile or column strip
-  (``bs_copy``, bench_dma.py:84);
+- ``copy_tiled``: y = x * C over chunks of ``COPY_THREADS x COPY_DEPTH``
+  float4s of the row tiles or column strips, numbered in tile order, a
+  grid sized to the card (``bs_copy``, bench_dma.py:84);
+  ``tiled_chunks`` lays the chunks out;
 - ``colsum``: the column sum in two passes, slabs of rows by bands of
   columns, then the slabs' partial rows (``bs_read``, :109);
   ``colsum_stripes`` lays out its first pass;
-- ``copy_ring``: y = x * C through an S-slot ring of bulk copies in
-  shared memory (``manual_copy``, :167); ``ring_variants`` plans the
-  shapes that fit a block's shared memory.
+- ``copy_ring``: y = x * C through an input ring and an output ring in
+  shared memory, each tile in ``split`` tensor-map bulk copies (one box
+  a TPU column copy), a loading warp, a storing warp and consumer warps
+  (``manual_copy``, :167); ``ring_variants`` plans the shapes that fit a
+  block's shared memory, ``ring_box`` the copies' box.
 """
 
 from __future__ import annotations
@@ -48,8 +52,13 @@ C = 1.0000001
 N_SLABS = 3                # 3 x 2 x 66 MB between two uses of a slab
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 SMEM_BYTES = 232448        # shared memory one block may use (227 KB)
-RING_HEADER = 128          # bytes before the ring's tiles: its mbarriers
-RING_MAX_SLOTS = RING_HEADER // 8
+RING_MAX_SLOTS = 16
+# bytes before the two rings: three mbarriers a slot (full, done, vacant)
+RING_HEADER = 3 * 8 * RING_MAX_SLOTS
+# the tiled copy: threads a block, 16-byte loads in flight a thread
+# (csrc/probe_copy.cu COPY_THREADS, COPY_DEPTH), a chunk one of each
+COPY_THREADS = 256
+COPY_DEPTH = 4
 EM_TILES = (128, 256, 512, 1024)
 FM_TILES = (256, 512)
 READ_TILES = (256, 512)
@@ -58,11 +67,14 @@ READ_TILES = (256, 512)
 # (84 x 6 = 504 blocks at E x D: several a streaming multiprocessor)
 COLSUM_SLAB_ROWS = 256
 COLSUM_WARPS = 8
-# ring shapes tried, (rows per tile, slots, copies per tile row); the
-# planner keeps those that fit
-RING_CANDIDATES = tuple((rows, slots, 1) for rows in (8, 16, 32, 64)
+# ring shapes tried, (rows per tile, slots, column copies a tile); the
+# planner keeps those that fit.  Two rings share the 227 KB, so a tile
+# has half the rows the one-ring design gave the same slots; (8, 4, 2)
+# and (16, 2, 1) take the shared memory of its table cases (16, 4, 2)
+# and (32, 2, 1)
+RING_CANDIDATES = tuple((rows, slots, 1) for rows in (4, 8, 16)
                         for slots in (2, 3, 4)) + (
-    (16, 4, 2), (16, 4, 4), (32, 2, 4))
+    (8, 4, 2), (8, 4, 4), (16, 2, 4), (4, 4, 2))
 
 
 def copy_tiled_plain(x: torch.Tensor) -> torch.Tensor:
@@ -70,15 +82,42 @@ def copy_tiled_plain(x: torch.Tensor) -> torch.Tensor:
     return x * C
 
 
+def tiled_region(rows: int, cols: int, te: int, fm: bool, tile: int):
+    """Tile ``tile`` of x [rows, cols] in float4s, as the tiled copy takes
+    it: (first float4, row width, row stride, float4s).  em: ``te``
+    contiguous rows; fm: ``te`` columns of every row."""
+    cols4 = cols // 4
+    if fm:
+        return tile * (te // 4), te // 4, cols4, rows * (te // 4)
+    return tile * te * cols4, cols4, cols4, te * cols4
+
+
+def tiled_chunks(rows: int, cols: int, te: int, fm: bool, grid: int):
+    """The tiled copy's chunks as the kernel takes them: (block, tile,
+    first, end) in the tile's row-major float4 order (``tiled_region``),
+    each tile cut into chunks of ``COPY_THREADS x COPY_DEPTH`` float4s
+    (the last shorter), numbered tile by tile; chunk q goes to block q %
+    grid."""
+    chunk = COPY_THREADS * COPY_DEPTH
+    n_tiles = (cols if fm else rows) // te
+    tile_n = tiled_region(rows, cols, te, fm, 0)[3]
+    per_tile = -(-tile_n // chunk)
+    return [(q % grid, q // per_tile, (q % per_tile) * chunk,
+             min(tile_n, (q % per_tile + 1) * chunk))
+            for q in range(n_tiles * per_tile)]
+
+
 def copy_tiled_cuda(x: torch.Tensor, te: int, fm: bool = False,
                     out: torch.Tensor = None) -> torch.Tensor:
-    """y = x * C by the kernel: one block per ``te`` rows of x [R, K] or,
-    with ``fm``, per ``te`` columns."""
+    """y = x * C by the kernel over the ``te``-row tiles of x [R, K] or,
+    with ``fm``, its ``te``-column strips, in chunks spread over a grid
+    sized to the card."""
     _cuda.require(x, 'x', torch.float32)
     rows, cols = x.shape
     if te <= 0 or (cols if fm else rows) % te or cols % 4 or (fm and te % 4):
         raise ValueError(f'copy_tiled: tile {te} does not divide '
                          f'{tuple(x.shape)} ({"fm" if fm else "em"})')
+    x = _cuda.aligned16(x)
     out = torch.empty_like(x) if out is None else out
     _cuda.require(out, 'out', torch.float32, x.shape)
     fn = _cuda.kernel('probe_copy_tiled')
@@ -148,20 +187,33 @@ def colsum(x: torch.Tensor, te: int) -> torch.Tensor:
 
 
 def ring_smem_bytes(rows: int, slots: int, cols: int = D) -> int:
-    """Shared memory of one ring block: the mbarriers, then the slots."""
-    return RING_HEADER + slots * rows * cols * 4
+    """Shared memory of one ring block: the mbarriers, then the input
+    ring's slots, then the output ring's."""
+    return RING_HEADER + 2 * slots * rows * cols * 4
+
+
+def ring_box(cols: int, split: int) -> int:
+    """The width w of the ring's tensor-map box for copies of ``cols /
+    split`` columns: the widest of 64 .. 4 floats (16-byte multiples) that
+    divides a copy in at most 256 steps (a box dimension's limit); 0 if
+    none does.  A copy is the box (w, piece / w, rows)."""
+    piece = cols // split
+    return next((w for w in (64, 32, 16, 8, 4)
+                 if piece % w == 0 and piece // w <= 256), 0)
 
 
 def ring_fits(rows: int, slots: int, split: int, n_rows: int = E,
               cols: int = D) -> bool:
     """Whether the card takes this ring shape: tiles divide the slab,
-    2 <= slots <= RING_MAX_SLOTS, each bulk copy is a multiple of 16
-    bytes (so every copy stays 16-byte aligned), and the slots fit a
-    block's shared memory."""
-    return (rows > 0 and n_rows % rows == 0
+    2 <= slots <= RING_MAX_SLOTS, at most 32 copies a tile (a lane each)
+    of a tensor-map box (``ring_box``; at most 256 rows), every copy's
+    place in shared memory 128-byte aligned, and both rings fit a block's
+    shared memory."""
+    return (0 < rows <= 256 and n_rows % rows == 0
             and 2 <= slots <= RING_MAX_SLOTS
-            and split > 0 and cols % split == 0
-            and (cols // split * 4) % 16 == 0
+            and 0 < split <= 32 and cols % split == 0
+            and ring_box(cols, split) > 0
+            and rows * (cols // split) * 4 % 128 == 0
             and ring_smem_bytes(rows, slots, cols) <= SMEM_BYTES)
 
 
@@ -173,21 +225,22 @@ def ring_variants() -> List[Tuple[int, int, int]]:
 
 def copy_ring_cuda(x: torch.Tensor, rows: int, slots: int, split: int = 1,
                    out: torch.Tensor = None) -> torch.Tensor:
-    """y = x * C by the bulk-copy ring: tiles of ``rows`` rows, ``slots``
-    slots, each tile row in ``split`` copies; one block per SM."""
+    """y = x * C by the bulk-copy rings: tiles of ``rows`` rows, ``slots``
+    slots a ring, each tile in ``split`` column copies; as many blocks as
+    the card holds at that shared memory."""
     _cuda.require(x, 'x', torch.float32)
     n_rows, cols = x.shape
     if not ring_fits(rows, slots, split, n_rows, cols):
         raise ValueError(f'copy_ring: shape rows={rows} slots={slots} '
                          f'split={split} does not fit {tuple(x.shape)}')
+    x = _cuda.aligned16(x)
     out = torch.empty_like(x) if out is None else out
     _cuda.require(out, 'out', torch.float32, x.shape)
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     fn = _cuda.kernel('probe_copy_ring')
     _cuda.LAUNCHES['probe_copy_ring'] += 1
     _cuda.check('probe_copy_ring', fn(
-        x.data_ptr(), out.data_ptr(), n_rows, cols, rows, slots, split,
-        n_sm, C, _cuda.stream_ptr(x.device)))
+        x.data_ptr(), out.data_ptr(), n_rows, cols, rows, slots, split, C,
+        _cuda.stream_ptr(x.device)))
     return out
 
 
@@ -252,9 +305,9 @@ def sweep(device: torch.device) -> Tuple[Dict[str, object], List[str]]:
         if n_bytes is None:
             results[name] = ms * 1e3
             print(f'{name:38s} {ms * 1e3:8.3f} us per launch', flush=True)
-        else:
-            results[name] = n_bytes / (ms * 1e-3) / 1e9
-            print(f'{name:38s} {results[name]:8.1f} GB/s', flush=True)
+            return
+        results[name] = n_bytes / (ms * 1e-3) / 1e9
+        print(f'{name:38s} {results[name]:8.1f} GB/s', flush=True)
 
     def exact(fn, x, want):
         def check():
@@ -264,6 +317,9 @@ def sweep(device: torch.device) -> Tuple[Dict[str, object], List[str]]:
                                      f'max|diff| {(got - want).abs().max()}')
         return check
 
+    def mul(i):
+        return torch.mul(xs[i % N_SLABS], C, out=ys[i % N_SLABS])
+
     # ---- overhead control: one tiny launch, ~zero traffic ----
     tiny = torch.ones(8, 128, device=device)
     tiny_out = torch.empty_like(tiny)
@@ -272,8 +328,8 @@ def sweep(device: torch.device) -> Tuple[Dict[str, object], List[str]]:
         exact(lambda t: copy_tiled_cuda(t, 8), tiny, copy_tiled_plain(tiny)))
 
     # ---- PyTorch controls (the TPU sweep's XLA controls) ----
-    run('torch_mul', lambda i: torch.mul(xs[i % N_SLABS], C,
-                                         out=ys[i % N_SLABS]), 2 * nbytes)
+    time_ms(mul)              # warm-up: the card's clocks, the caches
+    run('torch_mul', mul, 2 * nbytes)
     # x + x.sum() * 1e-30: two kernels, three passes over the slab;
     # counted at the two the function needs, as the TPU sweep counted it
     run('torch_copy_plus_reduce',
@@ -281,6 +337,7 @@ def sweep(device: torch.device) -> Tuple[Dict[str, object], List[str]]:
                             out=ys[i % N_SLABS]), 2 * nbytes)
 
     want = copy_tiled_plain(xs[0])
+    want_t = copy_tiled_plain(xts[0])
     # ---- tiled copy: row tiles (em) and column strips (fm) ----
     for te in EM_TILES:
         run(f'cuda_tiled_em_te{te}',
@@ -288,7 +345,6 @@ def sweep(device: torch.device) -> Tuple[Dict[str, object], List[str]]:
                                              out=ys[i % N_SLABS]),
             2 * nbytes, exact(lambda x, te=te: copy_tiled_cuda(x, te),
                               xs[0], want))
-    want_t = copy_tiled_plain(xts[0])
     for te in FM_TILES:
         run(f'cuda_tiled_fm_te{te}',
             lambda i, te=te: copy_tiled_cuda(xts[i % N_SLABS], te, fm=True,
@@ -308,15 +364,14 @@ def sweep(device: torch.device) -> Tuple[Dict[str, object], List[str]]:
             lambda i, te=te: colsum_cuda(xs[i % N_SLABS], te), nbytes, check)
 
     # ---- bulk-copy ring ----
-    for rows, slots, split in ring_variants():
-        name = f'cuda_ring_r{rows}_s{slots}' + (
-            f'_split{split}' if split > 1 else '')
+    for v in ring_variants():
+        name = f'cuda_ring_r{v[0]}_s{v[1]}' + (
+            f'_split{v[2]}' if v[2] > 1 else '')
         run(name,
-            lambda i, v=(rows, slots, split): copy_ring_cuda(
-                xs[i % N_SLABS], *v, out=ys[i % N_SLABS]),
-            2 * nbytes,
-            exact(lambda x, v=(rows, slots, split): copy_ring_cuda(x, *v),
-                  xs[0], want))
+            lambda i, v=v: copy_ring_cuda(xs[i % N_SLABS], *v,
+                                          out=ys[i % N_SLABS]),
+            2 * nbytes, exact(lambda x, v=v: copy_ring_cuda(x, *v),
+                              xs[0], want))
     return results, failures
 
 

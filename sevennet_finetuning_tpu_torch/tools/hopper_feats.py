@@ -69,10 +69,14 @@ def transpose_plain(x: torch.Tensor) -> torch.Tensor:
     return x.t().contiguous()
 
 
-def transpose_cuda(x: torch.Tensor) -> torch.Tensor:
+def transpose_cuda(x: torch.Tensor, out: torch.Tensor = None
+                   ) -> torch.Tensor:
+    """x.T by the kernel, into ``out`` where given."""
     _cuda.require(x, 'x', torch.float32)
     rows, cols = x.shape
-    out = torch.empty((cols, rows), dtype=x.dtype, device=x.device)
+    if out is None:
+        out = torch.empty((cols, rows), dtype=x.dtype, device=x.device)
+    _cuda.require(out, 'out', torch.float32, (cols, rows))
     fn = _cuda.kernel('probe_transpose')
     _cuda.LAUNCHES['probe_transpose'] += 1
     _cuda.check('probe_transpose', fn(x.data_ptr(), out.data_ptr(), rows,

@@ -250,12 +250,68 @@ def slab():
     return _rng(0).standard_normal((E, D)).astype(np.float32)
 
 
-@pytest.mark.parametrize('te,fm', [(128, False), (256, False), (256, True)])
+@pytest.mark.parametrize('te,fm', [(128, False), (256, False), (512, False),
+                                   (1024, False), (256, True), (512, True)])
 def test_copy_tiled_plain_matches_pallas(slab, te, fm):
     arr = slab.T.copy() if fm else slab
     want = np.asarray(bs_copy(te, arr, fm)(jnp.asarray(arr)))
     got = bench_dma.copy_tiled(torch.as_tensor(arr), te, fm).numpy()
     assert np.array_equal(got, want)
+
+
+TILED_SHAPES = ([(bench_dma.E, bench_dma.D, te, False)
+                 for te in bench_dma.EM_TILES]
+                + [(bench_dma.D, bench_dma.E, te, True)
+                   for te in bench_dma.FM_TILES]
+                # rows or tiles that are not a multiple of a chunk
+                + [(1000, 2048, 256, True), (48, 764, 8, False),
+                   (96, 1200, 16, False),
+                   # rows of 7, 255, 257, 300 and 512 float4s: a thread's
+                   # step of COPY_THREADS float4s wraps the row in every
+                   # way (several rows, none, one and a part)
+                   (24, 56, 28, True), (30, 1020, 10, False),
+                   (64, 1028, 16, False), (40, 2400, 1200, True),
+                   (12, 2048, 4, False)])
+
+
+@pytest.mark.parametrize('rows,cols,te,fm', TILED_SHAPES)
+def test_tiled_chunks_cover_every_element_once(rows, cols, te, fm):
+    """probe_copy_tiled's chunks (``tiled_chunks``): chunks of at most
+    COPY_THREADS x COPY_DEPTH float4s numbered tile by tile (the TPU's
+    tile order), chunk q on block q % grid; each thread walks its chunk
+    as copy_tiled_kernel does (from j0, COPY_THREADS float4s on as step_r
+    rows and step_c float4s, wrapping the column), lands where the
+    tile's row-major order puts j, and every float4 of the slab is
+    copied once; at the TPU sweep's tiles and at shapes whose tiles are
+    not a multiple of a chunk."""
+    grid = 1056
+    threads, depth = bench_dma.COPY_THREADS, bench_dma.COPY_DEPTH
+    chunk = threads * depth
+    chunks = bench_dma.tiled_chunks(rows, cols, te, fm, grid)
+    for q, (block, tile, j0, j1) in enumerate(chunks):
+        assert block == q % grid and 0 < j1 - j0 <= chunk
+        assert q == 0 or (tile, j0) > chunks[q - 1][1:3]
+        assert j0 % chunk == 0
+    _, width4, stride4, n = bench_dma.tiled_region(rows, cols, te, fm, 0)
+    base = np.array([bench_dma.tiled_region(rows, cols, te, fm, t)[0]
+                     for _, t, _, _ in chunks])[:, None]
+    assert max(j1 for *_, j1 in chunks) == n
+    # the kernel's walk: every thread of every chunk at once
+    step_r, step_c = threads // width4, threads % width4
+    j0 = np.array([c[2] for c in chunks])[:, None] + np.arange(threads)
+    r, col = j0 // width4, j0 % width4
+    at = []
+    for d in range(depth):
+        j = j0 + d * threads
+        live = j < n
+        assert np.array_equal((r * stride4 + col)[live],
+                              (j // width4 * stride4 + j % width4)[live])
+        at.append((base + r * stride4 + col)[live])
+        r, col = r + step_r, col + step_c
+        wrap = col >= width4
+        r, col = r + wrap, col - wrap * width4
+    count = np.bincount(np.concatenate(at), minlength=rows * cols // 4)
+    assert count.shape == (rows * cols // 4,) and (count == 1).all()
 
 
 @pytest.mark.parametrize('te', [256, 512])
@@ -314,9 +370,11 @@ def test_colsum_stripe_order_within_tolerance(slab, rows):
 @pytest.mark.parametrize('te,S,split', [(256, 2, 1), (256, 4, 2)])
 def test_copy_ring_plain_matches_pallas(slab, te, S, split):
     want = np.asarray(manual_copy(te, S, split)(jnp.asarray(slab)))
-    # the card's ring takes tiles of a few rows (227 KB of shared
+    # the card's two rings take tiles of a few rows (227 KB of shared
     # memory); the function is the same
-    got = bench_dma.copy_ring(torch.as_tensor(slab), 16, S, split)
+    rows = 16 if S == 2 else 8
+    assert bench_dma.ring_fits(rows, S, split, E, D)
+    got = bench_dma.copy_ring(torch.as_tensor(slab), rows, S, split)
     assert np.array_equal(got.numpy(), want)
 
 
@@ -324,15 +382,25 @@ def test_ring_planner_fits_the_card():
     variants = bench_dma.ring_variants()
     assert len(variants) >= 8
     assert any(split > 1 for _, _, split in variants)
+    # the TPU sweep's split shapes, at the shared memory of the one-ring
+    # design's table cases (16, 4, 2) and (32, 2, 1)
+    assert {(8, 4, 2), (8, 4, 4), (16, 2, 1)} <= set(variants)
     for rows, slots, split in variants:
-        assert bench_dma.ring_smem_bytes(rows, slots) <= 232448
-        assert (bench_dma.D // split * 4) % 16 == 0
-        assert bench_dma.D % split == 0
+        # a header of three mbarriers a slot, then two rings of slots
+        assert bench_dma.ring_smem_bytes(rows, slots) == (
+            24 * bench_dma.RING_MAX_SLOTS + 2 * slots * rows * bench_dma.D
+            * 4) <= 232448
+        piece = bench_dma.D // split
+        w = bench_dma.ring_box(bench_dma.D, split)
+        assert piece % w == 0 and piece // w <= 256 and w * 4 % 16 == 0
+        assert rows * piece * 4 % 128 == 0 and split <= 32
         assert bench_dma.E % rows == 0
         assert 2 <= slots <= bench_dma.RING_MAX_SLOTS
-    # the TPU's own tiles do not fit a block's shared memory
+    # the TPU's own tiles do not fit a block's shared memory, nor do the
+    # one-ring design's tiles now that there are two rings
     assert not bench_dma.ring_fits(256, 2, 1)
-    assert not bench_dma.ring_fits(32, 3, 1)
+    assert not bench_dma.ring_fits(32, 2, 1)
+    assert not bench_dma.ring_fits(16, 4, 2)
     assert not bench_dma.ring_fits(16, 1, 1)       # a ring needs two slots
     assert not bench_dma.ring_fits(100, 2, 1)      # 100 does not divide E
 
@@ -341,6 +409,143 @@ def test_ring_planner_rejects_unaligned_copies():
     # 764 columns in 2 copies: 1528 bytes each, not a multiple of 16
     assert not bench_dma.ring_fits(8, 2, 2, n_rows=64, cols=764)
     assert bench_dma.ring_fits(8, 2, 1, n_rows=64, cols=764)
+    assert bench_dma.ring_box(764, 1) == 4      # 191 boxes of 16 bytes
+    # a copy's rows x piece not a multiple of 128 bytes in shared memory
+    assert not bench_dma.ring_fits(1, 2, 1, n_rows=64, cols=764)
+    # a copy wider than 256 x 64 floats has no box
+    assert bench_dma.ring_box(20480, 1) == 0
+    assert not bench_dma.ring_fits(1, 2, 1, n_rows=64, cols=20480)
+    assert not bench_dma.ring_fits(8, 2, 64, n_rows=64, cols=4096)
+
+
+def _source_constants():
+    src = (_cuda.CSRC / 'probe_copy.cu').read_text()
+    out = {k: int(v) for k, v in re.findall(
+        r'constexpr int (\w+) = (\d+);', src)}
+    return src, out
+
+
+def test_probe_copy_layout_matches_source():
+    """The host mirrors (chunks, ring planner, the ring's protocol model)
+    use the source's constants: the tiled copy's threads and depth, the
+    ring's slot limit, header (three mbarriers a slot) and shared memory,
+    the box widths, the storing warp's wait for its store's read before
+    the slot's next tile, tile k + slots."""
+    src, k = _source_constants()
+    assert k['COPY_THREADS'] == bench_dma.COPY_THREADS
+    assert k['COPY_DEPTH'] == bench_dma.COPY_DEPTH
+    assert k['RING_MAX_SLOTS'] == bench_dma.RING_MAX_SLOTS
+    assert k['SMEM_MAX'] == bench_dma.SMEM_BYTES
+    assert 'constexpr int RING_HEADER = 3 * 8 * RING_MAX_SLOTS;' in src
+    assert bench_dma.RING_HEADER == 3 * 8 * bench_dma.RING_MAX_SLOTS
+    assert 'for (int w = 64; w >= 4; w /= 2)' in src
+    assert 'piece / w <= 256' in src
+    assert 'cp.async.bulk.wait_group.read 0;' in src
+    assert 'if (lane == 0) mbar_arrive(&vacant[k % slots]);' in src
+
+
+def _ring_run(n_local, slots, p_load, p_read, rng):
+    """A random interleaving of copy_ring_kernel's warps over one block's
+    n_local tiles: the loading warp, the storing warp, the consumers,
+    and the copy engine landing loads (chance p_load a turn)
+    and finishing stores' reads (p_read) at random later times.  Each
+    wait is an mbarrier parity wait: it must find the barrier at most one
+    phase past the one it waits for, or the card would wait forever.
+    Returns the order of stored tiles."""
+    full = [0] * slots      # completed phases of each mbarrier
+    done = [0] * slots
+    vacant = [0] * slots
+    inp = [None] * slots    # the tile each input / output slot holds
+    out = [None] * slots
+    loads, stores = [], []  # in flight: (tile, slot); stores in order
+    read = []               # tiles whose stores have read their slot
+    stored = []
+
+    def passes(bar, slot, phase):
+        assert bar[slot] <= phase + 1, 'a barrier ran two phases ahead'
+        return bar[slot] == phase + 1
+
+    def loader():
+        for k in range(min(slots, n_local)):
+            loads.append((k, k % slots))
+        for k in range(n_local - slots):
+            while not passes(done, k % slots, k // slots):
+                yield
+            # the consumers are done with input slot k % slots
+            loads.append((k + slots, k % slots))
+            yield
+
+    def storer():
+        for k in range(n_local):
+            while not passes(done, k % slots, k // slots):
+                yield
+            assert out[k % slots] == k
+            stores.append((k, k % slots))
+            stored.append(k)
+            if k + slots < n_local:
+                # wait_group.read 0: the store just issued has read the
+                # slot that tile k + slots takes next
+                while stores:
+                    yield
+                assert k in read
+                vacant[k % slots] += 1
+            yield
+
+    def consumers():
+        for k in range(n_local):
+            slot, lap = k % slots, k // slots
+            if lap > 0:
+                while not passes(vacant, slot, lap - 1):
+                    yield
+            while not passes(full, slot, lap):
+                yield
+            assert inp[slot] == k
+            # the store of tile k - slots has read the output slot
+            assert lap == 0 or k - slots in read
+            out[slot] = k
+            done[slot] += 1
+            yield
+
+    def engine():
+        while True:
+            if loads and rng.random() < p_load:
+                t, slot = loads.pop(0)
+                inp[slot] = t
+                full[slot] += 1
+            if stores and rng.random() < p_read:
+                read.append(stores.pop(0)[0])
+            yield
+
+    agents = [loader(), storer(), consumers()]
+    eng = engine()
+    for _ in range(100000):
+        if not agents:
+            break
+        a = agents[rng.integers(len(agents))]
+        try:
+            next(a)
+        except StopIteration:
+            agents.remove(a)
+        next(eng)
+    assert not agents, 'the ring did not finish: a deadlock'
+    return stored
+
+
+@pytest.mark.parametrize('slots', [2, 3, 4])
+@pytest.mark.parametrize('p_load,p_read', [(0.5, 0.5), (0.1, 0.9),
+                                           (0.9, 0.1)])
+def test_ring_protocol_runs_every_tile_once(slots, p_load, p_read):
+    """The ring's mbarrier protocol (full / done / vacant, the storing
+    warp's wait_group.read 0 before freeing tile k + slots's slot): no slot
+    rewritten before it is read, no barrier two phases ahead, every tile
+    stored once in order, in many random interleavings and tile counts,
+    with loads or stores' reads the slow side or neither."""
+    rng = _rng(slots * 100 + int(p_load * 10))
+    for n_local in (1, slots - 1, slots, slots + 1, 3 * slots + 2, 11):
+        for _ in range(20):
+            if n_local > 0:
+                assert _ring_run(n_local, slots, p_load, p_read,
+                                 rng) == list(range(n_local))
 
 
 # ---- row 9: the Hopper feature probes ----
