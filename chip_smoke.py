@@ -13,7 +13,9 @@ and exits non-zero if any fails:
               tools' shapes on numpy-seeded inputs (seed 0), each held
               against its plain version (bit for bit; the column sum
               within 2e-6 x the column's sum of |x| and the same bits in
-              two launches, the wgmma product within 2e-6 x max|plain|)
+              two launches, the wgmma product within 2e-6 x max|plain|;
+              the product and the window the same bits in two launches,
+              the window at selectors 0, 5 and 11 and zeros at 12)
               and timed with its library call (CUDA events and profiler
               device us a call, each beside the library call's); the
               tiled copy at every em / fm tile of the TPU sweep and the
@@ -294,22 +296,13 @@ def same_bits(name, fn):
     log(f'  {name}: two launches bit-identical')
 
 
-def device_us_per_call(fn, n=50):
-    """Device time per call of fn in microseconds: its device events
-    (kernels, fills) under torch.profiler over n calls, summed, / n;
-    None where the profiler records no device event."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def device_us_per_call(fn):
+    """Device us a call of fn (``bench_dma.device_us_per_call``), None
+    where the profiler records no device event."""
+    from sevennet_finetuning_tpu_torch.tools.bench_dma import (
+        device_us_per_call as us_per_call)
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = [r[2] * 1e3 for r in _device_rows(prof)]
-    return sum(us) / n if us else None
+    return us_per_call(fn)
 
 
 def host_us_per_call(fn, n=200):
@@ -505,6 +498,9 @@ def phase_probes():
     )
     for name, shape, tol, kern, plain, library, (nb, nf, peak) in probes:
         err = compare(f'{name} [{shape}]', kern(), plain(), tol)
+        fixed = name in ('probe_dot', 'probe_window')
+        if fixed:
+            same_bits(name, kern)
         b_ms, b_by = bound_ms(nb, nf, peak)
         case = dict(
             shape=shape, max_abs_err=err, ms=cuda_ms(kern, iters=PROBE_IT),
@@ -515,10 +511,21 @@ def phase_probes():
             library_device_us=None if library is None else
             device_us_per_call(library),
             bound_ms=b_ms, bound_by=b_by)
+        if fixed:
+            case['bit_identical'] = True
         if case['device_us'] and case['library_device_us']:
             case['device_factor'] = (case['device_us']
                                      / case['library_device_us'])
         rows[name] = [case]
+    # the window at the first, a middle and the last selector, bit for
+    # bit, and zeros for a selector out of range
+    for s in (0, 5, H.N_WINDOWS - 1, H.N_WINDOWS):
+        sv = torch.tensor([s], dtype=torch.int32, device=dev)
+        got = H.window_cuda(y, sv)
+        compare(f'probe_window sel={s}', got, H.window_plain(y, sv), 0.0)
+        if s == H.N_WINDOWS and bool(got.any()):
+            raise AssertionError('probe_window: a selector out of range '
+                                 'gave non-zeros')
 
     for name, cases in rows.items():
         for c in cases:
@@ -954,29 +961,6 @@ def phase_batch(calc, batch, n_real_edge):
         f'{n_real_edge / (ms / 1e3):.1f} edges/s ({n_real_edge} real edges)')
 
 
-def _self_device_us(evt):
-    for attr in ('self_device_time_total', 'self_cuda_time_total'):
-        v = getattr(evt, attr, None)
-        if v is not None:
-            return float(v)
-    return 0.0
-
-
-def _device_rows(prof):
-    """(key, count, ms) of the device's own events (kernels, copies,
-    fills).  CPU ops carry their kernels' time too and would count it
-    twice, and so would a user range (``record_function``: the
-    optimizer's ``Optimizer.step#Adam.step``) that the profiler also
-    lays on the device's timeline over the kernels it spans."""
-    avgs = prof.key_averages()
-    cpu_keys = {e.key for e in avgs
-                if not str(getattr(e, 'device_type', '')).endswith('CUDA')}
-    return [(e.key, e.count, _self_device_us(e) / 1e3) for e in avgs
-            if str(getattr(e, 'device_type', '')).endswith('CUDA')
-            and not getattr(e, 'is_user_annotation', False)
-            and e.key not in cpu_keys and _self_device_us(e) > 0]
-
-
 def kernel_family(key):
     """The entry point whose kernels a device kernel's name belongs to
     (``KERNEL_FAMILIES``), or None for PyTorch's own kernels."""
@@ -992,6 +976,7 @@ def profile_device(label, fn, top=12):
     from torch.profiler import ProfilerActivity, profile
 
     from sevennet_finetuning_tpu_torch.ops import _cuda
+    from sevennet_finetuning_tpu_torch.tools.bench_dma import device_rows
 
     before = dict(_cuda.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU,
@@ -1002,7 +987,7 @@ def profile_device(label, fn, top=12):
         wall = (time.perf_counter() - t0) * 1e3
     census = {k: v - before.get(k, 0) for k, v in _cuda.LAUNCHES.items()
               if v - before.get(k, 0)}
-    rows = _device_rows(prof)
+    rows = device_rows(prof)
     if not rows:
         log(f'[profile] {label}: device time not measured (the profiler '
             'recorded no device events)')

@@ -70,7 +70,7 @@ SIGNATURES = {
     'probe_transpose': ('probe_transpose_f32', (_P, _P, _I, _I, _P)),
     'probe_split': ('probe_split_f32', (_P, _P, _P, _I, _P)),
     'probe_dot': ('probe_dot_bf16x3_f32', (_P, _P, _P, _I, _I, _I, _P)),
-    'probe_window': ('probe_window_f32', (_P, _P, _P, _I, _I, _P)),
+    'probe_window': ('probe_window_f32', (_P, _P, _P) + (_I,) * 4 + (_P,)),
 }
 # the source of each entry point: its own name, but for those that share
 # a source

@@ -40,7 +40,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -277,6 +277,52 @@ def card_line() -> str:
         return out.stdout.strip().splitlines()[0]
     except (OSError, IndexError, subprocess.SubprocessError) as e:
         return f'nvidia-smi unavailable: {e}'
+
+
+def _self_device_us(evt) -> float:
+    for attr in ('self_device_time_total', 'self_cuda_time_total'):
+        v = getattr(evt, attr, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def device_rows(prof) -> List[Tuple[str, int, float]]:
+    """(key, count, ms) of the device's own events (kernels, copies,
+    fills) in a torch.profiler run.  CPU ops carry their kernels' time
+    too and would count it twice, and so would a user range
+    (``record_function``: the optimizer's ``Optimizer.step#Adam.step``)
+    that the profiler also lays on the device's timeline over the
+    kernels it spans."""
+    avgs = prof.key_averages()
+    cpu_keys = {e.key for e in avgs
+                if not str(getattr(e, 'device_type', '')).endswith('CUDA')}
+    return [(e.key, e.count, _self_device_us(e) / 1e3) for e in avgs
+            if str(getattr(e, 'device_type', '')).endswith('CUDA')
+            and not getattr(e, 'is_user_annotation', False)
+            and e.key not in cpu_keys and _self_device_us(e) > 0]
+
+
+def device_us_per_call(fn: Callable[[], object], n: int = 50,
+                       retries: int = 2) -> Optional[float]:
+    """Device time per call of fn in microseconds: its ``device_rows``
+    under torch.profiler over n calls after one warm-up call, summed, /
+    n.  A profile with no device event (the profiler now and then records
+    none) is taken again, up to ``retries`` times; then None."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(retries + 1):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = [r[2] * 1e3 for r in device_rows(prof)]
+        if us:
+            return sum(us) / n
+    return None
 
 
 def sweep(device: torch.device) -> Tuple[Dict[str, object], List[str]]:

@@ -13,12 +13,15 @@ plain PyTorch version:
    :74);
 3. ``dot_lane_contract``: a[W, C]^T b[W, TE] = [384, 256], W = 64, on
    wgmma as the six bf16 products of the split operands that
-   Precision.HIGHEST takes on the TPU (``t_dotgen``, :96); within atol
-   1e-4 of float64, the TPU probe's rule.  It also prints the max-abs
-   error over |a|^T |b| beside the port's 2e-6 kernel tolerance;
+   Precision.HIGHEST takes on the TPU (``t_dotgen``, :96), a block a 64 x
+   16 output tile; within atol 1e-4 of float64, the TPU probe's rule.  It
+   also prints the max-abs error over |a|^T |b| beside the port's 2e-6
+   kernel tolerance;
 4. ``window``: window ``sel`` (a runtime scalar on the device, 5) of 12
-   windows of [64, 384] float32, fetched by one bulk copy under a
-   predicate per window (``t_winDMA``, :123); bit-exact.
+   windows of [64, 384] float32, cut into the pieces of ``window_plan``,
+   a block a piece: each fetches its piece by one bulk copy under a
+   predicate per window and stores it by one bulk store (``t_winDMA``,
+   :123); bit-exact.
 
     python -m sevennet_finetuning_tpu_torch.tools.hopper_feats
 
@@ -47,6 +50,14 @@ SEED = 0
 # parts 0 = hi, 1 = mid, 2 = lo, smallest first: mm, hl, lh, hm, mh, hh
 PRODUCTS = ((1, 1), (0, 2), (2, 0), (0, 1), (1, 0), (0, 0))
 _HI_MASK = -65536          # 0xFFFF0000 as int32
+# a block's output tile of the product (csrc/probe_feats.cu DOT_M, DOT_N;
+# DOT_M is also the largest W)
+DOT_M, DOT_N = 64, 16
+# the window's pieces, a block each: WINDOW_PIECE_BYTES a piece; at most
+# WINDOW_MAX_PIECE, a block's default dynamic shared memory beside its
+# mbarrier (csrc/probe_feats.cu)
+WINDOW_PIECE_BYTES = 2048
+WINDOW_MAX_PIECE = 49152 - 128
 
 
 def probe_inputs() -> Dict[str, np.ndarray]:
@@ -140,13 +151,18 @@ def dot_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def dot_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _cuda.require(a, 'a', torch.float32)
-    w, m = a.shape
     _cuda.require(b, 'b', torch.float32)
-    if b.shape[0] != w or w % 16 or w > 64 or m % 64 or b.shape[1] % 64:
-        raise ValueError(f'dot: shapes {tuple(a.shape)} x {tuple(b.shape)} '
-                         'need W = b rows, a multiple of 16 up to 64, and '
-                         'C and TE multiples of 64')
+    if a.dim() != 2 or b.dim() != 2:
+        raise ValueError('dot: a and b must be matrices')
+    w, m = a.shape
     n = b.shape[1]
+    if (b.shape[0] != w or w % 16 or not 0 < w <= DOT_M or m % DOT_M
+            or m == 0 or n % DOT_N or n == 0):
+        raise ValueError(f'dot: shapes {tuple(a.shape)} x {tuple(b.shape)} '
+                         f'need W = b rows, a multiple of 16 up to {DOT_M}, '
+                         f'C a multiple of {DOT_M} and TE of {DOT_N}')
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError('dot: the float4 loads need 16-byte aligned a and b')
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     fn = _cuda.kernel('probe_dot')
     _cuda.LAUNCHES['probe_dot'] += 1
@@ -173,19 +189,37 @@ def window_plain(y: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     return y[s * wb:(s + 1) * wb].clone()
 
 
+def window_plan(win_floats: int) -> Tuple[int, int]:
+    """(pieces, floats a piece) of a window of ``win_floats`` float32: the
+    window cut into pieces of WINDOW_PIECE_BYTES (the last one shorter), a
+    block each.  Every piece is a multiple of 16 bytes, as bulk copies
+    need, and fits a block's shared memory."""
+    if win_floats <= 0 or win_floats % 4:
+        raise ValueError(f'window: {win_floats} floats are not a positive '
+                         'multiple of 16 bytes')
+    piece = min(WINDOW_PIECE_BYTES // 4, win_floats)
+    return -(-win_floats // piece), piece
+
+
 def window_cuda(y: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """Window ``sel[0]`` of y by the kernel, a block for each piece of
+    ``window_plan``."""
     _cuda.require(y, 'y', torch.float32)
     _cuda.require(sel, 'sel', torch.int32, (1,))
-    if y.shape[0] % N_WINDOWS:
+    if y.dim() != 2 or y.shape[0] % N_WINDOWS or y.numel() == 0:
         raise ValueError(f'window: {N_WINDOWS} windows do not divide '
-                         f'{y.shape[0]} rows')
+                         f'{tuple(y.shape)} into row windows')
     wb = y.shape[0] // N_WINDOWS
+    win_floats = wb * y.shape[1]
+    n_pieces, piece = window_plan(win_floats)
+    if y.data_ptr() % 16:
+        raise ValueError('window: the bulk copies need a 16-byte aligned y')
     out = torch.empty((wb, y.shape[1]), dtype=y.dtype, device=y.device)
     fn = _cuda.kernel('probe_window')
     _cuda.LAUNCHES['probe_window'] += 1
     _cuda.check('probe_window', fn(sel.data_ptr(), y.data_ptr(),
-                                   out.data_ptr(), N_WINDOWS,
-                                   wb * y.shape[1],
+                                   out.data_ptr(), N_WINDOWS, win_floats,
+                                   n_pieces, piece,
                                    _cuda.stream_ptr(y.device)))
     return out
 

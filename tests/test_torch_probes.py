@@ -26,7 +26,8 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from sevennet_finetuning_tpu_torch.ops import _cuda
-from sevennet_finetuning_tpu_torch.tools import bench_dma, hopper_feats
+from sevennet_finetuning_tpu_torch.tools import (bench_dma, feats_time,
+                                              hopper_feats)
 
 ROOT = Path(__file__).resolve().parents[1]
 # the bench's kernels at a small slab; the feature probes at their own
@@ -638,9 +639,193 @@ def test_window_out_of_range_gives_zeros(probe_inputs):
     assert got.shape == (64, 384) and not bool(got.any())
 
 
+def _feats_constants():
+    src = (_cuda.CSRC / 'probe_feats.cu').read_text()
+    return src, {k: int(v) for k, v in re.findall(
+        r'constexpr int (\w+) = (\d+);', src)}
+
+
+def test_probe_feats_layout_matches_source():
+    """The wrappers' tile and piece limits are the kernels' own."""
+    src, k = _feats_constants()
+    assert (k['DOT_M'], k['DOT_N']) == (hopper_feats.DOT_M,
+                                        hopper_feats.DOT_N)
+    assert 'wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16' in src
+    assert 'constexpr int WINDOW_MAX_PIECE = 49152 - WINDOW_HEADER;' in src
+    assert hopper_feats.WINDOW_MAX_PIECE == 49152 - k['WINDOW_HEADER']
+
+
+def test_window_plan_covers_the_window_once(probe_inputs):
+    """The wrapper's own plan for the probe's window: 48 pieces of 2 KB,
+    one wave of the 132 SMs, each a 16-byte multiple that fits a block's
+    shared memory, together the window once."""
+    y = probe_inputs['y']
+    win = y.size // hopper_feats.N_WINDOWS
+    n_pieces, piece = hopper_feats.window_plan(win)
+    assert piece * 4 % 16 == 0 and piece * 4 <= hopper_feats.WINDOW_MAX_PIECE
+    assert (n_pieces - 1) * piece < win <= n_pieces * piece
+    assert (n_pieces, piece * 4) == (48, hopper_feats.WINDOW_PIECE_BYTES)
+
+
+@pytest.mark.parametrize('win,plan', [
+    (12, (1, 12)),              # shorter than a piece: one piece
+    (512, (1, 512)),            # one whole piece
+    (516, (2, 512)),            # the last piece shorter
+])
+def test_window_plan_takes_a_short_window(win, plan):
+    assert hopper_feats.window_plan(win) == plan
+
+
+@pytest.mark.parametrize('win', [6, 0, -4])
+def test_window_plan_refuses_a_window_off_16_bytes(win):
+    with pytest.raises(ValueError, match='window'):
+        hopper_feats.window_plan(win)
+
+
+@pytest.fixture
+def cpu_stands_for_card(monkeypatch):
+    """The wrappers' checks with CPU tensors standing for CUDA ones (all
+    but the device check), and any launch an error."""
+    real = _cuda.require
+
+    def require(t, name, dtype, shape=None):
+        real(_OnCard(t), name, dtype, shape)
+
+    def launch(name):
+        raise AssertionError(f'{name} was launched')
+
+    monkeypatch.setattr(_cuda, 'require', require)
+    monkeypatch.setattr(_cuda, 'kernel', launch)
+    before = dict(_cuda.LAUNCHES)
+    yield
+    assert dict(_cuda.LAUNCHES) == before
+
+
+class _OnCard:
+    """A CPU tensor that answers the device check as a CUDA one."""
+    is_cuda = True
+
+    def __init__(self, t):
+        self._t = t
+
+    def __getattr__(self, name):
+        return getattr(self._t, name)
+
+
+def _offset(shape):
+    """A contiguous float32 tensor 4 bytes past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1)[1:].view(shape)
+
+
+@pytest.mark.parametrize('a_shape,b_shape', [
+    ((64, 384), (32, 256)),     # W differs
+    ((24, 64), (24, 32)),       # W not a multiple of 16
+    ((80, 64), (80, 32)),       # W over a tile
+    ((64, 96), (64, 32)),       # C not a multiple of 64
+    ((64, 64), (64, 24)),       # TE not a multiple of 16
+    ((64, 64), (64, 8)),        # TE under a tile
+    ((64, 0), (64, 32)),        # empty
+    ((64,), (64, 32)),          # not a matrix
+    ('offset', (64, 32)),       # a not 16-byte aligned
+])
+def test_dot_cuda_refuses_shapes_before_launch(cpu_stands_for_card, a_shape,
+                                               b_shape):
+    a = _offset((64, 64)) if a_shape == 'offset' else torch.zeros(a_shape)
+    with pytest.raises(ValueError, match='dot'):
+        hopper_feats.dot_cuda(a, torch.zeros(b_shape))
+
+
+@pytest.mark.parametrize('y', [
+    (64, 384),                  # 12 windows do not divide 64 rows
+    (12, 3),                    # a window of 12 bytes
+    (0, 384),                   # empty
+    (768,),                     # not a matrix
+    'offset',                   # y not 16-byte aligned
+])
+def test_window_cuda_refuses_shapes_before_launch(cpu_stands_for_card, y):
+    y = _offset((768, 384)) if y == 'offset' else torch.zeros(y)
+    with pytest.raises(ValueError, match='window'):
+        hopper_feats.window_cuda(y, torch.zeros(1, dtype=torch.int32))
+
+
+def test_refusal_checks_pass_the_probe_shapes(cpu_stands_for_card,
+                                              probe_inputs):
+    """At the probe's own shapes the checks pass and the wrapper goes on
+    to the launch (which the fixture turns into an error)."""
+    t = {k: torch.as_tensor(v) for k, v in probe_inputs.items()}
+    with pytest.raises(AssertionError, match='probe_dot was launched'):
+        hopper_feats.dot_cuda(t['a'], t['b'])
+    with pytest.raises(AssertionError, match='probe_window was launched'):
+        hopper_feats.window_cuda(t['y'], t['sel'])
+
+
 # ---- entry points, wrappers and the kernel table ----
 
-@pytest.mark.parametrize('module', [bench_dma, hopper_feats])
+class _Event:
+    """A row of ``key_averages()`` as the profiler gives it."""
+
+    def __init__(self, key, device_type, us, count=1, annotation=False):
+        self.key, self.count = key, count
+        self.device_type = f'DeviceType.{device_type}'
+        self.self_device_time_total = us
+        self.is_user_annotation = annotation
+
+
+class _Profile:
+    def __init__(self, events):
+        self._events = events
+
+    def key_averages(self):
+        return self._events
+
+
+def test_device_rows_keeps_the_devices_own_events():
+    """Kernels and copies count once: not the CPU op that launched them
+    (its key also has a CPU row), a user range laid over them, or an
+    event with no device time."""
+    prof = _Profile([
+        _Event('probe_dot_kernel', 'CUDA', 270.0, count=100),
+        _Event('Memcpy DtoD', 'CUDA', 30.0, count=10),
+        _Event('aten::mm', 'CPU', 0.0),
+        _Event('aten::mm', 'CUDA', 500.0),
+        _Event('Optimizer.step#Adam.step', 'CUDA', 900.0, annotation=True),
+        _Event('idle_kernel', 'CUDA', 0.0),
+    ])
+    assert bench_dma.device_rows(prof) == [
+        ('probe_dot_kernel', 100, 0.27), ('Memcpy DtoD', 10, 0.03)]
+
+
+@pytest.mark.parametrize('empty,want', [(0, 2.7), (2, 2.7), (3, None)])
+def test_device_us_per_call_retakes_an_empty_profile(monkeypatch, empty,
+                                                     want):
+    """A profile with no device event is taken again up to twice; then
+    the time is not measured (None)."""
+    import torch.profiler
+
+    taken = []
+
+    class Profile(_Profile):
+        def __init__(self, activities):
+            super().__init__([] if len(taken) < empty else [
+                _Event('probe_dot_kernel', 'CUDA', 135.0, count=50)])
+            taken.append(self)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.profiler, 'profile', Profile)
+    monkeypatch.setattr(torch.cuda, 'synchronize', lambda: None)
+    got = bench_dma.device_us_per_call(lambda: None)
+    assert got == pytest.approx(want) if want else got is None
+    assert len(taken) == min(empty + 1, 3)
+
+
+@pytest.mark.parametrize('module', [bench_dma, hopper_feats,
+                                    feats_time])
 def test_main_needs_a_card(module, monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='CUDA'):
