@@ -14,10 +14,13 @@ and exits non-zero if any fails:
               against its plain version (bit for bit; the column sum
               within 2e-6 x the column's sum of |x| and the same bits in
               two launches, the wgmma product within 2e-6 x max|plain|;
-              the product and the window the same bits in two launches,
-              the window at selectors 0, 5 and 11 and zeros at 12)
+              the four feature probes the same bits in two launches,
+              the window at selectors 0, 5 and 11 and zeros at 12, the
+              transpose at [36, 20] and the split at 4,100 elements)
               and timed with its library call (CUDA events and profiler
-              device us a call, each beside the library call's); the
+              device us a call, each beside the library call's; the
+              feature probes also beside the floor, the device time of
+              ``bench_dma``'s overhead control, printed first); the
               tiled copy at every em / fm tile of the TPU sweep and the
               ring at every shape of ``bench_dma.ring_variants``, each
               case beside ``torch.mul`` and each row's worst factor;
@@ -496,29 +499,38 @@ def phase_probes():
          lambda: torch.index_select(y.view(H.N_WINDOWS, -1), 0, sel),
          (2 * wbytes + 4, 0, FP32_FLOP_PER_S)),
     )
+    # the floor: bench_dma's overhead control, one block copying 4 KB into
+    # a preallocated output, the card's device time for a launch that
+    # moves almost nothing; each of 9a-9d is read beside it
+    tiny = torch.ones(8, 128, device=dev)
+    tiny_out = torch.empty_like(tiny)
+    floor_us = device_us_per_call(
+        lambda: B.copy_tiled_cuda(tiny, 8, out=tiny_out))
+    log(f'  floor (bench_dma overhead control, [8, 128] into a preallocated '
+        f'output): {floor_us} device us a call; {B.card_line()}')
     for name, shape, tol, kern, plain, library, (nb, nf, peak) in probes:
         err = compare(f'{name} [{shape}]', kern(), plain(), tol)
-        fixed = name in ('probe_dot', 'probe_window')
-        if fixed:
-            same_bits(name, kern)
+        same_bits(name, kern)
         b_ms, b_by = bound_ms(nb, nf, peak)
         case = dict(
-            shape=shape, max_abs_err=err, ms=cuda_ms(kern, iters=PROBE_IT),
+            shape=shape, max_abs_err=err, bit_identical=True,
+            ms=cuda_ms(kern, iters=PROBE_IT),
             plain_ms=cuda_ms(plain, iters=PROBE_IT),
             library_ms=None if library is None else cuda_ms(
                 library, iters=PROBE_IT),
             device_us=device_us_per_call(kern),
             library_device_us=None if library is None else
             device_us_per_call(library),
-            bound_ms=b_ms, bound_by=b_by)
-        if fixed:
-            case['bit_identical'] = True
+            floor_device_us=floor_us, bound_ms=b_ms, bound_by=b_by)
         if case['device_us'] and case['library_device_us']:
             case['device_factor'] = (case['device_us']
                                      / case['library_device_us'])
+        if case['device_us'] and floor_us:
+            case['device_us_over_floor'] = case['device_us'] - floor_us
         rows[name] = [case]
     # the window at the first, a middle and the last selector, bit for
-    # bit, and zeros for a selector out of range
+    # bit, and zeros for a selector out of range; the transpose and the
+    # split at a ragged shape each
     for s in (0, 5, H.N_WINDOWS - 1, H.N_WINDOWS):
         sv = torch.tensor([s], dtype=torch.int32, device=dev)
         got = H.window_cuda(y, sv)
@@ -526,6 +538,15 @@ def phase_probes():
         if s == H.N_WINDOWS and bool(got.any()):
             raise AssertionError('probe_window: a selector out of range '
                                  'gave non-zeros')
+    xr = torch.as_tensor(rng.standard_normal((36, 20), dtype=np.float32),
+                         device=dev)
+    compare('probe_transpose [36, 20]', H.transpose_cuda(xr),
+            H.transpose_plain(xr), 0.0)
+    vr = torch.as_tensor((rng.standard_normal(4100) * 100).astype(np.float32),
+                         device=dev)
+    parts, recon = H.split_cuda(vr)
+    compare('probe_split n=4100', (parts, recon), H.split_plain(vr), 0.0)
+    compare('probe_split n=4100 recon against x', recon, vr, 0.0)
 
     for name, cases in rows.items():
         for c in cases:
@@ -535,6 +556,9 @@ def phase_probes():
             if 'device_us' in c:
                 dev = (f'; device us a call {c["device_us"]}, library '
                        f'{c.get("library_device_us")}')
+            if 'device_us_over_floor' in c:
+                dev += (f', floor {c["floor_device_us"]:.3f}, over it '
+                        f'{c["device_us_over_floor"]:.3f}')
             log(f'  {name} [{c["shape"]}]: kernel {c["ms"]:.4f} ms, plain '
                 f'{c["plain_ms"]:.4f} ms, library {lib}, bound '
                 f'{c["bound_ms"] * 1e3:.2f} us ({c["bound_by"]}){dev}')

@@ -12,19 +12,48 @@
 // Bound on the H100: at the TPU probe's shapes every probe moves well
 // under a megabyte, so each is bound by its launch and its latency chain
 // (a few microseconds), not by bytes or operations; the probes ask
-// whether the feature works and how accurate it is.  The product moves
-// 557,056 bytes (0.166 us at 3.35 TB/s; its 75.5 MFLOP of bf16 products
-// take 0.08 us at 989 TFLOP/s) and the window 196,612 bytes (0.059 us).
-// Both are therefore cut over many blocks, each with one short chain of
-// dependent steps: a latency chain is paid once per block, in parallel,
-// not once per element or once per tile of a single block.
+// whether the feature works and how accurate it is.  The transpose moves
+// 1,048,576 bytes (0.31 us at 3.35 TB/s), the split 458,752 (0.14 us),
+// the product 557,056 (0.166 us; its 75.5 MFLOP of bf16 products take
+// 0.08 us at 989 TFLOP/s) and the window 196,612 (0.059 us).  The floor,
+// the profiler's device time of a launch that moves almost nothing
+// (tools/bench_dma's overhead control, one block copying 4 KB), reads
+// 1.40-1.41 us, and PyTorch's zero_ of the same 4 KB 0.91-0.93 us, on an
+// H100 80GB HBM3 at 700.00 W (PERF.md, section 6), where the transpose
+// reads 1.34 us and the split 1.17: each is its launch and one chain of
+// dependent steps.  The kernels are therefore cut over many blocks, each
+// with one short chain: a latency chain is paid once per block, in
+// parallel, not once per element or once per tile of a single block.
 //
 // Design:
-// - transpose: 32 x 33 shared-memory tiles (the padding column keeps the
-//   transposed reads free of bank conflicts), coalesced loads and stores.
+// - transpose: a block one warp and a 16 x 32 tile of x (256 blocks at
+//   the probe's shape), a lane a 4 x 4 sub-block: four float4 loads of
+//   four consecutive x rows (a warp load instruction reads 128
+//   contiguous bytes of each of four rows), the transpose in registers,
+//   four float4 stores into four consecutive y rows (a warp store
+//   instruction writes 64 contiguous bytes, two whole sectors, of each
+//   of eight y rows).  No shared memory, no barrier, no division: the
+//   grid's x axis runs over column tiles, its y axis over row tiles.
+//   The SASS (cuobjdump -sass on the H100 build, 42 registers) issues
+//   the four LDG.E.128 back to back before any use, then the four
+//   STG.E.128.  rows and cols must be multiples of 4 and x and y 16-byte
+//   aligned; the C entry refuses anything else.  Against the 32 x 33
+//   shared tile it replaced (1.52 us on the H100 80GB HBM3 at 700.00 W),
+//   tried in the same calls on that card: two-warp blocks 1.35 us; a 1-D
+//   grid, which divides for the tile, 0.035 us slower at two warps and
+//   1.49-1.51 at four (64 blocks for 132 SMs); and 32 x 32 tensor-map
+//   tiles (one 2-D cp.async.bulk.tensor copy in with the 128-byte
+//   swizzle, the transpose through shared memory in a thread order free
+//   of bank conflicts, one tensor store out) 1.41 us.
 // - split: __float_as_uint and masks, the bf16 parts by intrinsic
 //   (__float2bfloat16_rn, __bfloat162float); writes the three parts and
-//   their sum hi + mid + lo, which must equal x bit for bit.
+//   their sum hi + mid + lo, which must equal x bit for bit.  An element
+//   a thread, 256 threads a block, any n up to SPLIT_MAX_N (no tail to
+//   handle); the SASS is straight-line: one LDG, three STG.U16, one STG.
+//   Wider threads read no faster (H100 80GB HBM3, 700.00 W): 2, 4 or 8
+//   elements a thread (float2 / float4 loads, one 4-, 8- or 16-byte
+//   store a part) 1.17, 1.17-1.20 and 1.26-1.29 us against 1.17, each
+//   extra element lengthening the thread's chain of conversions.
 // - product: out[C, TE] = a[W, C]^T b[W, TE] on wgmma (m64n16k16, bf16 in,
 //   f32 accumulate), one warpgroup a 64 x 16 output tile: 96 blocks at
 //   the probe's shape.  Each thread loads its chunks of the block's
@@ -83,9 +112,21 @@
 
 namespace {
 
-constexpr int TILE = 32;
-constexpr int TILE_ROWS = 8;
+// the transpose: a block one warp, a lane a 4 x 4 sub-block, the warp 4
+// row groups x 8 column groups of them (tools/hopper_feats.TRANSPOSE_SUB,
+// TRANSPOSE_BLOCK_ROWS); the row tiles run along the grid's y axis, at
+// most TRANSPOSE_MAX_GRID_Y of them
+constexpr int TRANSPOSE_SUB = 4;
+constexpr int TRANSPOSE_BLOCK_ROWS = 16;
+constexpr int TRANSPOSE_BLOCK_COLS = 32;
+constexpr int TRANSPOSE_MAX_GRID_Y = 65535;
+static_assert(TRANSPOSE_BLOCK_ROWS == 4 * TRANSPOSE_SUB &&
+                  TRANSPOSE_BLOCK_COLS == 8 * TRANSPOSE_SUB &&
+                  TRANSPOSE_SUB == 4,
+              "a lane a float4 sub-block, 32 lanes a block");
 constexpr int SPLIT_THREADS = 256;
+// parts is indexed by int up to 3 n - 1 (tools/hopper_feats.SPLIT_MAX_N)
+constexpr int SPLIT_MAX_N = 715827882;
 constexpr int DOT_THREADS = 128;  // one warpgroup
 constexpr int DOT_M = 64;  // output rows (C) of a block; also the largest W
 constexpr int DOT_N = 16;  // output columns (TE) of a block: m64n16k16
@@ -158,26 +199,34 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
-__global__ void transpose_kernel(const float* __restrict__ x,
-                                 float* __restrict__ y, int rows, int cols) {
-  __shared__ float tile[TILE][TILE + 1];
-  const int c = blockIdx.x * TILE + threadIdx.x;
-  const int r0 = blockIdx.y * TILE;
-  for (int j = threadIdx.y; j < TILE; j += TILE_ROWS) {
-    const int r = r0 + j;
-    if (r < rows && c < cols) {
-      tile[j][threadIdx.x] = x[static_cast<long long>(r) * cols + c];
-    }
+// x [rows, cols] -> y = x^T [cols, rows], a block one warp and a tile of
+// TRANSPOSE_BLOCK_ROWS x TRANSPOSE_BLOCK_COLS of x: lane l takes the 4 x 4
+// sub-block at row group l / 8 and column group l % 8 by four float4
+// loads of four consecutive x rows, transposes it in registers and
+// writes it by four float4 stores into four consecutive y rows.  rows and
+// cols are multiples of 4 (the C entry checks), so a sub-block lies
+// wholly inside x or wholly outside it
+__global__ void __launch_bounds__(32)
+    transpose_kernel(const float* __restrict__ x, float* __restrict__ y,
+                     int rows, int cols) {
+  const int r0 = blockIdx.y * TRANSPOSE_BLOCK_ROWS + threadIdx.x / 8 * 4;
+  const int c0 = blockIdx.x * TRANSPOSE_BLOCK_COLS + threadIdx.x % 8 * 4;
+  if (r0 >= rows || c0 >= cols) return;
+  float4 v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[i] = __ldg(reinterpret_cast<const float4*>(
+        x + static_cast<long long>(r0 + i) * cols + c0));
   }
-  __syncthreads();
-  // y is [cols, rows]: its row is x's column
-  const int yc = r0 + threadIdx.x;
-  for (int j = threadIdx.y; j < TILE; j += TILE_ROWS) {
-    const int yr = blockIdx.x * TILE + j;
-    if (yr < cols && yc < rows) {
-      y[static_cast<long long>(yr) * rows + yc] = tile[threadIdx.x][j];
-    }
-  }
+  float* out = y + static_cast<long long>(c0) * rows + r0;
+  *reinterpret_cast<float4*>(out) =
+      make_float4(v[0].x, v[1].x, v[2].x, v[3].x);
+  *reinterpret_cast<float4*>(out + rows) =
+      make_float4(v[0].y, v[1].y, v[2].y, v[3].y);
+  *reinterpret_cast<float4*>(out + 2LL * rows) =
+      make_float4(v[0].z, v[1].z, v[2].z, v[3].z);
+  *reinterpret_cast<float4*>(out + 3LL * rows) =
+      make_float4(v[0].w, v[1].w, v[2].w, v[3].w);
 }
 
 struct Split3 {
@@ -423,16 +472,25 @@ __global__ void __launch_bounds__(WINDOW_THREADS)
 
 extern "C" int probe_transpose_f32(const float* x, float* y, int rows,
                                    int cols, void* stream) {
-  if (rows <= 0 || cols <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((cols + TILE - 1) / TILE, (rows + TILE - 1) / TILE);
-  transpose_kernel<<<grid, dim3(TILE, TILE_ROWS), 0,
-                     static_cast<cudaStream_t>(stream)>>>(x, y, rows, cols);
+  if (rows <= 0 || cols <= 0 || rows % TRANSPOSE_SUB != 0 ||
+      cols % TRANSPOSE_SUB != 0 ||
+      (rows + TRANSPOSE_BLOCK_ROWS - 1) / TRANSPOSE_BLOCK_ROWS >
+          TRANSPOSE_MAX_GRID_Y ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((cols + TRANSPOSE_BLOCK_COLS - 1) / TRANSPOSE_BLOCK_COLS,
+                  (rows + TRANSPOSE_BLOCK_ROWS - 1) / TRANSPOSE_BLOCK_ROWS);
+  transpose_kernel<<<grid, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, y, rows, cols);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int probe_split_f32(const float* x, void* parts, float* out, int n,
                                void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0 || n > SPLIT_MAX_N) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   split_kernel<<<(n + SPLIT_THREADS - 1) / SPLIT_THREADS, SPLIT_THREADS, 0,
                  static_cast<cudaStream_t>(stream)>>>(
       x, static_cast<__nv_bfloat16*>(parts), out, n);

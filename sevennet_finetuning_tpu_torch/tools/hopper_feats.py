@@ -7,7 +7,8 @@ probes for the gather-fused backward).  Four tiny kernels of
 plain PyTorch version:
 
 1. ``transpose``: in-kernel transpose of a [256, 512] float32 tile
-   (``t_transpose``, test_mosaic_feats.py:47); bit-exact;
+   (``t_transpose``, test_mosaic_feats.py:47), a warp a 16 x 32 tile, a
+   lane a 4 x 4 sub-block transposed in registers; bit-exact;
 2. ``split3``: bitcast + mask split of float32 into hi / mid / lo bf16
    whose sum is x bit for bit, [128, 256] with values x 100 (``t_split``,
    :74);
@@ -53,6 +54,16 @@ _HI_MASK = -65536          # 0xFFFF0000 as int32
 # a block's output tile of the product (csrc/probe_feats.cu DOT_M, DOT_N;
 # DOT_M is also the largest W)
 DOT_M, DOT_N = 64, 16
+# the transpose: a lane a TRANSPOSE_SUB x TRANSPOSE_SUB sub-block, so rows
+# and cols are multiples of it; a block a tile of TRANSPOSE_BLOCK_ROWS
+# rows, the row tiles along the grid's y axis, at most 65535 of them
+# (csrc/probe_feats.cu)
+TRANSPOSE_SUB = 4
+TRANSPOSE_BLOCK_ROWS = 16
+TRANSPOSE_MAX_ROWS = 65535 * TRANSPOSE_BLOCK_ROWS
+# the split indexes its three parts by int: 3 n - 1 < 2^31
+# (csrc/probe_feats.cu SPLIT_MAX_N)
+SPLIT_MAX_N = (2 ** 31 - 1) // 3
 # the window's pieces, a block each: WINDOW_PIECE_BYTES a piece; at most
 # WINDOW_MAX_PIECE, a block's default dynamic shared memory beside its
 # mbarrier (csrc/probe_feats.cu)
@@ -82,12 +93,25 @@ def transpose_plain(x: torch.Tensor) -> torch.Tensor:
 
 def transpose_cuda(x: torch.Tensor, out: torch.Tensor = None
                    ) -> torch.Tensor:
-    """x.T by the kernel, into ``out`` where given."""
+    """x.T by the kernel, into ``out`` where given: x [rows, cols] with
+    rows and cols multiples of TRANSPOSE_SUB, rows at most
+    TRANSPOSE_MAX_ROWS, x and out 16-byte aligned (float4 loads and
+    stores)."""
     _cuda.require(x, 'x', torch.float32)
+    if x.dim() != 2:
+        raise ValueError('transpose: x must be a matrix')
     rows, cols = x.shape
+    if (rows == 0 or cols == 0 or rows % TRANSPOSE_SUB
+            or cols % TRANSPOSE_SUB or rows > TRANSPOSE_MAX_ROWS):
+        raise ValueError(f'transpose: shape {tuple(x.shape)} needs rows and '
+                         f'cols positive multiples of {TRANSPOSE_SUB}, rows '
+                         f'at most {TRANSPOSE_MAX_ROWS}')
     if out is None:
         out = torch.empty((cols, rows), dtype=x.dtype, device=x.device)
     _cuda.require(out, 'out', torch.float32, (cols, rows))
+    if x.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError('transpose: the float4 loads and stores need '
+                         '16-byte aligned x and out')
     fn = _cuda.kernel('probe_transpose')
     _cuda.LAUNCHES['probe_transpose'] += 1
     _cuda.check('probe_transpose', fn(x.data_ptr(), out.data_ptr(), rows,
@@ -116,7 +140,12 @@ def split_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def split_cuda(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """split_plain by the kernel, an element a thread: any x of 1 to
+    SPLIT_MAX_N elements."""
     _cuda.require(x, 'x', torch.float32)
+    if not 0 < x.numel() <= SPLIT_MAX_N:
+        raise ValueError(f'split: {x.numel()} elements, the kernel takes 1 '
+                         f'to {SPLIT_MAX_N}')
     parts = torch.empty((3,) + tuple(x.shape), dtype=torch.bfloat16,
                         device=x.device)
     recon = torch.empty_like(x)

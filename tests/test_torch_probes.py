@@ -653,6 +653,11 @@ def test_probe_feats_layout_matches_source():
     assert 'wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16' in src
     assert 'constexpr int WINDOW_MAX_PIECE = 49152 - WINDOW_HEADER;' in src
     assert hopper_feats.WINDOW_MAX_PIECE == 49152 - k['WINDOW_HEADER']
+    assert (k['TRANSPOSE_SUB'], k['TRANSPOSE_BLOCK_ROWS']) == (
+        hopper_feats.TRANSPOSE_SUB, hopper_feats.TRANSPOSE_BLOCK_ROWS)
+    assert hopper_feats.TRANSPOSE_MAX_ROWS == (k['TRANSPOSE_MAX_GRID_Y']
+                                               * k['TRANSPOSE_BLOCK_ROWS'])
+    assert hopper_feats.SPLIT_MAX_N == k['SPLIT_MAX_N']
 
 
 def test_window_plan_covers_the_window_once(probe_inputs):
@@ -749,15 +754,61 @@ def test_window_cuda_refuses_shapes_before_launch(cpu_stands_for_card, y):
         hopper_feats.window_cuda(y, torch.zeros(1, dtype=torch.int32))
 
 
+@pytest.mark.parametrize('x,out', [
+    ((36, 18), None),           # cols not a multiple of 4
+    ((34, 20), None),           # rows not a multiple of 4
+    ((0, 512), None),           # empty
+    ((512,), None),             # not a matrix
+    ('offset', None),           # x not 16-byte aligned
+    ((256, 512), 'offset'),     # out not 16-byte aligned
+    ('tall', None),             # more row tiles than the grid's y axis
+])
+def test_transpose_cuda_refuses_shapes_before_launch(cpu_stands_for_card, x,
+                                                     out):
+    if x == 'offset':
+        x = _offset((256, 512))
+    elif x == 'tall':
+        x = torch.empty((hopper_feats.TRANSPOSE_MAX_ROWS + 4, 4),
+                        device='meta')
+    else:
+        x = torch.zeros(x)
+    if out == 'offset':
+        out = _offset((512, 256))
+    with pytest.raises(ValueError, match='transpose'):
+        hopper_feats.transpose_cuda(x, out=out)
+
+
+@pytest.mark.parametrize('n', [0, hopper_feats.SPLIT_MAX_N + 1])
+def test_split_cuda_refuses_shapes_before_launch(cpu_stands_for_card, n):
+    """No element, or more than the kernel's int indexing reaches (a meta
+    tensor: the size without the memory)."""
+    with pytest.raises(ValueError, match='split'):
+        hopper_feats.split_cuda(torch.empty(n, device='meta'))
+
+
 def test_refusal_checks_pass_the_probe_shapes(cpu_stands_for_card,
                                               probe_inputs):
-    """At the probe's own shapes the checks pass and the wrapper goes on
-    to the launch (which the fixture turns into an error)."""
+    """At the probe's own shapes, the ragged shapes ``chip_smoke.py``
+    holds and the largest the kernels take, the checks pass and the
+    wrapper goes on to the launch (which the fixture turns into an
+    error)."""
     t = {k: torch.as_tensor(v) for k, v in probe_inputs.items()}
     with pytest.raises(AssertionError, match='probe_dot was launched'):
         hopper_feats.dot_cuda(t['a'], t['b'])
     with pytest.raises(AssertionError, match='probe_window was launched'):
         hopper_feats.window_cuda(t['y'], t['sel'])
+    for x in (t['x'], torch.zeros(36, 20),
+              torch.empty((hopper_feats.TRANSPOSE_MAX_ROWS, 4),
+                          device='meta')):
+        with pytest.raises(AssertionError,
+                           match='probe_transpose was launched'):
+            hopper_feats.transpose_cuda(x)
+    with pytest.raises(AssertionError, match='probe_transpose was launched'):
+        hopper_feats.transpose_cuda(t['x'], out=torch.empty(512, 256))
+    for v in (t['v'], torch.zeros(4100),
+              torch.empty(hopper_feats.SPLIT_MAX_N, device='meta')):
+        with pytest.raises(AssertionError, match='probe_split was launched'):
+            hopper_feats.split_cuda(v)
 
 
 # ---- entry points, wrappers and the kernel table ----
