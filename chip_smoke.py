@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives ``sevennet_finetuning_tpu_torch`` (never JAX) through eight phases
+Drives ``sevennet_finetuning_tpu_torch`` (never JAX) through nine phases
 and exits non-zero if any fails:
 
 1. build   -- compile every CUDA source of ``csrc/`` (one nvcc each, in
@@ -73,7 +73,24 @@ and exits non-zero if any fails:
               segment-sum 13 times, the segment sums at the shapes of
               ``train_segment_shapes``.  Prints ms per step and per rehearsal
               iteration, edges/s, peak memory and the device busy share;
-8. unsorted -- SevenNet-0 at full width and depth on the batch-8 collate
+8. pipeline -- the port's train CLI (``main.main``, as ``python -m
+              sevennet_finetuning_tpu_torch.main train`` runs it) on the
+              two stages of ``recipe.pipeline_stages`` in a temporary
+              directory: the Fisher stage (-fs) on replay.extxyz from the
+              in-repo SevenNet-0 checkpoint, then a 3-epoch reEWC
+              fine-tune on ft.extxyz with rehearsal on replay.extxyz
+              consuming its artifacts.  Held against
+              ``golden/pipeline_ft_jax_cpu.npz``: the anchor bit for bit,
+              each Fisher leaf within 2e-3 of its max (4e-2 for the energy
+              shift), log.csv value by value (the first step's within
+              1e-4, later ones within 5e-2, each plus the serving limit
+              of its quantity), the same checkpoint files, and
+              checkpoint_best.pth served through
+              ``Calculator.from_checkpoint``; the two stages must launch
+              agg 65, multi 115, gagg 50, gmulti 50 and segment-sum
+              >= 130 times.  Prints each stage's wall seconds and the
+              epochs' times, then profiles each stage once more;
+9. unsorted -- SevenNet-0 at full width and depth on the batch-8 collate
               with every edge slot permuted (numpy seed 0), through the
               public ``run_blocks(edges_sorted=False)``: node features,
               energies, fij = dE/d edge_vec and a create_graph=True
@@ -118,7 +135,9 @@ GOLDEN = PKG / 'golden/ft_extxyz_jax_cpu.npz'
 GOLDEN_FT12 = PKG / 'golden/train_ft12_jax_cpu.npz'
 GOLDEN_FT900 = PKG / 'golden/train_ft900_jax_cpu.npz'
 GOLDEN_UNSORTED = PKG / 'golden/unsorted_ft900_jax_cpu.npz'
+GOLDEN_PIPELINE = PKG / 'golden/pipeline_ft_jax_cpu.npz'
 REPLAY900 = ROOT / 'experiments/ft_reewc_900/data/replay900.extxyz'
+REPLAY = ROOT / 'experiments/ft_reewc/data/replay.extxyz'
 FISHER = ROOT / 'experiments/ft_reewc/fisher_out/fisher_sevenn.pt'
 OPT_PARAMS = ROOT / 'experiments/ft_reewc/fisher_out/opt_params_sevenn.pt'
 
@@ -175,6 +194,8 @@ PROBE_CASE = {'probe_copy_tiled': 'em te=256',
 PATH_KERNELS = {
     'serve': ('segment_sum', 'cg_agg', 'cg_multi'),
     'train': ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg', 'cg_gmulti'),
+    'pipeline': ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg',
+                 'cg_gmulti'),
     'unsorted': ('segment_sum', 'cg_quad'),
     'probes': PROBES,
 }
@@ -241,6 +262,22 @@ GRAD_TOL_LEAF = {
     'ft900': {('4_convolution', 'denominator'): 1e-1,
               ('rescale_atomic_energy', 'scale'): 5e-2,
               ('reduce_hidden_to_energy', 'w0'): 4e-2}}
+# the pipeline phase (the port's CLI against golden/pipeline_ft_jax_cpu.npz):
+# - a Fisher leaf is the mean over four batch-1 samples of g^2, so a
+#   relative gradient error e moves it by about 2e: twice the batch-1
+#   gradient limits of the 12-atom check above, per leaf's max|F|;
+PIPELINE_FISHER_TOL = 2 * GRAD_TOL['ft12']
+PIPELINE_FISHER_TOL_LEAF = {k: 2 * v for k, v in GRAD_TOL_LEAF['ft12'].items()}
+# - log.csv: the first epoch's train columns are the first step's forward
+#   at the checkpoint's parameters, held at the first-step limit STEP0_TOL
+#   of their JAX value; every later value (memory and valid of epoch 1
+#   come after the first update) at TRAJ_TOL.  Each limit adds the float32
+#   floor of the quantity, the serving limits of PERF.md section 2 (energy
+#   2e-6 of the mean |E| per atom of the stage's data, forces and stress
+#   1e-4 of their max |value|): an error metric moves by at most the error
+#   of the prediction it measures.
+PIPELINE_EPOCH1_TOL = STEP0_TOL
+PIPELINE_LATER_TOL = TRAJ_TOL
 # each raw loss term (not weighted by its share of the total) at the
 # checkpoint's parameters, batch 8: within 2e-3 of its JAX value (readings
 # up to 4.7e-4, the energy term's float32 residual; ft12's 12-atom energy
@@ -1318,6 +1355,190 @@ def phase_train():
     return counts
 
 
+def _stage_floors(path):
+    """The float32 floor of each error metric's quantity on one data file
+    (energy per atom in eV, forces in eV/A, stress in kbar): the serving
+    limits of PERF.md section 2 at the file's values."""
+    import numpy as np
+
+    from sevennet_finetuning_tpu_torch.data.readers import read_extxyz
+    from sevennet_finetuning_tpu_torch.train.loss import TO_KBAR
+
+    structs = read_extxyz(str(path))
+    e = np.mean([abs(s.energy) / len(s) for s in structs])
+    f = max(float(np.abs(s.forces).max()) for s in structs)
+    st = max(float(np.abs(s.stress).max()) for s in structs)
+    return {'Energy': GOLDEN_ENERGY_TOL * e, 'Force': 1e-4 * f,
+            'Stress': 1e-4 * st * TO_KBAR}
+
+
+def check_csv(path, gold, floors):
+    """log.csv of the fine-tune stage against the golden file's, value by
+    value (epoch and lr equal; limits of PIPELINE_*_TOL)."""
+    import csv
+
+    with open(path) as f:
+        rows = list(csv.DictReader(f))
+    cols = [k[4:] for k in gold.files if k.startswith('csv/')]
+    if not rows or list(rows[0]) != cols:
+        raise AssertionError(f'log.csv columns {list(rows[0]) if rows else []}'
+                             f' != golden {cols}')
+    if len(rows) != len(gold['csv/epoch']):
+        raise AssertionError(f'log.csv has {len(rows)} rows, golden '
+                             f'{len(gold["csv/epoch"])}')
+    worst = {}
+    for i, row in enumerate(rows):
+        for col in cols:
+            got, want = float(row[col]), float(gold[f'csv/{col}'][i])
+            if col in ('epoch', 'lr'):
+                if got != want:
+                    raise AssertionError(f'log.csv row {i} {col}: {got} != '
+                                         f'{want}')
+                continue
+            tol = (PIPELINE_EPOCH1_TOL if i == 0 and col.startswith('train_')
+                   else PIPELINE_LATER_TOL)
+            floor = next((v for k, v in floors.items()
+                          if col.split('_')[1] == k), 0.0)
+            limit = tol * abs(want) + floor
+            share = abs(got - want) / limit if limit else float(got != want)
+            if share > worst.get(col, (0,))[0]:
+                worst[col] = (share, i, got, want, limit)
+            if share > 1:
+                raise AssertionError(f'log.csv row {i} {col}: {got!r} vs JAX '
+                                     f'{want!r}, limit {limit:.3e}')
+    for col, (share, i, got, want, limit) in sorted(worst.items()):
+        log(f'  log.csv {col}: worst at row {i}: {got:.9e} vs JAX '
+            f'{want:.9e} ({share:.2f} of the limit {limit:.3e})')
+
+
+def phase_pipeline():
+    """The train CLI of the port on the card: the two stages of
+    ``recipe.pipeline_stages`` (a Fisher stage with -fs, then a 3-epoch
+    reEWC fine-tune with rehearsal consuming its artifacts) through
+    ``main.main`` into a temporary directory, held against
+    ``golden/pipeline_ft_jax_cpu.npz``; returns the launch counts of the
+    two stages."""
+    import hashlib
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from sevennet_finetuning_tpu_torch.calculator import Calculator
+    from sevennet_finetuning_tpu_torch.data.readers import read_extxyz
+    from sevennet_finetuning_tpu_torch.main import main as cli
+    from sevennet_finetuning_tpu_torch.ops import _cuda
+    from sevennet_finetuning_tpu_torch.train.checkpoint import (
+        load_checkpoint, load_pytree)
+    from sevennet_finetuning_tpu_torch.train.recipe import pipeline_stages
+
+    gold = np.load(GOLDEN_PIPELINE)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        fisher_dir, ft_dir = tmp / 'fisher_out', tmp / 'ft_out'
+        stages = pipeline_stages(ROOT, str(fisher_dir))
+        torch.cuda.synchronize()
+        _cuda.LAUNCHES.clear()
+        walls = {}
+        for name, cfg, wd, extra in zip(('fisher', 'ft'), stages,
+                                        (fisher_dir, ft_dir),
+                                        (['-fs'], [])):
+            path = tmp / f'{name}_input.yaml'
+            path.write_text(yaml.safe_dump(cfg))
+            t0 = time.perf_counter()
+            cli(['train', str(path), '-w', str(wd)] + extra)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+        counts = {k: _cuda.LAUNCHES[k] for k in _cuda.KERNELS}
+
+        # stage 1: the anchor bit for bit, the Fisher leaf by leaf
+        fisher = load_pytree(str(fisher_dir / 'fisher_sevenn.pt'))
+        anchor = load_pytree(str(fisher_dir / 'opt_params_sevenn.pt'))
+        worst = []
+        for g, names in fisher.items():
+            for n, got in names.items():
+                a = np.ascontiguousarray(anchor[g][n], np.float32)
+                if hashlib.sha256(a.tobytes()).hexdigest() != str(
+                        gold[f'opt_params_sha256/{g}/{n}']):
+                    raise AssertionError(f'opt_params {g}/{n} differs from '
+                                         'the JAX anchor')
+                want_f = gold[f'fisher/{g}/{n}']
+                scale = max(float(np.abs(want_f).max()), 1e-30)
+                rel = float(np.abs(got - want_f).max()) / scale
+                tol = PIPELINE_FISHER_TOL_LEAF.get((g, n), PIPELINE_FISHER_TOL)
+                worst.append((rel / tol, rel, tol, f'{g}/{n}', scale))
+        worst.sort(reverse=True)
+        log(f'  opt_params: {len(worst)} leaves bit-equal to JAX; Fisher '
+            'leaves, worst (rel err / limit, max|F|):')
+        for share, rel, tol, key, scale in worst[:5]:
+            log(f'    {key}: {rel:.2e} / {tol:g} ({scale:.3e})')
+        if worst[0][0] > 1:
+            raise AssertionError(f'Fisher leaves disagree with the golden '
+                                 f'file: {worst[:5]}')
+
+        # stage 2: log.csv, the checkpoints, the best one served
+        floors = _stage_floors(FT)
+        for k, v in _stage_floors(REPLAY).items():  # the memory columns
+            floors[k] = max(floors[k], v)
+        check_csv(ft_dir / 'log.csv', gold, floors)
+        names = sorted(p.name for p in ft_dir.glob('checkpoint_*.pth'))
+        if names != [str(x) for x in gold['checkpoints']]:
+            raise AssertionError(f'checkpoints {names} != golden '
+                                 f'{list(gold["checkpoints"])}')
+        text = (ft_dir / 'log.sevenn').read_text()
+        epoch_s = [float(x) for x in re.findall(r'epoch time: ([0-9.]+) s',
+                                                text)]
+        best = load_checkpoint(str(ft_dir / 'checkpoint_best.pth'))
+        calc = Calculator.from_checkpoint(str(ft_dir / 'checkpoint_best.pth'),
+                                          device='cuda')
+        errs = []
+        for s in read_extxyz(str(FT)):
+            res = calc.calculate(s)
+            if not (np.isfinite(res['energy'])
+                    and res['forces'].shape == (len(s), 3)
+                    and np.isfinite(res['forces']).all()
+                    and res['stress'].shape == (6,)):
+                raise AssertionError('checkpoint_best.pth serves non-finite '
+                                     'or misshapen results')
+            errs.append(abs(res['energy'] - s.energy) / len(s))
+        log(f'  checkpoint_best.pth (epoch {best["epoch"]}) served ft.extxyz:'
+            f' |E - label| per atom {[f"{e:.2e}" for e in errs]} eV')
+        if max(errs) > 1e-2:
+            raise AssertionError('checkpoint_best.pth does not fit its own '
+                                 f'training data: {errs}')
+
+        # where a stage's wall time goes: each stage once more under the
+        # profiler (into other directories, after the counts were read)
+        for name, extra in (('fisher', ['-fs']), ('ft', [])):
+            profile_device(f'{name} stage', lambda: cli(
+                ['train', str(tmp / f'{name}_input.yaml'), '-w',
+                 str(tmp / f'{name}_profiled')] + extra), top=8)
+    # the launches: a Fisher sample and a train step run the same
+    # kernels (TRAIN_CENSUS), a valid batch those of a request
+    n_fisher = 5 - int(5 * 0.2)           # replay.extxyz's train split
+    n_steps = 3 * 2                       # 3 epochs x (train + memory)
+    n_eval = 3                            # one valid batch an epoch
+    eval_census = {'cg_agg': 5, 'cg_multi': 5, 'cg_gagg': 0,
+                   'cg_gmulti': 0, 'cg_quad': 0}
+    want = {k: (n_fisher + n_steps) * TRAIN_CENSUS[k]
+            + n_eval * eval_census.get(k, 0) for k in eval_census}
+    log(f'[pipeline] launches of the two stages {counts}; expected '
+        f'{want} and segment_sum >= '
+        f'{(n_fisher + n_steps) * TRAIN_CENSUS["segment_sum"]}')
+    if any(counts[k] != v for k, v in want.items()) or any(
+            counts[k] for k in PROBES) or counts['segment_sum'] < (
+            n_fisher + n_steps) * TRAIN_CENSUS['segment_sum']:
+        raise AssertionError(f'pipeline launches {counts}, expected '
+                             f'{want}')
+
+    log(f'[pipeline] Fisher stage {walls["fisher"]:.3f} s wall ({n_fisher} '
+        f'samples), fine-tune stage {walls["ft"]:.3f} s wall; epoch time '
+        f'(log.sevenn, ms) {[round(x * 1e3) for x in epoch_s]}')
+    return counts
+
+
 def permute_edges(batch, perm):
     """The batch with its edge slots in the order ``perm`` (dst no longer
     ascending); the src-sort permutation no longer applies and is
@@ -1629,6 +1850,7 @@ def main():
     phase_profile(calc, batch)
     del calc
     path_counts = {'serve': serve_counts, 'train': phase_train(),
+                   'pipeline': phase_pipeline(),
                    'unsorted': phase_unsorted(batch), 'probes': probe_counts}
 
     # one row per kernel at its interior-block / widest shape; every

@@ -6,13 +6,21 @@ package so each module's counterpart is easy to find; this package keeps
 its own copies of the host-side code and never imports JAX.
 
 - ``irreps``, ``keys``: O(3) irrep algebra and config/batch key names
-- ``data``      : structures, extxyz reader, neighbor lists
-- ``model``     : padded graph batches, the NequIP model, spec builder
+- ``config``, ``presets``: YAML -> validated config, preset inputs
+- ``data``      : structures, extxyz reader, neighbor lists, dataset
+                  statistics and the padded-batch loader
+- ``model``     : padded graph batches, the NequIP model, spec builder,
+                  ``init_params``
 - ``ops``       : equivariant primitives; ``scatter`` and the
                   ``fused_conv_*`` modules wrap the CUDA kernels in
                   ``csrc/`` (plain PyTorch versions run for CPU tensors)
-- ``train``     : checkpoint loading
+- ``train``     : trainer (train / eval steps, rehearsal, Fisher), loss,
+                  optimizers and LR controllers, metrics, checkpoints
+- ``pipeline``  : dataset, statistics, continue / fine-tune, epoch loop
+- ``main``      : the command line (``train``, ``preset``)
+- ``logger``    : log.sevenn and log.csv
 - ``calculator``: single-point energy / forces / stress
+- ``tools``     : the measurement probes
 
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``.
 """

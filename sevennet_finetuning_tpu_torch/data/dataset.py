@@ -4,8 +4,10 @@ Port of ``sevennet_finetuning_tpu/data/dataset.py`` for one device:
 label-grouped lists of numpy graphs and a loader that emits statically
 padded batches (capacities computed once per dataset).  The shuffle draws
 from ``np.random.default_rng(seed)`` exactly as the JAX package's loader
-does, so both packages visit the same batches from the same seed.  The
-sharded (data-parallel) branches come with the DDP slice.
+does, so both packages visit the same batches from the same seed.  With
+``data_weights`` (label -> per-term weight) each batch carries the
+per-graph weights of the loss terms.  The sharded (data-parallel)
+branches come with the DDP slice (ROADMAP A.8).
 
 Statistics follow the reference:
 - per-atom energy mean / std (shift candidates)
@@ -40,11 +42,30 @@ class GraphDataset:
         cutoff: float,
         type_map: Dict[int, int],
         label: str = K.LABEL_NONE,
+        n_cores: int = 1,
     ) -> 'GraphDataset':
-        gs = [structure_to_graph(s, cutoff, type_map) for s in structures]
+        """Graph build; ``n_cores > 1`` builds in a spawned worker pool
+        (the config key preprocess_num_cores, reference:
+        sevenn/train/dataload.py:174-184)."""
+        if n_cores > 1 and len(structures) >= 4:
+            import functools
+            import multiprocessing as mp
+
+            with mp.get_context('spawn').Pool(n_cores) as pool:
+                gs = pool.map(
+                    functools.partial(structure_to_graph, cutoff=cutoff,
+                                      type_map=type_map),
+                    structures,
+                    chunksize=max(1, len(structures) // (4 * n_cores)))
+        else:
+            gs = [structure_to_graph(s, cutoff, type_map)
+                  for s in structures]
         for g, s in zip(gs, structures):
             g[K.USER_LABEL] = s.info.get('label', label)
         return GraphDataset(gs)
+
+    def extend(self, other: 'GraphDataset'):
+        self.graphs.extend(other.graphs)
 
     # ---- statistics -----------------------------------------------------
     def _per_atom_energies(self) -> List[float]:
@@ -139,11 +160,13 @@ class Loader:
         n_edge: Optional[int] = None,
         n_graph: Optional[int] = None,
         cache: bool = False,
+        data_weights: Optional[Dict[str, Dict[str, float]]] = None,
     ):
         self.graphs = dataset.graphs
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.rng = np.random.default_rng(seed)
+        self.data_weights = data_weights
         self.cache = cache
         self._cached: Optional[List[Dict]] = None
 
@@ -245,5 +268,21 @@ class Loader:
                 self.rng.shuffle(order)
         for i in range(0, len(order), self.batch_size):
             chunk = [self.graphs[j] for j in order[i:i + self.batch_size]]
-            yield collate(chunk, n_node=self.n_node, n_edge=self.n_edge,
-                          n_graph=self.n_graph)
+            batch = collate(chunk, n_node=self.n_node, n_edge=self.n_edge,
+                            n_graph=self.n_graph)
+            if self.data_weights is not None:
+                batch[K.DATA_WEIGHT] = self._weights_for(chunk)
+            yield batch
+
+    def _weights_for(self, chunk) -> Dict[str, np.ndarray]:
+        """Per-graph weights of the energy, force and stress terms from
+        each structure's label (1 for a padded slot or an unlisted
+        label)."""
+        out = {}
+        for wkey in (K.PER_ATOM_ENERGY, K.FORCE, K.STRESS):
+            w = np.ones(self.n_graph, np.float32)
+            for b, g in enumerate(chunk):
+                label = g.get(K.USER_LABEL, K.LABEL_NONE)
+                w[b] = self.data_weights.get(label, {}).get(wkey, 1.0)
+            out[wkey] = w
+        return out

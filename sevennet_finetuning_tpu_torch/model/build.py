@@ -33,7 +33,8 @@ def build_model_spec(config: Dict) -> ModelSpec:
     interaction = config.get(K.INTERACTION_TYPE, 'nequip')
     if interaction != 'nequip':
         raise NotImplementedError(
-            f'interaction type {interaction!r} is not ported yet')
+            f'interaction type {interaction!r} is not ported yet: '
+            'ROADMAP A.9')
 
     rb = config.get(K.RADIAL_BASIS, {K.RADIAL_BASIS_NAME: 'bessel'})
     assert rb.get(K.RADIAL_BASIS_NAME, 'bessel') == 'bessel'
@@ -74,6 +75,11 @@ def build_model_spec(config: Dict) -> ModelSpec:
     irreps_x = (
         Irreps(f'{channel}x0e') if not irreps_manual else irreps_manual[0]
     )
+    conv_denominator = config.get(K.CONV_DENOMINATOR, 1.0)
+    if not isinstance(conv_denominator, (list, tuple)):
+        conv_denominator = [conv_denominator] * num_layers
+    conv_denominator = [float(d) for d in conv_denominator]
+
     restrict_last = config.get(K._RESTRICT_LAST_LAYER, True)
     blocks = []
     cur_lmax_node = lmax_node
@@ -109,6 +115,7 @@ def build_model_spec(config: Dict) -> ModelSpec:
                 self_connection=self_connection,
                 biases=biases,
                 train_denominator=config.get(K.TRAIN_DENOMINATOR, False),
+                denominator=conv_denominator[t],
             )
         )
         irreps_x = blocks[-1].irreps_out

@@ -42,9 +42,10 @@ from ..irreps import Irreps
 from ..ops.fused_conv import conv_messages, layout_from_spec, stride_to_e3nn
 from ..ops.fused_conv_agg import conv_aggregate
 from ..ops.gate import GateSpec, apply_gate, gate_spec
-from ..ops.linear import LinearSpec, apply_linear, linear_spec
-from ..ops.mlp import mlp_apply
-from ..ops.radial import bessel_basis, poly_cutoff, xplor_cutoff
+from ..ops.linear import (LinearSpec, apply_linear, init_linear_weights,
+                          linear_spec)
+from ..ops.mlp import mlp_apply, mlp_init
+from ..ops.radial import bessel_basis, bessel_init, poly_cutoff, xplor_cutoff
 from ..ops.scatter import (aggregate_messages, gather_rows, inverse_perm,
                            scatter_rows, segment_sum_sorted, sort_perm)
 from ..ops.spherical import spherical_harmonics
@@ -83,6 +84,8 @@ class BlockSpec:
     si2: LinearSpec
     gate: GateSpec
     train_denominator: bool = False
+    # the convolution denominator a fresh model starts from (init_params)
+    denominator: float = 1.0
     # the JAX BlockSpec's kind fields: only nequip blocks with the CG
     # convolution are ported ('mace', 'gaunt' and 'custom' blocks and the
     # gaunt convolution are ROADMAP A.9)
@@ -131,6 +134,7 @@ def build_nequip_block(
     self_connection: str,
     biases: bool,
     train_denominator: bool = False,
+    denominator: float = 1.0,
 ) -> BlockSpec:
     """Assemble one interaction block (reference:
     sevenn/nn/interaction_blocks.py:22-86)."""
@@ -142,7 +146,8 @@ def build_nequip_block(
         sc = None
     elif self_connection == 'nequip':
         raise NotImplementedError(
-            "the 'nequip' (FCTP) self-connection is not ported yet")
+            "the 'nequip' (FCTP) self-connection is not ported yet: "
+            'ROADMAP A.6')
     else:
         raise ValueError(self_connection)
 
@@ -164,6 +169,7 @@ def build_nequip_block(
         si2=si2,
         gate=gate,
         train_denominator=train_denominator,
+        denominator=denominator,
     )
 
 
@@ -206,6 +212,45 @@ def param_shapes(spec: ModelSpec) -> Dict[str, Dict[str, Tuple[int, ...]]]:
     p['rescale_atomic_energy'] = {'shift': (len(spec.shift),),
                                   'scale': (len(spec.scale),)}
     return p
+
+
+def init_params(spec: ModelSpec, seed: int = 0
+                ) -> Dict[str, Dict[str, np.ndarray]]:
+    """Fresh parameters for a from-scratch run: the JAX package's
+    ``init_params``, numpy draws from ``np.random.default_rng(seed)`` in
+    its order, so the same spec and seed give the same arrays bit for
+    bit.  Load them with ``load_jax_params``."""
+    rng = np.random.default_rng(seed)
+    p: Dict[str, Dict[str, np.ndarray]] = {
+        'edge_embedding': {'bessel_coeffs': bessel_init(
+            spec.edge.cutoff, spec.edge.bessel_num).astype(np.float32)},
+        'onehot_to_feature_x': _linear_params(_embed_spec(spec), rng),
+    }
+    for blk in spec.blocks:
+        t = blk.t
+        if blk.self_connection == 'linear':
+            p[f'{t}_self_connection_intro'] = _linear_params(blk.sc_spec, rng)
+        p[f'{t}_self_interaction_1'] = _linear_params(blk.si1, rng)
+        conv = {f'weight_nn_w{i}': w
+                for i, w in enumerate(mlp_init(blk.radial_hs, rng))}
+        conv['denominator'] = np.array([blk.denominator], np.float32)
+        p[f'{t}_convolution'] = conv
+        p[f'{t}_self_interaction_2'] = _linear_params(blk.si2, rng)
+    if spec.readout.as_fcn:
+        p['readout_FCN'] = {f'w{i}': w for i, w in
+                            enumerate(mlp_init(spec.readout.fcn_hs, rng))}
+    else:
+        p['reduce_input_to_hidden'] = _linear_params(spec.readout.lin1, rng)
+        p['reduce_hidden_to_energy'] = _linear_params(spec.readout.lin2, rng)
+    p['rescale_atomic_energy'] = {
+        'shift': np.asarray(spec.shift, np.float32),
+        'scale': np.asarray(spec.scale, np.float32),
+    }
+    return p
+
+
+def _linear_params(s: LinearSpec, rng) -> Dict[str, np.ndarray]:
+    return {f'w{i}': w for i, w in enumerate(init_linear_weights(s, rng))}
 
 
 class NequIP(nn.Module):
@@ -277,9 +322,13 @@ EDGE_SRC_INV_PERM = '_edge_src_inv_perm'
 def batch_to_torch(batch: Dict[str, np.ndarray],
                    device) -> Dict[str, torch.Tensor]:
     """A collate batch as tensors on ``device`` (host-only keys dropped),
-    with the inverse of the src-sort permutation added."""
+    with the inverse of the src-sort permutation added; per-graph data
+    weights (``K.DATA_WEIGHT``) stay a dict of tensors."""
     out = {k: torch.as_tensor(v, device=device) for k, v in batch.items()
            if k not in (K.INFO, K.USER_LABEL, K.DATA_WEIGHT)}
+    if K.DATA_WEIGHT in batch:
+        out[K.DATA_WEIGHT] = {k: torch.as_tensor(v, device=device)
+                              for k, v in batch[K.DATA_WEIGHT].items()}
     perm = np.asarray(batch[K.EDGE_SRC_PERM])
     out[EDGE_SRC_INV_PERM] = torch.as_tensor(
         np.argsort(perm, kind='stable').astype(perm.dtype), device=device)
@@ -553,7 +602,13 @@ def apply_model(model: NequIP,
         out = energy_network(model, data, edge_vec)
         fij, = torch.autograd.grad(out[K.PRED_TOTAL_ENERGY].sum(), edge_vec)
     out = _forces_and_stress(out, data, edge_vec, fij)
-    return {k: v.detach() for k, v in out.items()}
+    return detach_outputs(out)
+
+
+def detach_outputs(out: Dict) -> Dict:
+    """Tensors detached; the data-weight dict passes through."""
+    return {k: v.detach() if isinstance(v, torch.Tensor) else v
+            for k, v in out.items()}
 
 
 def apply_model_train(model: NequIP,

@@ -11,6 +11,7 @@ import math
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..irreps import Irreps
@@ -63,6 +64,18 @@ def linear_spec(
             LinearInstruction(ins['i_in'], ins['i_out'], coeff, ins['shape'])
         )
     return LinearSpec(irreps_in, irreps_out, tuple(instructions), biases)
+
+
+def init_linear_weights(spec: LinearSpec, rng: np.random.Generator):
+    """e3nn init: standard-normal weights, zero biases (the JAX package's
+    draws, in its order, from the same generator)."""
+    out = []
+    for ins in spec.instructions:
+        if ins.i_in >= 0:
+            out.append(rng.standard_normal(ins.weight_shape).astype(np.float32))
+        else:
+            out.append(np.zeros(ins.weight_shape, dtype=np.float32))
+    return out
 
 
 def apply_linear(

@@ -8,11 +8,21 @@ final layer has no activation.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import List, Sequence
 
+import numpy as np
 import torch
 
 from .activations import get_activation
+
+
+def mlp_init(hs: Sequence[int], rng: np.random.Generator) -> List[np.ndarray]:
+    """Standard-normal weights (the variance is the 1/sqrt(fan_in) of
+    ``mlp_apply``), drawn as the JAX package draws them."""
+    return [
+        rng.standard_normal((h_in, h_out)).astype(np.float32)
+        for h_in, h_out in zip(hs[:-1], hs[1:])
+    ]
 
 
 def mlp_apply(

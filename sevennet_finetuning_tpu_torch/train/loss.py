@@ -4,14 +4,15 @@ Port of ``sevennet_finetuning_tpu/train/loss.py`` (reference:
 sevenn/train/loss.py:8-309).  Reductions are masked means over static
 padded batches: the mask combines padding and NaN labels ("unlabeled",
 which the reference filters out by boolean indexing -- identical in
-value).  Per-structure data weights and the ``custom`` loss plugin are
-not ported yet and raise ``NotImplementedError``.
+value).  Optional per-structure data weights multiply elementwise before
+the mean, as in the reference's weighted criterion.  The ``custom`` loss
+plugin is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -36,8 +37,10 @@ def _criterion(name: str, **params) -> Callable:
     raise ValueError(f'unknown loss: {name}')
 
 
-def _masked_mean(err, mask):
+def _masked_mean(err, mask, weights=None):
     mask = mask.to(err.dtype)
+    if weights is not None:
+        err = err * weights
     denom = torch.clamp(mask.sum(), min=1.0)
     return (err * mask).sum() / denom
 
@@ -52,29 +55,34 @@ class LossSpec:
     criterion_params: Tuple[Tuple[str, float], ...] = ()
 
 
-def energy_loss(out: Dict, crit: Callable) -> torch.Tensor:
+def energy_loss(out: Dict, crit: Callable,
+                weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     natoms = torch.clamp(out[K.NUM_ATOMS], min=1).to(
         out[K.PRED_TOTAL_ENERGY].dtype)
     pred = out[K.PRED_TOTAL_ENERGY] / natoms
     ref = out[K.ENERGY] / natoms
     mask = torch.isfinite(ref) & (out[K.NUM_ATOMS] > 0)
     ref = torch.where(mask, ref, torch.zeros_like(ref))
-    return _masked_mean(crit(pred, ref), mask)
+    return _masked_mean(crit(pred, ref), mask, weights)
 
 
-def force_loss(out: Dict, crit: Callable) -> torch.Tensor:
+def force_loss(out: Dict, crit: Callable,
+               weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     ref = out[K.FORCE]
     mask = torch.isfinite(ref) & (out[K.NODE_MASK][:, None] > 0)
     ref = torch.where(mask, ref, torch.zeros_like(ref))
-    return _masked_mean(crit(out[K.PRED_FORCE], ref), mask)
+    w = None if weights is None else weights[out[K.BATCH].long()][:, None]
+    return _masked_mean(crit(out[K.PRED_FORCE], ref), mask, w)
 
 
-def stress_loss(out: Dict, crit: Callable) -> torch.Tensor:
+def stress_loss(out: Dict, crit: Callable,
+                weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     pred = out[K.PRED_STRESS] * TO_KBAR
     ref = out[K.STRESS] * TO_KBAR
     mask = torch.isfinite(ref) & (out[K.NUM_ATOMS][:, None] > 0)
     ref = torch.where(mask, ref, torch.zeros_like(ref))
-    return _masked_mean(crit(pred, ref), mask)
+    w = None if weights is None else weights[:, None]
+    return _masked_mean(crit(pred, ref), mask, w)
 
 
 def ewc_penalty(params: Dict[str, Dict[str, torch.Tensor]],
@@ -98,27 +106,34 @@ def ewc_penalty(params: Dict[str, Dict[str, torch.Tensor]],
     return total
 
 
-def build_loss_fn(loss_specs: Tuple[LossSpec, ...], fisher=None,
+def build_loss_fn(loss_specs: Tuple[LossSpec, ...],
+                  use_data_weights: bool = False, fisher=None,
                   opt_params=None):
     """The total objective sum_i w_i * L_i(output).
 
     Returns f(params, output_dict) -> (total, {name: value}); ``params``
     (group -> name -> tensor) enters only through the EWC term (weight
     lambda/2, reference: sevenn/train/loss.py:298-307); ``fisher`` and
-    ``opt_params`` are tensors of the same layout."""
+    ``opt_params`` are tensors of the same layout.  With
+    ``use_data_weights`` the energy, force and stress terms take the
+    batch's per-graph weights (``K.DATA_WEIGHT``)."""
     crits = {ls.name: _criterion(ls.criterion, **dict(ls.criterion_params))
              for ls in loss_specs if ls.name != 'EWC'}
+    weight_key = {'Energy': K.PER_ATOM_ENERGY, 'Force': K.FORCE,
+                  'Stress': K.STRESS}
 
     def loss_fn(params, out):
         terms = {}
         total = 0.0
         for ls in loss_specs:
+            w = (out.get(K.DATA_WEIGHT, {}).get(weight_key[ls.name])
+                 if use_data_weights and ls.name in weight_key else None)
             if ls.name == 'Energy':
-                v = energy_loss(out, crits[ls.name])
+                v = energy_loss(out, crits[ls.name], w)
             elif ls.name == 'Force':
-                v = force_loss(out, crits[ls.name])
+                v = force_loss(out, crits[ls.name], w)
             elif ls.name == 'Stress':
-                v = stress_loss(out, crits[ls.name])
+                v = stress_loss(out, crits[ls.name], w)
             elif ls.name == 'EWC':
                 v = ewc_penalty(params, fisher, opt_params)
             else:
@@ -136,10 +151,8 @@ def loss_specs_from_config(config: Dict) -> Tuple[LossSpec, ...]:
     sevenn/train/loss.py:268-309)."""
     name = config.get(K.LOSS, 'mse')
     if str(name).lower() == 'custom':
-        raise NotImplementedError('the custom loss plugin is not ported yet')
-    if config.get(K.LOAD_DATASET_WITH_WEIGHTS, False):
-        raise NotImplementedError('per-structure data weights are not '
-                                  'ported yet')
+        raise NotImplementedError('the custom loss plugin is not ported '
+                                  'yet: ROADMAP A.9')
     lp = tuple(sorted(config.get(K.LOSS_PARAM, {}).items()))
     specs: List[LossSpec] = [
         LossSpec('Energy', 1.0, name, lp),

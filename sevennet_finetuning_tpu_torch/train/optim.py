@@ -1,14 +1,21 @@
-"""Optimizer and LR schedulers, reference-compatible registry.
+"""Optimizers and LR schedulers, reference-compatible registry.
 
 Port of ``sevennet_finetuning_tpu/train/optim.py``.  The epoch-based LR
 controllers (torch scheduler semantics, reference: sevenn/train/optim.py:
-6-29) are plain Python and copied as they are.  The optimizer is
-``torch.optim.Adam`` over the trainable leaves only: it computes optax's
-adam, lr * m_hat / (sqrt(v_hat) + eps) with eps outside the root, and a
-frozen leaf (the trainable mask, ``model.nequip.trainable_mask``) is
-never handed to it, so it neither moves nor keeps moments -- what
-``optax.masked`` + ``set_to_zero`` arranges in the JAX package.  Other
-optimizers are not ported yet and raise ``NotImplementedError``.
+6-29) are plain Python and copied as they are.  Every optimizer runs over
+the trainable leaves only: a frozen leaf (the trainable mask,
+``model.nequip.trainable_mask``) is never handed to it, so it neither
+moves nor keeps state -- what ``optax.masked`` + ``set_to_zero`` arranges
+in the JAX package.
+
+- adam is ``torch.optim.Adam``: lr * m_hat / (sqrt(v_hat) + eps), eps
+  outside the root, as optax computes it;
+- adamw, sgd (momentum, nesterov), adagrad and radam are ``OptaxRule``,
+  optax's update rules written out, because ``torch.optim`` differs:
+  ``optax.adagrad`` starts its accumulator at 0.1 and puts eps inside the
+  square root, ``optax.radam`` rectifies from rho >= 5 (torch: > 5) with
+  rho computed in float32, and optax's sgd trace is g + momentum * trace
+  from a zero trace.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from .. import keys as K
@@ -201,27 +209,143 @@ SCHEDULERS = {
 
 
 # ---------------------------------------------------------------------------
-# optimizer
+# optimizers
 # ---------------------------------------------------------------------------
+
+def _int_pow_f32(x: float, n: int) -> np.float32:
+    """x ** n in float32 by binary exponentiation, the bits XLA gives for
+    a float raised to an int32 count."""
+    acc, base = np.float32(1), np.float32(x)
+    while n:
+        if n & 1:
+            acc = np.float32(acc * base)
+        base = np.float32(base * base)
+        n >>= 1
+    return acc
+
+
+class OptaxRule(torch.optim.Optimizer):
+    """adamw, sgd, adagrad or radam, each step as optax computes it
+    (``optax.adamw`` / ``sgd`` / ``adagrad`` / ``radam`` with the
+    arguments the JAX package's ``_optimizer_core`` passes)."""
+
+    RULES = ('adamw', 'sgd', 'adagrad', 'radam')
+
+    def __init__(self, params, rule: str, lr: float,
+                 betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 1e-2, momentum: float = 0.0,
+                 nesterov: bool = False,
+                 initial_accumulator_value: float = 0.1):
+        if rule not in self.RULES:
+            raise ValueError(f'unknown optimizer: {rule}')
+        self.rule = rule
+        super().__init__(params, dict(
+            lr=lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay,
+            momentum=momentum, nesterov=nesterov,
+            initial_accumulator_value=initial_accumulator_value))
+
+    def _init_state(self, p, group):
+        state = self.state[p]
+        if state:
+            return state
+        state['step'] = 0
+        if self.rule in ('adamw', 'radam'):
+            state['mu'] = torch.zeros_like(p)
+            state['nu'] = torch.zeros_like(p)
+        elif self.rule == 'sgd':
+            state['trace'] = torch.zeros_like(p)
+        else:
+            state['sum_of_squares'] = torch.full_like(
+                p, group['initial_accumulator_value'])
+        return state
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group['params']:
+                if p.grad is None:
+                    continue
+                state = self._init_state(p, group)
+                state['step'] += 1
+                update = getattr(self, f'_{self.rule}')(
+                    p, p.grad, state, group)
+                p.add_(update * -group['lr'])
+
+    @staticmethod
+    def _moments(g, state, group):
+        """optax's update_moment / _per_elem_norm and bias correction."""
+        b1, b2 = group['betas']
+        t = state['step']
+        state['mu'] = (1 - b1) * g + b1 * state['mu']
+        state['nu'] = (1 - b2) * (g * g) + b2 * state['nu']
+        mu_hat = state['mu'] / np.float32(1 - np.float32(b1) ** t)
+        nu_hat = state['nu'] / np.float32(1 - np.float32(b2) ** t)
+        return mu_hat, nu_hat
+
+    def _adamw(self, p, g, state, group):
+        mu_hat, nu_hat = self._moments(g, state, group)
+        return (mu_hat / (torch.sqrt(nu_hat) + group['eps'])
+                + group['weight_decay'] * p)
+
+    def _sgd(self, p, g, state, group):
+        state['trace'] = g + group['momentum'] * state['trace']
+        if group['nesterov']:
+            return g + group['momentum'] * state['trace']
+        return state['trace']
+
+    def _adagrad(self, p, g, state, group):
+        s = g * g + state['sum_of_squares']
+        state['sum_of_squares'] = s
+        inv = torch.where(s > 0, torch.rsqrt(s + group['eps']),
+                          torch.zeros_like(s))
+        return inv * g
+
+    def _radam(self, p, g, state, group):
+        mu_hat, nu_hat = self._moments(g, state, group)
+        # rho and the rectifier in float32, as optax computes them
+        # (rho = 1999 - 1993.x at step 6: the cancellation turns one ulp
+        # of b2^t into 3e-3 of rho)
+        f32 = np.float32
+        b2 = group['betas'][1]
+        ro_inf = f32(2.0 / (1.0 - b2) - 1.0)
+        b2t = _int_pow_f32(b2, state['step'])
+        ro = ro_inf - f32(2 * state['step']) * b2t / (f32(1) - b2t)
+        if ro < f32(5.0):
+            return mu_hat
+        r = np.sqrt((ro - f32(4)) * (ro - f32(2)) * ro_inf
+                    / ((ro_inf - f32(4)) * (ro_inf - f32(2)) * ro))
+        return f32(r) * mu_hat / (torch.sqrt(nu_hat) + group['eps'])
+
 
 def build_optimizer(config: Dict, params: Dict[str, Dict[str, torch.nn.Parameter]],
                     trainable_mask: Dict[str, Dict[str, bool]]):
-    """(torch.optim.Adam over the trainable leaves, LRController).  The
+    """(the optimizer over the trainable leaves, LRController).  The
     controller's LR is written into the optimizer by ``set_lr``."""
     optim_param = dict(config.get(K.OPTIM_PARAM, {}))
     lr = float(optim_param.pop('lr', 1e-3))
     name = str(config.get(K.OPTIMIZER, 'adam')).lower()
-    if name != 'adam':
-        raise NotImplementedError(f'optimizer {name!r} is not ported yet '
-                                  '(adam is)')
     sched_name = config.get(K.SCHEDULER, 'constant')
     sched_param = dict(config.get(K.SCHEDULER_PARAM, {}))
     controller = SCHEDULERS[sched_name.lower()](lr, **sched_param)
     leaves = [p for group, names in params.items()
-              for name, p in names.items() if trainable_mask[group][name]]
+              for name_, p in names.items() if trainable_mask[group][name_]]
     betas = tuple(optim_param.get('betas', (0.9, 0.999)))
-    opt = torch.optim.Adam(leaves, lr=controller.lr, betas=betas,
-                           eps=optim_param.get('eps', 1e-8))
+    if name == 'adam':
+        opt = torch.optim.Adam(leaves, lr=controller.lr, betas=betas,
+                               eps=optim_param.get('eps', 1e-8))
+    elif name in ('adamw', 'radam'):
+        opt = OptaxRule(leaves, name, controller.lr, betas=betas,
+                        eps=optim_param.get('eps', 1e-8),
+                        weight_decay=optim_param.get('weight_decay', 1e-2))
+    elif name == 'sgd':
+        opt = OptaxRule(leaves, name, controller.lr,
+                        momentum=optim_param.get('momentum', 0.0),
+                        nesterov=optim_param.get('nesterov', False))
+    elif name == 'adagrad':
+        opt = OptaxRule(leaves, name, controller.lr,
+                        eps=optim_param.get('eps', 1e-10))
+    else:
+        raise ValueError(f'unknown optimizer: {name}')
     return opt, controller
 
 

@@ -20,12 +20,14 @@ from typing import Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import keys as K
 from .. import resolve_device
 from ..model.nequip import (
     NequIP,
     apply_model,
     apply_model_train,
     batch_to_torch,
+    detach_outputs,
     load_jax_params,
     trainable_mask,
 )
@@ -75,7 +77,9 @@ class Trainer:
         self.loss_specs = loss_specs_from_config(config)
         self.metric_specs = metric_specs_from_config(config)
         self.loss_fn = build_loss_fn(
-            self.loss_specs, fisher=_tree_to(fisher, self.device),
+            self.loss_specs,
+            use_data_weights=config.get(K.LOAD_DATASET_WITH_WEIGHTS, False),
+            fisher=_tree_to(fisher, self.device),
             opt_params=_tree_to(opt_params, self.device))
         self.optimizer, self.lr_controller = build_optimizer(
             config, self.params, trainable_mask(self.spec))
@@ -98,7 +102,7 @@ class Trainer:
         total.backward()
         self.optimizer.step()
         with torch.no_grad():
-            out = {k: v.detach() for k, v in out.items()}
+            out = detach_outputs(out)
             terms = {k: v.detach() for k, v in terms.items()}
             acc = update_accumulators(self.metric_specs, acc, out, terms,
                                       total.detach())
@@ -207,6 +211,11 @@ class Trainer:
 
     def get_lr(self) -> float:
         return self.lr_controller.lr
+
+    def synchronize(self):
+        """Wait for the queued device work (JAX's block_until_ready)."""
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
 
     def get_checkpoint_dict(self) -> Dict:
         return {

@@ -140,6 +140,26 @@ def test_port_imports_no_jax():
         'assert torch.equal(bench_dma.copy_ring(slab, 8, 2),\n'
         '                   slab * bench_dma.C)\n'
         'assert bench_dma.colsum(slab, 8).shape == (1, 64)\n'
+        # the train CLI from scratch on the CPU: config, presets, pipeline,
+        # init_params, epoch loop, checkpoint writing and reading
+        'import tempfile\n'
+        'from pathlib import Path\n'
+        'from sevennet_finetuning_tpu_torch.main import main as cli\n'
+        'from sevennet_finetuning_tpu_torch.train.checkpoint import '
+        'load_checkpoint\n'
+        'tmp = Path(tempfile.mkdtemp())\n'
+        '(tmp / "in.yaml").write_text("\\n".join([\n'
+        '    "model: {chemical_species: auto, cutoff: 4.0, channel: 4, "\n'
+        '    "lmax: 1, num_convolution_layer: 2, is_parity: false, "\n'
+        '    "self_connection_type: linear}",\n'
+        '    "train: {epoch: 1, per_epoch: 1}",\n'
+        f'    "data: {{batch_size: 2, load_dataset_path: [{str(FT)}], "\n'
+        '    "data_divide_ratio: 0.2}"]))\n'
+        'cli(["train", str(tmp / "in.yaml"), "-w", str(tmp / "out"), '
+        '"--device", "cpu"])\n'
+        'blob = load_checkpoint(str(tmp / "out" / "checkpoint_1.pth"))\n'
+        'assert blob["epoch"] == 1 and blob["optimizer_state_dict"]\n'
+        'cli(["preset", "base"])\n'
         'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
         '("jax", "jaxlib", "optax") or m.split(".")[0] == '
         '"sevennet_finetuning_tpu")\n'

@@ -29,6 +29,12 @@ Regenerate both with
 
     python tests/test_torch_train.py
 
+and the pipeline golden (``pipeline_ft_jax_cpu.npz``: the JAX CLI's
+Fisher and reEWC fine-tune stages of ``recipe.pipeline_stages``, which
+``chip_smoke.py`` holds the port's CLI against) with
+
+    python tests/test_torch_train.py pipeline
+
 Tolerances (float32 sums in another order through a double backward):
 per-step total loss rel 1e-4; each term within 1e-4 of the step's total
 loss (the per-atom energy term squares an error of ~1e-4 eV/atom, which
@@ -441,7 +447,70 @@ def _write_goldens():
     print(f'wrote {GOLDEN_FT900}: totals {arrays["Total"]}')
 
 
+def run_jax_stages(workdir):
+    """The two stages of ``recipe.pipeline_stages`` through the JAX
+    package's CLI (``cmd_train``, as ``main train`` runs it) in
+    ``workdir``: the Fisher stage with ``-fs`` into ``fisher_out``, then
+    the fine-tune into ``ft_out``."""
+    import argparse
+
+    import yaml
+
+    from sevennet_finetuning_tpu.main import cmd_train as j_cmd_train
+    from sevennet_finetuning_tpu_torch.train.recipe import pipeline_stages
+
+    _no_native()
+    workdir = Path(workdir)
+    fisher_dir = workdir / 'fisher_out'
+    for name, cfg, wd, fs in zip(
+            ('fisher', 'ft'), pipeline_stages(ROOT, str(fisher_dir)),
+            (fisher_dir, workdir / 'ft_out'), (True, False)):
+        path = workdir / f'{name}_input.yaml'
+        path.write_text(yaml.safe_dump(cfg))
+        j_cmd_train(argparse.Namespace(input=str(path), working_dir=str(wd),
+                                       calc_fisher=fs, distributed=False))
+    return fisher_dir, workdir / 'ft_out'
+
+
+def _write_pipeline_golden():
+    """``golden/pipeline_ft_jax_cpu.npz``: the Fisher stage's Fisher
+    leaves (``fisher/<group>/<name>``) and the sha256 of each anchor leaf
+    (``opt_params_sha256/...``), and the fine-tune's log.csv, a column
+    an array over the epochs (``csv/<column>``)."""
+    import csv
+    import hashlib
+    import tempfile
+
+    from sevennet_finetuning_tpu.train.checkpoint import (
+        load_pytree as j_load_pytree)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        fisher_dir, ft_dir = run_jax_stages(tmp)
+        arrays = {}
+        fisher = j_load_pytree(str(fisher_dir / 'fisher_sevenn.pt'))
+        anchor = j_load_pytree(str(fisher_dir / 'opt_params_sevenn.pt'))
+        for g, names in fisher.items():
+            for n, v in names.items():
+                arrays[f'fisher/{g}/{n}'] = np.asarray(v, np.float32)
+                a = np.ascontiguousarray(anchor[g][n], np.float32)
+                arrays[f'opt_params_sha256/{g}/{n}'] = np.array(
+                    hashlib.sha256(a.tobytes()).hexdigest())
+        with open(ft_dir / 'log.csv') as f:
+            rows = list(csv.DictReader(f))
+        for col in rows[0]:
+            arrays[f'csv/{col}'] = np.array([float(r[col]) for r in rows])
+        arrays['checkpoints'] = np.array(sorted(
+            p.name for p in ft_dir.glob('checkpoint_*.pth')))
+    out = GOLDEN / 'pipeline_ft_jax_cpu.npz'
+    np.savez_compressed(out, **arrays)
+    print(f'wrote {out}: epochs {arrays["csv/epoch"]}, valid totals '
+          f'{arrays["csv/valid_TotalLoss_None"]}')
+
+
 if __name__ == '__main__':
     sys.path.insert(0, str(ROOT))
     jax.config.update('jax_platforms', 'cpu')
-    _write_goldens()
+    if sys.argv[1:] == ['pipeline']:
+        _write_pipeline_golden()
+    else:
+        _write_goldens()
