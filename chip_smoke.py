@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives ``sevennet_finetuning_tpu_torch`` (never JAX) through nine phases
+Drives ``sevennet_finetuning_tpu_torch`` (never JAX) through ten phases
 and exits non-zero if any fails:
 
 1. build   -- compile every CUDA source of ``csrc/`` (one nvcc each, in
@@ -106,6 +106,37 @@ and exits non-zero if any fails:
               forward + fij and one whole pass (the census's: forward, fij
               with create_graph, parameter gradient), each csrc family's
               profiled launches equal to its census.
+10. md     -- molecular dynamics at SevenNet-0's full width, on the native
+              neighbor list (the earlier phases keep the cKDTree one their
+              goldens were made with): ``main get_model`` deploys the
+              checkpoint to the npz artifact, ``Calculator.from_deployed``
+              and ``main inference`` serve ft.extxyz from it (the serving
+              golden's limits); ``Calculator(d3=pbe/bj)``'s D3 terms and
+              totals against ``golden/md_hfo2_jax_cpu.npz`` (D3 energy rel
+              1e-5, forces and stress 1e-4 of max; totals at the serving
+              limits); ``VelocityVerlet.run_device`` on structure 0 of
+              ft900.extxyz (96-atom HfO2, 500 K, seed 0, dt 2 fs, skin
+              0.5 A, segments of 10): 20 steps, and 10 with D3, against
+              the golden (the same steps per segment, E_pot each step rel
+              1e-5, positions 1e-4 A, E_kin rel 1e-4, velocities 1e-6 +
+              1e-3 |v|); ``run`` against ``run_device``
+              from the same start (10 steps, the same limits) and with D3
+              against the golden; the 2x2x2 replicate (768 atoms): E_pot
+              8x the cell's (rel 1e-5), the replicas' forces (1e-4 of
+              max), 20 device-loop steps under the NVE drift bound 5e-4
+              eV/atom; the FCTP self-connection (EXAMPLE_MD_MODEL,
+              init_params(spec, 0)) served on the card against the same
+              model on the CPU and 5 device-loop steps.  Each force
+              evaluation must launch agg 5 (FCTP 4), multi 5 (4) and
+              segment-sum >= 8 (FCTP 7; 5 more with D3); ``segment_sum``,
+              ``cg_agg`` and ``cg_multi`` are held against their plain
+              versions at every distinct shape the phase launches them
+              (requests, D3 terms, MD steps at 96 and 768 atoms with and
+              without D3, the FCTP model's 4-channel chunks).  Prints ms
+              per step and steps/s of ``run_device`` and ``run`` at 96 and
+              768 atoms with and without D3, the steps per segment, peak
+              memory and, from a profile of a 10-step run, the device busy
+              share.
 
 Before the last line it prints the card's name and power limit and a
 JSON line with every kernel's numbers; the last line is
@@ -119,8 +150,10 @@ prints how far the card's and the JAX-CPU golden's loss trajectories and
 first-step gradients lie from the float64 ones (several minutes of CPU).
 """
 
+import contextlib
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -198,6 +231,7 @@ PATH_KERNELS = {
                  'cg_gmulti'),
     'unsorted': ('segment_sum', 'cg_quad'),
     'probes': PROBES,
+    'md': ('segment_sum', 'cg_agg', 'cg_multi'),
 }
 # the path whose count a kernel's "launches" reports: the train step for
 # the kernels of the sorted convolution, the unsorted pass for cg_quad
@@ -278,6 +312,44 @@ PIPELINE_FISHER_TOL_LEAF = {k: 2 * v for k, v in GRAD_TOL_LEAF['ft12'].items()}
 #   of the prediction it measures.
 PIPELINE_EPOCH1_TOL = STEP0_TOL
 PIPELINE_LATER_TOL = TRAJ_TOL
+# the md phase: the golden run's settings (tests/test_torch_md.py's MD and
+# D3, which a CPU test holds equal to these)
+GOLDEN_MD = PKG / 'golden/md_hfo2_jax_cpu.npz'
+MD = dict(T=500.0, seed=0, dt=2.0, skin=0.5, seg_steps=10, n_steps=20,
+          n_steps_d3=10)
+MD_D3 = {'functional': 'pbe', 'damping': 'bj'}
+# against the JAX-CPU golden: positions after the run, E_pot each step; the
+# D3 energy, and its forces and stress per max|.| (float32 sums over ~709k
+# pairs in another order); the GNN + D3 totals at the serving limits
+MD_POS_TOL = 1e-4
+MD_EPOT_TOL = 1e-5
+# E_kin and the final velocities at the CPU test's limits
+# (tests/test_torch_md.py): E_kin 1e-4 rel, |dv| <= 1e-6 + 1e-3 |v| A/fs
+MD_EKIN_TOL = 1e-4
+MD_VEL_ATOL, MD_VEL_RTOL = 1e-6, 1e-3
+D3_ENERGY_TOL = 1e-5
+D3_TERM_TOL = 1e-4
+# the 2x2x2 replicate: E_pot 8x the cell's, the replicas' forces equal
+# (per max|f|), and the JAX package's NVE bound (tests/test_md_device.py)
+MD_EXTENSIVE_TOL = 1e-5
+MD_REPLICA_FORCE_TOL = 1e-4
+MD_DRIFT_TOL = 5e-4
+# steps: the host loop against the device loop from the same start, the
+# 768-atom device run, the FCTP model's device run; then the timed runs
+MD_RUN_STEPS = 10
+MD768_STEPS = 20
+FCTP_STEPS = 5
+MD_TIMED_STEPS = {'96': 20, '96 d3': 10, '768': 20, '768 d3': 5}
+MD_TIMED_RUN_STEPS = {'96': 10, '96 d3': 3, '768': 5, '768 d3': 2}
+# launches of one force evaluation (segment sums: the least), the serve
+# census: the energy, the two force sums, the virial and the src-side
+# scatter of blocks 1-4; D3 adds five segment sums (its coordination sum,
+# and the scatters by i and j of the backward of its gathers of the
+# coordination numbers and of the positions)
+MD_CENSUS = {'cg_agg': 5, 'cg_multi': 5, 'segment_sum': 8}
+D3_SEGMENT_SUMS = 5
+# the FCTP model (EXAMPLE_MD_MODEL) has four convolutions
+FCTP_CENSUS = {'cg_agg': 4, 'cg_multi': 4, 'segment_sum': 7}
 # each raw loss term (not weighted by its share of the total) at the
 # checkpoint's parameters, batch 8: within 2e-3 of its JAX value (readings
 # up to 4.7e-4, the energy term's float32 residual; ft12's 12-atom energy
@@ -1032,7 +1104,8 @@ def profile_device(label, fn, top=12):
     """One run of ``fn`` under torch.profiler: wall time, device busy
     share (device time / wall time) and device time by kernel, each csrc
     family summed into one row beside its census (the launches its
-    wrapper counted in the same run), which its count must equal."""
+    wrapper counted in the same run), which its count must equal.
+    Returns (wall ms, device busy ms or None)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1052,7 +1125,7 @@ def profile_device(label, fn, top=12):
     if not rows:
         log(f'[profile] {label}: device time not measured (the profiler '
             'recorded no device events)')
-        return
+        return wall, None
     busy = sum(r[2] for r in rows)
     log(f'[profile] {label}: wall {wall:.3f} ms under the profiler, '
         f'device busy {busy:.3f} ms ({100 * busy / wall:.1f}%), '
@@ -1073,6 +1146,7 @@ def profile_device(label, fn, top=12):
     if profiled != census:
         raise AssertionError(f'{label}: profiled launches by family '
                              f'{profiled} differ from the census {census}')
+    return wall, busy
 
 
 def phase_profile(calc, batch):
@@ -1609,7 +1683,10 @@ def force_pass(energy_fn, model, data, weights=None):
 
 
 def _max_rel(got, want):
-    """max|got - want| / max|want|."""
+    """max|got - want| / max|want| (tensors or numpy arrays)."""
+    import torch
+
+    got, want = torch.as_tensor(got), torch.as_tensor(want)
     return float((got - want).abs().max()) / max(float(want.abs().max()),
                                                  1e-30)
 
@@ -1726,6 +1803,488 @@ def phase_unsorted(batch):
     return counts
 
 
+@contextlib.contextmanager
+def neighbor_builder(name):
+    """The port's neighbor list inside the block: 'native' (the compiled
+    core, its default) or 'ckdtree' (scipy), through the SEVENN_NO_NATIVE
+    switch of ``data/neighborlist.py``; the switch is restored after."""
+    old = os.environ.pop('SEVENN_NO_NATIVE', None)
+    if name == 'ckdtree':
+        os.environ['SEVENN_NO_NATIVE'] = '1'
+    try:
+        yield
+    finally:
+        os.environ.pop('SEVENN_NO_NATIVE', None)
+        if old is not None:
+            os.environ['SEVENN_NO_NATIVE'] = old
+
+
+def _shape_key(a):
+    """A launch argument as it enters a capture key: a tensor by its
+    shape, a hashable option by its value, anything else by identity."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return tuple(a.shape)
+    try:
+        hash(a)
+    except TypeError:
+        return id(a)
+    return a
+
+
+class KernelCapture:
+    """While active, the wrappers of ``segment_sum``, ``cg_agg`` and
+    ``cg_multi`` launch as usual (and count), and the first call at each
+    distinct shape (the argument shapes and the options) keeps its card
+    tensors and result; ``check`` then holds every kept result against
+    the kernel's plain version on the same tensors and lets the tensors
+    go.  A shape checked once is not kept again, so every distinct shape
+    launched while the capture is active is checked exactly once; leaving
+    it with a kept launch unchecked fails."""
+
+    def __init__(self):
+        self.records = {}
+        self.checked = set()
+        self.worst = {}               # check label -> {kernel: max_abs_err}
+
+    def __enter__(self):
+        from sevennet_finetuning_tpu_torch.ops import fused_conv_agg as A
+        from sevennet_finetuning_tpu_torch.ops import fused_conv_multi as M
+        from sevennet_finetuning_tpu_torch.ops import scatter as S
+
+        self.patched = [(S, 'segment_sum_cuda', 'segment_sum',
+                         S.segment_sum_plain),
+                        (A, 'agg_cuda', 'cg_agg', A.agg_plain),
+                        (M, 'multi_cuda', 'cg_multi', M.multi_plain)]
+        self.originals = [getattr(mod, attr)
+                          for mod, attr, _, _ in self.patched]
+        for (mod, attr, name, _), orig in zip(self.patched, self.originals):
+            setattr(mod, attr, self._wrap(name, orig))
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        for (mod, attr, _, _), orig in zip(self.patched, self.originals):
+            setattr(mod, attr, orig)
+        if exc_type is None and self.records:
+            raise AssertionError(f'{len(self.records)} kernel launches kept '
+                                 'and never checked')
+
+    def _wrap(self, name, orig):
+        import torch
+
+        def fn(*args):
+            out = orig(*args)
+            key = (name,) + tuple(_shape_key(a) for a in args)
+            if key not in self.records and key not in self.checked:
+                kept = (tuple(o.detach().clone() for o in out)
+                        if isinstance(out, tuple) else out.detach().clone())
+                self.records[key] = (tuple(
+                    a.detach() if isinstance(a, torch.Tensor) else a
+                    for a in args), kept)
+            return out
+
+        return fn
+
+    def check(self, label):
+        """Each launch kept since the last check against its plain
+        version: ``cg_agg`` and ``cg_multi`` on the same card tensors
+        within KERNEL_TOL; ``segment_sum`` bit for bit against its plain
+        version on the host CPU, which adds each row's edges in edge order
+        as the kernel does (on the card the plain version's ``index_add_``
+        adds in the order its atomics land: 2.3e-6 of max off the kernel
+        over the 58,880 edges of the 768-atom virial).  Returns {kernel:
+        largest max_abs_err} over the shapes first seen since the last
+        check, kept under ``label`` in ``worst``."""
+        plains = {name: plain for _, _, name, plain in self.patched}
+        worst = {}
+        for key, (args, got) in self.records.items():
+            name = key[0]
+            if name == 'segment_sum':
+                msg, dst, n = args
+                err = compare(f'{label} {name} {tuple(msg.shape)} -> {n}',
+                              got.cpu(), plains[name](msg.cpu(), dst.cpu(),
+                                                      n), 0.0)
+            else:
+                err = compare(f'{label} {name} {tuple(args[0].shape)}',
+                              got, plains[name](*args))
+            worst[name] = max(worst.get(name, 0.0), err)
+        log(f'  {label}: {len(self.records)} new kernel shapes checked '
+            f'against their plain versions, {len(self.checked)} before')
+        self.checked.update(self.records)
+        self.records.clear()
+        if worst:
+            self.worst[label] = worst
+
+
+def md_census(label, got, n_evals, d3, per_eval=MD_CENSUS):
+    """The launches of ``n_evals`` force evaluations: agg 5 and multi 5
+    each, at least 8 segment sums each (13 with D3), nothing else
+    (``per_eval``: the counts of one evaluation without D3, segment sums
+    as the least)."""
+    want = {k: v * n_evals for k, v in per_eval.items()
+            if k != 'segment_sum'}
+    min_seg = (per_eval['segment_sum']
+               + (D3_SEGMENT_SUMS if d3 else 0)) * n_evals
+    others = {k: v for k, v in got.items()
+              if v and k not in ('cg_agg', 'cg_multi', 'segment_sum')}
+    if (any(got.get(k, 0) != v for k, v in want.items())
+            or got.get('segment_sum', 0) < min_seg or others):
+        raise AssertionError(f'{label}: launches {got}, expected {want} '
+                             f'and segment_sum >= {min_seg} over {n_evals} '
+                             'force evaluations, nothing else')
+
+
+def _launch_diff(before):
+    from sevennet_finetuning_tpu_torch.ops import _cuda
+
+    return {k: _cuda.LAUNCHES[k] - before.get(k, 0) for k in _cuda.KERNELS
+            if _cuda.LAUNCHES[k] - before.get(k, 0)}
+
+
+def check_served(label, res, energy, forces, stress, e_tol=GOLDEN_ENERGY_TOL,
+                 f_tol=GOLDEN_FIJ_TOL):
+    e_rel = abs(res['energy'] - energy) / abs(energy)
+    f_rel = _max_rel(res['forces'], forces)
+    s_rel = _max_rel(res['stress'], stress)
+    log(f'  {label}: energy rel {e_rel:.2e}, forces rel {f_rel:.2e}, '
+        f'stress rel {s_rel:.2e}')
+    if not (e_rel <= e_tol and f_rel <= f_tol and s_rel <= f_tol):
+        raise AssertionError(f'{label} disagrees with the golden file')
+
+
+def check_md_golden(label, vv, gold, tag):
+    """A device-loop run from the golden start against the golden's: the
+    steps per segment, E_pot and E_kin each step, the final positions and
+    velocities."""
+    import numpy as np
+
+    done = list(vv.result.segments)
+    want_done = [int(x) for x in gold[f'{tag}_done']]
+    epot = np.array(vv.result.energies)
+    e_rel = float(np.max(np.abs(epot - gold[f'{tag}_epot'])
+                         / np.abs(gold[f'{tag}_epot'])))
+    k_rel = float(np.max(np.abs(np.array(vv.result.kinetic)
+                                - gold[f'{tag}_ekin'])
+                         / np.abs(gold[f'{tag}_ekin'])))
+    pos_err = float(np.abs(vv.s.pos - gold[f'{tag}_pos']).max())
+    vel_gold = gold[f'{tag}_vel']
+    vel_err = float(np.abs(vv.vel - vel_gold).max())
+    # the largest |dv| over its limit (1 or less holds)
+    vel_share = float(np.max(np.abs(vv.vel - vel_gold)
+                             / (MD_VEL_ATOL + MD_VEL_RTOL * np.abs(vel_gold))))
+    log(f'  {label}: steps per segment {done} (golden {want_done}), E_pot '
+        f'rel {e_rel:.2e} (limit {MD_EPOT_TOL:g}), positions max-abs '
+        f'{pos_err:.2e} A (limit {MD_POS_TOL:g}), E_kin rel {k_rel:.2e} '
+        f'(limit {MD_EKIN_TOL:g}), velocities max-abs {vel_err:.2e} A/fs '
+        f'({vel_share:.2e} of the limit {MD_VEL_ATOL:g} + {MD_VEL_RTOL:g} '
+        f'|v|)')
+    if done != want_done:
+        raise AssertionError(f'{label}: steps per segment {done}, golden '
+                             f'{want_done}')
+    if not (e_rel <= MD_EPOT_TOL and pos_err <= MD_POS_TOL
+            and k_rel <= MD_EKIN_TOL and vel_share <= 1.0):
+        raise AssertionError(f'{label} disagrees with the golden file')
+
+
+def timed_md(label, fn, n_steps, results):
+    """Host clock around ``fn`` (n_steps MD steps) to a device sync; peak
+    memory over it."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    results[label] = dict(ms_per_step=round(ms, 3),
+                          steps_per_s=round(1e3 / ms, 3),
+                          peak_gib=round(peak, 3), steps=n_steps)
+    log(f'  [time] {label}: {ms:.3f} ms per step, {1e3 / ms:.2f} steps/s '
+        f'over {n_steps} steps, peak memory {peak:.3f} GiB')
+
+
+def md_768_d3(big, new_md, calc_d3, cap, times):
+    """The 768-atom runs with D3 (~5.7 million D3 pairs): first, untimed,
+    the host loop's first force evaluation (``calc_d3.calculate`` at the
+    start positions) and a 2-step segment of the device loop, their kernel
+    launches held against their plain versions; then both loops timed,
+    their energies finite."""
+    import numpy as np
+
+    calc_d3.calculate(big)
+    new_md(big).run_device(2, seg_steps=MD['seg_steps'])
+    cap.check('md 768-atom D3 step')
+    vv = new_md(big)
+    timed_md('768 d3 run_device', lambda: vv.run_device(
+        MD_TIMED_STEPS['768 d3'], seg_steps=MD['seg_steps']),
+        MD_TIMED_STEPS['768 d3'], times)
+    host = new_md(big)
+    timed_md('768 d3 run', lambda: host.run(MD_TIMED_RUN_STEPS['768 d3']),
+             MD_TIMED_RUN_STEPS['768 d3'], times)
+    for label, v in (('768 d3 run_device', vv), ('768 d3 run', host)):
+        if not np.isfinite(v.result.total).all():
+            raise AssertionError(f'{label}: non-finite energies')
+    cap.check('md 768-atom D3 timed runs')
+
+
+def phase_md():
+    """Molecular dynamics on the card at SevenNet-0's full width: deploy
+    the checkpoint (``main get_model``), serve ft.extxyz from the
+    artifact and through ``main inference``, D3 terms, the device and
+    host MD loops at 96 and 768 atoms with and without D3, the FCTP
+    model; every distinct shape at which the phase launches a kernel is
+    held against the kernel's plain version (``KernelCapture``).  The
+    native neighbor list, as the MD and serving goldens were made.
+    Returns the launch counts of the phase."""
+    with neighbor_builder('native'), KernelCapture() as cap:
+        return _md_runs(cap)
+
+
+def _md_runs(cap):
+    import csv
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sevennet_finetuning_tpu_torch import keys as K
+    from sevennet_finetuning_tpu_torch.calculator import Calculator
+    from sevennet_finetuning_tpu_torch.compat.known_models import (
+        EXAMPLE_MD_MODEL)
+    from sevennet_finetuning_tpu_torch.data.native import native_available
+    from sevennet_finetuning_tpu_torch.data.readers import read_extxyz
+    from sevennet_finetuning_tpu_torch.data.vasp import replicate
+    from sevennet_finetuning_tpu_torch.main import main as cli
+    from sevennet_finetuning_tpu_torch.md import VelocityVerlet
+    from sevennet_finetuning_tpu_torch.model.build import build_model_spec
+    from sevennet_finetuning_tpu_torch.model.nequip import init_params
+    from sevennet_finetuning_tpu_torch.ops import _cuda
+    from sevennet_finetuning_tpu_torch.train.checkpoint import load_deployed
+
+    t_phase = time.perf_counter()
+    log(f'[md] neighbor list: '
+        f'{"native" if native_available() else "cKDTree (no g++)"}')
+    gold = np.load(GOLDEN_MD)
+    serve_gold = np.load(GOLDEN)
+    structs = read_extxyz(str(FT))
+    s0 = read_extxyz(str(FT900))[0]
+    times = {}
+    _cuda.LAUNCHES.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        art = os.path.join(tmp, 'deployed_serial.sevenn')
+        cli(['get_model', str(CKPT), '-o', art])
+        calc = Calculator.from_deployed(art, device='cuda')
+        calc.calculate(structs[0])                    # warm-up
+        for i, s in enumerate(structs):
+            before = dict(_cuda.LAUNCHES)
+            res = calc.calculate(s)
+            md_census(f'deployed request {i}', _launch_diff(before), 1,
+                      False)
+            check_served(f'deployed request {i} ({len(s)} atoms)', res,
+                         serve_gold['energy'][i], serve_gold[f'forces_{i}'],
+                         serve_gold['stress'][i])
+        out_dir = os.path.join(tmp, 'inference')
+        t0 = time.perf_counter()
+        cli(['inference', art, str(FT), '-o', out_dir, '-b', '5'])
+        log(f'  main inference: {time.perf_counter() - t0:.3f} s wall')
+        with open(os.path.join(out_dir, 'per_graph.csv')) as f:
+            graphs = list(csv.DictReader(f))
+        with open(os.path.join(out_dir, 'per_atom.csv')) as f:
+            atoms = list(csv.DictReader(f))
+        for i, row in enumerate(graphs):
+            forces = np.array([[float(a['fx']), float(a['fy']),
+                                float(a['fz'])]
+                               for a in atoms if int(a['graph']) == i])
+            stress = np.array(json.loads(row['stress_kbar'])) / 1602.1766208
+            check_served(f'inference graph {i}',
+                         dict(energy=float(row['energy']), forces=forces,
+                              stress=stress),
+                         serve_gold['energy'][i], serve_gold[f'forces_{i}'],
+                         serve_gold['stress'][i])
+        params, _ = load_deployed(art)
+    cap.check('md deployed requests')
+
+    # --- D3 terms and GNN + D3 totals (pbe, bj) ---
+    calc_d3 = Calculator(calc.spec, params, device='cuda', d3=MD_D3)
+    for i, s in enumerate(structs):
+        before = dict(_cuda.LAUNCHES)
+        e3, f3, s3 = calc_d3.d3_terms(s)
+        d3_launch = _launch_diff(before)
+        e_rel = abs(e3 - gold['d3_energy'][i]) / abs(gold['d3_energy'][i])
+        f_rel = _max_rel(f3, gold[f'd3_forces_{i}'])
+        s_rel = _max_rel(s3, gold['d3_stress'][i])
+        log(f'  d3 terms {i} ({len(s)} atoms): energy {e3:.6f} eV, rel '
+            f'{e_rel:.2e}, forces rel {f_rel:.2e}, stress rel {s_rel:.2e}, '
+            f'launches {d3_launch}')
+        if not (e_rel <= D3_ENERGY_TOL and f_rel <= D3_TERM_TOL
+                and s_rel <= D3_TERM_TOL):
+            raise AssertionError(f'd3 terms {i} disagree with the golden '
+                                 'file')
+        before = dict(_cuda.LAUNCHES)
+        res = calc_d3.calculate(s)
+        md_census(f'd3 request {i}', _launch_diff(before), 1, True)
+        check_served(f'GNN + D3 request {i}', res,
+                     gold['total_energy'][i], gold[f'total_forces_{i}'],
+                     gold['total_stress'][i])
+    cap.check('md D3 requests')
+
+    def new_md(structure, c):
+        vv = VelocityVerlet(structure, calculator=c, dt_fs=MD['dt'],
+                            skin=MD['skin'])
+        vv.set_temperature(MD['T'], seed=MD['seed'])
+        return vv
+
+    # --- 96 atoms: the device loop against the golden ---
+    vv = new_md(s0, calc)
+    before = dict(_cuda.LAUNCHES)
+    vv.run_device(MD['n_steps'], seg_steps=MD['seg_steps'])
+    md_census('96-atom run_device', _launch_diff(before),
+              MD['n_steps'] + 1, False)
+    check_md_golden('96-atom run_device', vv, gold, 'md')
+    cap.check('md 96-atom step')
+    timed_md('96 run_device', lambda: vv.run_device(
+        MD_TIMED_STEPS['96'], seg_steps=MD['seg_steps']),
+        MD_TIMED_STEPS['96'], times)
+    times['96 run_device']['segments'] = vv.result.segments
+    wall, busy = profile_device('md 96-atom segment', lambda: vv.run_device(
+        MD['seg_steps'], seg_steps=MD['seg_steps']))
+    times['96 run_device']['profiled_busy_share'] = (
+        None if busy is None else round(busy / wall, 4))
+    cap.check('md 96-atom timed runs')
+
+    # --- 96 atoms with D3 against the golden ---
+    vv3 = new_md(s0, calc_d3)
+    before = dict(_cuda.LAUNCHES)
+    vv3.run_device(MD['n_steps_d3'], seg_steps=MD['seg_steps'])
+    md_census('96-atom run_device with D3', _launch_diff(before),
+              MD['n_steps_d3'] + 1, True)
+    check_md_golden('96-atom run_device with D3', vv3, gold, 'md_d3')
+    cap.check('md 96-atom D3 step')
+    timed_md('96 d3 run_device', lambda: vv3.run_device(
+        MD_TIMED_STEPS['96 d3'], seg_steps=MD['seg_steps']),
+        MD_TIMED_STEPS['96 d3'], times)
+    wall, busy = profile_device('md 96-atom segment with D3',
+                                lambda: vv3.run_device(
+                                    MD['seg_steps'],
+                                    seg_steps=MD['seg_steps']))
+    times['96 d3 run_device']['profiled_busy_share'] = (
+        None if busy is None else round(busy / wall, 4))
+    cap.check('md 96-atom D3 timed runs')
+
+    # --- the host loop against the device loop from the same start (its
+    # first steps' shapes checked untimed) ---
+    calc.calculate(s0)
+    calc_d3.calculate(s0)
+    cap.check('md 96-atom host loop, first step')
+    host, dev = new_md(s0, calc), new_md(s0, calc)
+    timed_md('96 run', lambda: host.run(MD_RUN_STEPS), MD_RUN_STEPS, times)
+    dev.run_device(MD_RUN_STEPS, seg_steps=MD['seg_steps'])
+    e_rel = float(np.max(np.abs(np.array(host.result.energies)
+                                - dev.result.energies)
+                         / np.abs(dev.result.energies)))
+    pos_err = float(np.abs(host.s.pos - dev.s.pos).max())
+    log(f'  run against run_device, {MD_RUN_STEPS} steps: E_pot rel '
+        f'{e_rel:.2e}, positions max-abs {pos_err:.2e} A')
+    if not (e_rel <= MD_EPOT_TOL and pos_err <= MD_POS_TOL):
+        raise AssertionError('the host loop disagrees with the device loop')
+    host3 = new_md(s0, calc_d3)
+    timed_md('96 d3 run', lambda: host3.run(MD_TIMED_RUN_STEPS['96 d3']),
+             MD_TIMED_RUN_STEPS['96 d3'], times)
+    e_rel = float(np.max(np.abs(
+        np.array(host3.result.energies)
+        - gold['md_d3_epot'][:MD_TIMED_RUN_STEPS['96 d3']])
+        / np.abs(gold['md_d3_epot'][:MD_TIMED_RUN_STEPS['96 d3']])))
+    log(f'  run with D3 against the golden device loop: E_pot rel '
+        f'{e_rel:.2e}')
+    if e_rel > MD_EPOT_TOL:
+        raise AssertionError('the host loop with D3 disagrees with the '
+                             'golden file')
+    cap.check('md 96-atom host loops')
+
+    # --- 768 atoms: extensivity, replicas, drift ---
+    big = replicate(s0, 2, 2, 2)
+    r96, r768 = calc.calculate(s0), calc.calculate(big)
+    ext_rel = abs(r768['energy'] - 8 * r96['energy']) / abs(
+        8 * r96['energy'])
+    rep_err = float(np.abs(r768['forces'].reshape(8, len(s0), 3)
+                           - r96['forces'][None]).max()
+                    / np.abs(r96['forces']).max())
+    log(f'  768-atom replicate: E_pot {r768["energy"]:.6f} against 8 x '
+        f'{r96["energy"]:.6f}, rel {ext_rel:.2e} (limit '
+        f'{MD_EXTENSIVE_TOL:g}); replicas\' forces rel {rep_err:.2e} '
+        f'(limit {MD_REPLICA_FORCE_TOL:g})')
+    if ext_rel > MD_EXTENSIVE_TOL or rep_err > MD_REPLICA_FORCE_TOL:
+        raise AssertionError('the 768-atom replicate is not 8 copies of '
+                             'the cell')
+    vv8 = new_md(big, calc)
+    before = dict(_cuda.LAUNCHES)
+    vv8.run_device(MD768_STEPS, seg_steps=MD['seg_steps'])
+    md_census('768-atom run_device', _launch_diff(before),
+              MD768_STEPS + 1, False)
+    cap.check('md 768-atom step')
+    tot = np.array(vv8.result.total)
+    drift = abs(tot[-1] - tot[0]) / len(big)
+    log(f'  768-atom run_device: steps per segment {vv8.result.segments}, '
+        f'E_tot {tot[0]:.6f} -> {tot[-1]:.6f}, drift {drift:.2e} eV/atom '
+        f'(limit {MD_DRIFT_TOL:g})')
+    if not (np.isfinite(tot).all() and drift < MD_DRIFT_TOL):
+        raise AssertionError('768-atom NVE drift over its limit')
+    timed_md('768 run_device', lambda: vv8.run_device(
+        MD_TIMED_STEPS['768'], seg_steps=MD['seg_steps']),
+        MD_TIMED_STEPS['768'], times)
+    times['768 run_device']['segments'] = vv8.result.segments
+    wall, busy = profile_device('md 768-atom segment', lambda: vv8.run_device(
+        MD['seg_steps'], seg_steps=MD['seg_steps']))
+    times['768 run_device']['profiled_busy_share'] = (
+        None if busy is None else round(busy / wall, 4))
+    host8 = new_md(big, calc)
+    timed_md('768 run', lambda: host8.run(MD_TIMED_RUN_STEPS['768']),
+             MD_TIMED_RUN_STEPS['768'], times)
+    cap.check('md 768-atom timed runs')
+    md_768_d3(
+        big, lambda st, c=calc_d3: new_md(st, c), calc_d3, cap, times)
+
+    # --- the FCTP self-connection (EXAMPLE_MD_MODEL, init_params(spec, 0))
+    cfg = {K.NUM_SPECIES: 2, K.TYPE_MAP: {72: 0, 8: 1}, **EXAMPLE_MD_MODEL}
+    spec = build_model_spec(cfg)
+    fparams = init_params(spec, 0)
+    fctp = Calculator(spec, fparams, device='cuda')
+    fctp_cpu = Calculator(spec, fparams, device='cpu')
+    for i, s in enumerate(structs):
+        before = dict(_cuda.LAUNCHES)
+        res = fctp.calculate(s)
+        md_census(f'FCTP request {i}', _launch_diff(before), 1, False,
+                  per_eval=FCTP_CENSUS)
+        check_served(f'FCTP request {i} against the CPU plain path',
+                     res, **{k: v for k, v in fctp_cpu.calculate(
+                         s).items() if k in ('energy', 'forces', 'stress')})
+    cap.check('md FCTP (4 channels)')
+    vvf = new_md(s0, fctp)
+    before = dict(_cuda.LAUNCHES)
+    vvf.run_device(FCTP_STEPS, seg_steps=FCTP_STEPS)
+    got = _launch_diff(before)
+    md_census('FCTP run_device', got, FCTP_STEPS + 1, False,
+              per_eval=FCTP_CENSUS)
+    log(f'  FCTP run_device: {FCTP_STEPS} steps, segments '
+        f'{vvf.result.segments}, E_tot {vvf.result.total[0]:.6f} -> '
+        f'{vvf.result.total[-1]:.6f}, launches {got}')
+    if not np.isfinite(vvf.result.total).all():
+        raise AssertionError('FCTP run_device: non-finite energies')
+    cap.check('md FCTP run_device')
+
+    counts = dict(_cuda.LAUNCHES)
+    log(f'[md] launches of the phase {counts}; {len(cap.checked)} distinct '
+        f'kernel shapes, each against its plain version, largest '
+        f'max_abs_err by check {cap.worst}; '
+        f'{time.perf_counter() - t_phase:.1f} s')
+    log('[md] ' + json.dumps({'md': times}))
+    return counts
+
+
 def _rel_l2(got, want):
     import numpy as np
 
@@ -1839,19 +2398,26 @@ def main():
         f'{torch.__version__} cuda {torch.version.cuda}')
     phase_build()
     if sys.argv[1:] == ['--f64-reference']:
-        f64_reference()
+        with neighbor_builder('ckdtree'):
+            f64_reference()
         return 0
     probe_rows, probe_counts = phase_probes()
-    calc = Calculator.from_checkpoint(str(CKPT), device='cuda')
-    batch, n_real_edge = batch8(calc)
-    rows = phase_kernels(calc, batch, n_real_edge)
-    serve_counts = phase_serve(calc)
-    phase_batch(calc, batch, n_real_edge)
-    phase_profile(calc, batch)
-    del calc
-    path_counts = {'serve': serve_counts, 'train': phase_train(),
-                   'pipeline': phase_pipeline(),
-                   'unsorted': phase_unsorted(batch), 'probes': probe_counts}
+    # the phases before md build their graphs with the cKDTree neighbor
+    # list, as the port did before it had the native one (the train and
+    # pipeline goldens were made with it); md takes the native list
+    with neighbor_builder('ckdtree'):
+        calc = Calculator.from_checkpoint(str(CKPT), device='cuda')
+        batch, n_real_edge = batch8(calc)
+        rows = phase_kernels(calc, batch, n_real_edge)
+        serve_counts = phase_serve(calc)
+        phase_batch(calc, batch, n_real_edge)
+        phase_profile(calc, batch)
+        del calc
+        path_counts = {'serve': serve_counts, 'train': phase_train(),
+                       'pipeline': phase_pipeline(),
+                       'unsorted': phase_unsorted(batch),
+                       'probes': probe_counts}
+    path_counts['md'] = phase_md()
 
     # one row per kernel at its interior-block / widest shape; every
     # measured shape is under "cases".  "launches" is the count on the

@@ -1,15 +1,17 @@
 """Pretrained-model names (``continue: checkpoint: 'SevenNet-0'``).
 
-Port of ``pretrained_name_to_path`` of
+Port of ``pretrained_name_to_path`` and ``EXAMPLE_MD_MODEL`` of
 ``sevennet_finetuning_tpu/compat/known_models.py``.  The port searches
 ``$SEVENN_PRETRAINED_DIR`` only: the release artifacts there are a
-reference torch ``.pth`` or a frozen TorchScript, zip files that the
-port's ``load_checkpoint`` does not read yet (ROADMAP A.6).
+reference torch ``.pth`` or a frozen TorchScript, which the port's
+``load_checkpoint`` does not read yet (ROADMAP A.10).
 """
 
 from __future__ import annotations
 
 import os
+
+from .. import keys as K
 
 
 def pretrained_name_to_path(name: str) -> str:
@@ -35,3 +37,15 @@ def pretrained_name_to_path(name: str) -> str:
         f'no artifact found for {name}; set SEVENN_PRETRAINED_DIR '
         f'(searched: {candidates})'
     )
+
+
+# the model deployed with the reference's example_inputs/md_*_example
+EXAMPLE_MD_MODEL = {
+    K.NODE_FEATURE_MULTIPLICITY: 4,
+    K.LMAX: 1,
+    K.NUM_CONVOLUTION: 4,
+    K.IS_PARITY: True,
+    K.SELF_CONNECTION_TYPE: 'nequip',
+    K._NORMALIZE_SPH: False,
+    K._RESTRICT_LAST_LAYER: False,
+}

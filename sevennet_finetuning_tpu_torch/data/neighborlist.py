@@ -1,16 +1,21 @@
 """Periodic-boundary neighbor lists (host-side numpy + scipy).
 
-Copy of the cKDTree path of ``sevennet_finetuning_tpu/data/
-neighborlist.py``: full (both-direction) edge lists within a cutoff, with
-integer cell-shift vectors, excluding only the trivial self-edge at zero
-shift.  Replicate atoms into every lattice image that can fall within the
-cutoff of the home cell, then query a cKDTree of the images against the
-home positions.
+Copy of ``sevennet_finetuning_tpu/data/neighborlist.py``: full
+(both-direction) edge lists within a cutoff, with integer cell-shift
+vectors, excluding only the trivial self-edge at zero shift.  The native
+C++ cell-list core (``data/native.py``) builds them unless
+``SEVENN_NO_NATIVE`` is set; otherwise replicate atoms into every lattice
+image that can fall within the cutoff of the home cell, then query a
+cKDTree of the images against the home positions.  The two builders
+find the same edges but order them differently (within an i, the native
+core goes bin by bin), so a comparison of graphs edge by edge uses the
+same builder on both sides.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 from typing import Tuple
 
 import numpy as np
@@ -43,7 +48,15 @@ def neighbor_list(
     edge_vec = pos[j] + shift . cell - pos[i], |edge_vec| < cutoff.
 
     Both (i, j, S) and (j, i, -S) are present; (i, i, 0) is excluded.
+    Uses the native C++ cell-list core when available (set
+    SEVENN_NO_NATIVE=1 to force the pure-Python path).
     """
+    if not os.environ.get('SEVENN_NO_NATIVE'):
+        from .native import neighbor_list_native
+
+        out = neighbor_list_native(pos, cell, pbc, cutoff)
+        if out is not None:
+            return out
     pos = np.asarray(pos, dtype=np.float64)
     cell = np.asarray(cell, dtype=np.float64).reshape(3, 3)
     if isinstance(pbc, bool):

@@ -6,11 +6,14 @@ reference CLI family, reference: sevenn/main/*.py):
     python -m sevennet_finetuning_tpu_torch.main train input.yaml [-w dir]
     python -m sevennet_finetuning_tpu_torch.main train input.yaml -fs
     python -m sevennet_finetuning_tpu_torch.main preset <name>
+    python -m sevennet_finetuning_tpu_torch.main get_model <checkpoint> [-o out]
+    python -m sevennet_finetuning_tpu_torch.main inference <checkpoint> <data...>
 
-``train`` runs on ``cuda`` unless ``--device`` names another device
-(``--device cpu``).  ``get_model``, ``inference`` and ``graph_build``
-and data-parallel training (``-d``) are not ported yet and raise
-``NotImplementedError`` with their ROADMAP item.
+``train`` and ``inference`` run on ``cuda`` unless ``--device`` names
+another device (``--device cpu``).  ``get_model`` writes the npz deploy
+artifact, which both packages read.  ``graph_build``, data-parallel
+training (``-d``) and ``get_model --torchscript`` are not ported yet
+and raise ``NotImplementedError`` with their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -60,6 +63,61 @@ def cmd_train(args):
     return train(cfg, working_dir=args.working_dir, device=args.device)
 
 
+def cmd_get_model(args):
+    """Deploy a checkpoint as a self-contained potential artifact (the
+    counterpart of the reference's sevenn_get_model, reference:
+    sevenn/main/sevenn_get_model.py): the pickle-free npz + JSON
+    artifact of ``train.checkpoint.save_deployed``; -p only changes the
+    default file name."""
+    import numpy as np
+
+    from . import keys as K
+    from .train.checkpoint import load_checkpoint, save_deployed
+
+    if getattr(args, 'torchscript', False):
+        raise NotImplementedError(
+            'get_model --torchscript needs compat/torchscript_export, not '
+            'ported yet: ROADMAP A.10')
+    if not os.path.exists(args.checkpoint):
+        # pretrained names, like the reference CLI (reference:
+        # sevenn/main/sevenn_get_model.py + util.pretrained_name_to_path)
+        from .compat.known_models import pretrained_name_to_path
+
+        args.checkpoint = pretrained_name_to_path(args.checkpoint)
+    blob = load_checkpoint(args.checkpoint)
+    config = blob['config']
+    out = args.output or (
+        'deployed_parallel.sevenn' if args.parallel
+        else 'deployed_serial.sevenn'
+    )
+    # strip training-only state; emit the pickle-free npz+json artifact
+    save_deployed(out, blob['model_state_dict'], config)
+    n_par = sum(
+        int(np.prod(np.shape(v)))
+        for g in blob['model_state_dict'].values()
+        for v in (g.values() if isinstance(g, dict) else [g])
+    )
+    tm = config.get(K.TYPE_MAP, {})
+    print(f'deployed {out}: {n_par} weights, cutoff '
+          f'{config.get(K.CUTOFF)}, {len(tm)} species')
+    print('load with Calculator.from_deployed(...) or '
+          'Calculator.from_checkpoint(...)')
+
+
+def cmd_inference(args):
+    from .scripts.inference import inference_main
+
+    dispersion = None
+    if getattr(args, 'd3', None):
+        parts = [p.strip() for p in args.d3.split(',')]
+        dispersion = {'functional': parts[0]}
+        if len(parts) > 1:
+            dispersion['damping'] = parts[1]
+    inference_main(args.checkpoint, args.data, output_dir=args.output,
+                   batch_size=args.batch, dispersion=dispersion,
+                   device=args.device)
+
+
 def cmd_preset(args):
     here = os.path.join(os.path.dirname(__file__), 'presets')
     path = os.path.join(here, f'{args.name}.yaml')
@@ -96,18 +154,40 @@ def main(argv=None):
                         'the CPU)')
     t.set_defaults(func=cmd_train)
 
+    gm = sub.add_parser('get_model', help='deploy a checkpoint as a '
+                        'self-contained potential artifact')
+    gm.add_argument('checkpoint')
+    gm.add_argument('-o', '--output')
+    gm.add_argument('-ts', '--torchscript', action='store_true',
+                    help='also emit a reference-compatible TorchScript '
+                         'deployed_serial.pt (not ported yet)')
+    gm.add_argument('-p', '--parallel', action='store_true',
+                    help='name the artifact for parallel MD use')
+    gm.set_defaults(func=cmd_get_model)
+
     pr = sub.add_parser('preset', help='print a preset input yaml')
     pr.add_argument('name')
     pr.set_defaults(func=cmd_preset)
 
-    # the JAX CLI's other subcommands, with their arguments, not ported
-    for name, item, helptext in (
-            ('get_model', 'A.6', 'deploy a checkpoint'),
-            ('inference', 'A.7', 'batch inference on structures'),
-            ('graph_build', 'A.10', 'prebuild graphs from data')):
-        s = sub.add_parser(name, help=f'{helptext} (not ported yet)')
-        s.add_argument('args', nargs='*')
-        s.set_defaults(func=_not_ported(item))
+    inf = sub.add_parser('inference', help='batch inference on structures')
+    inf.add_argument('checkpoint')
+    inf.add_argument('data', nargs='+')
+    inf.add_argument('-o', '--output', default='sevenn_infer_result')
+    inf.add_argument('-b', '--batch', type=int, default=5)
+    inf.add_argument('--d3', default=None, metavar='FUNC,DAMP',
+                     help="add Grimme D3 dispersion, e.g. 'pbe,bj' or "
+                          "'pbe,zero' (overrides the checkpoint "
+                          "config's 'dispersion' key)")
+    inf.add_argument('--device', default=None,
+                     help="torch device (default: cuda; 'cpu' to run on "
+                          'the CPU)')
+    inf.set_defaults(func=cmd_inference)
+
+    # the JAX CLI's graph_build, with its arguments, not ported
+    g = sub.add_parser('graph_build',
+                       help='prebuild graphs from data (not ported yet)')
+    g.add_argument('args', nargs='*')
+    g.set_defaults(func=_not_ported('A.10'))
 
     args = p.parse_args(argv)
     return args.func(args)

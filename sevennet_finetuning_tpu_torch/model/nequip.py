@@ -20,9 +20,11 @@ batches are dst-sorted) each convolution is the scatter-fused branch:
 gather by source, then ``conv_aggregate``.  With ``edges_sorted=False``
 (a caller whose graph is not dst-sorted) it is the per-edge branch:
 gather by source, per-edge messages (the ``cg_quad`` kernel), then
-``aggregate_messages`` over a stable device sort of dst.  Other
-interaction types, the FCTP ('nequip') self-connection, halo exchange
-and remat wait for later slices and raise ``NotImplementedError``.
+``aggregate_messages`` over a stable device sort of dst.  The
+self-connection is a linear map of x ('linear') or the fully connected
+TP of x with the one-hot species embedding ('nequip', plain PyTorch as
+in the JAX package).  Other interaction types, halo exchange and remat
+wait for later slices and raise ``NotImplementedError``.
 Batches are the padded dicts of ``model.graph`` as tensors
 (``batch_to_torch``).
 """
@@ -49,7 +51,8 @@ from ..ops.radial import bessel_basis, bessel_init, poly_cutoff, xplor_cutoff
 from ..ops.scatter import (aggregate_messages, gather_rows, inverse_perm,
                            scatter_rows, segment_sum_sorted, sort_perm)
 from ..ops.spherical import spherical_harmonics
-from ..ops.tensor_product import TensorProductSpec, uvu_tp_spec
+from ..ops.tensor_product import (TensorProductSpec, apply_tp, fctp_spec,
+                                  init_tp_weights, uvu_tp_spec)
 from ..ops.util import safe_norm
 
 
@@ -75,8 +78,8 @@ class BlockSpec:
     t: int
     irreps_x: Irreps
     irreps_out: Irreps
-    self_connection: str                   # 'linear' | 'none' here
-    sc_spec: object                        # LinearSpec
+    self_connection: str                   # 'nequip' | 'linear' | 'none'
+    sc_spec: object                        # TensorProductSpec | LinearSpec
     si1: LinearSpec
     conv_tp: TensorProductSpec
     radial_hs: Tuple[int, ...]
@@ -140,14 +143,13 @@ def build_nequip_block(
     sevenn/nn/interaction_blocks.py:22-86)."""
     gate = gate_spec(irreps_out, act_scalar, act_gate)
     irreps_gate_in = gate.irreps_in
-    if self_connection == 'linear':
+    node_attr_irreps = Irreps(f'{num_species}x0e')
+    if self_connection == 'nequip':
+        sc = fctp_spec(irreps_x, node_attr_irreps, irreps_gate_in)
+    elif self_connection == 'linear':
         sc = linear_spec(irreps_x, irreps_gate_in, biases=False)
     elif self_connection == 'none':
         sc = None
-    elif self_connection == 'nequip':
-        raise NotImplementedError(
-            "the 'nequip' (FCTP) self-connection is not ported yet: "
-            'ROADMAP A.6')
     else:
         raise ValueError(self_connection)
 
@@ -177,7 +179,8 @@ def build_nequip_block(
 # parameters
 # ---------------------------------------------------------------------------
 
-def _linear_shapes(s: LinearSpec) -> Dict[str, Tuple[int, ...]]:
+def _linear_shapes(s) -> Dict[str, Tuple[int, ...]]:
+    """Weight shapes of a LinearSpec or of a TensorProductSpec."""
     return {f'w{i}': tuple(ins.weight_shape)
             for i, ins in enumerate(s.instructions)}
 
@@ -194,7 +197,7 @@ def param_shapes(spec: ModelSpec) -> Dict[str, Dict[str, Tuple[int, ...]]]:
          'onehot_to_feature_x': _linear_shapes(_embed_spec(spec))}
     for blk in spec.blocks:
         t = blk.t
-        if blk.self_connection == 'linear':
+        if blk.self_connection in ('nequip', 'linear'):
             p[f'{t}_self_connection_intro'] = _linear_shapes(blk.sc_spec)
         p[f'{t}_self_interaction_1'] = _linear_shapes(blk.si1)
         conv = {f'weight_nn_w{i}': (h_in, h_out) for i, (h_in, h_out)
@@ -228,7 +231,11 @@ def init_params(spec: ModelSpec, seed: int = 0
     }
     for blk in spec.blocks:
         t = blk.t
-        if blk.self_connection == 'linear':
+        if blk.self_connection == 'nequip':
+            p[f'{t}_self_connection_intro'] = {
+                f'w{i}': w
+                for i, w in enumerate(init_tp_weights(blk.sc_spec, rng))}
+        elif blk.self_connection == 'linear':
             p[f'{t}_self_connection_intro'] = _linear_params(blk.sc_spec, rng)
         p[f'{t}_self_interaction_1'] = _linear_params(blk.si1, rng)
         conv = {f'weight_nn_w{i}': w
@@ -391,21 +398,27 @@ def run_blocks(spec: ModelSpec, params, x: torch.Tensor,
         src_inv = inverse_perm(src_perm)
     dst_sort = None if edges_sorted else sort_perm(edge_dst)
     for blk in spec.blocks:
-        x = _run_one_block(blk, params, x, emb, edge_attr, edge_src,
+        x = _run_one_block(blk, params, x, onehot, emb, edge_attr, edge_src,
                            edge_dst, n_node, cap, src_perm, src_inv,
                            dst_sort)
     return x
 
 
-def _run_one_block(blk, p, x, emb, edge_attr, edge_src, edge_dst, n_node,
-                   cap, src_perm, src_inv, dst_sort):
+def _run_one_block(blk, p, x, onehot, emb, edge_attr, edge_src, edge_dst,
+                   n_node, cap, src_perm, src_inv, dst_sort):
     t = blk.t
-    if blk.self_connection == 'linear':
+    if blk.self_connection == 'nequip':
+        # FCTP of x with the one-hot species embedding: a small einsum,
+        # outside any kernel in both packages
+        sc = apply_tp(blk.sc_spec, x, onehot,
+                      _linear_w(p[f'{t}_self_connection_intro']))
+    elif blk.self_connection == 'linear':
         sc = apply_linear(blk.sc_spec,
                           _linear_w(p[f'{t}_self_connection_intro']), x)
-        cap(f'{t}_self_connection_intro', sc)
     else:
         sc = None
+    if sc is not None:
+        cap(f'{t}_self_connection_intro', sc)
 
     x = apply_linear(blk.si1, _linear_w(p[f'{t}_self_interaction_1']), x,
                      out_stride=True)

@@ -11,10 +11,9 @@ rehearsal.
 
 ``train`` runs on ``cuda`` unless the caller passes ``device='cpu'``.
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: readers other than extxyz (A.6), ``.sevenn_data`` inputs and the
-``save_dataset`` family (A.10), data-parallel training (A.8), per-block
-rematerialization (A.3) and reading a JAX checkpoint's optax state
-(A.4).
+item: ``.sevenn_data`` inputs and the ``save_dataset`` family (A.10),
+data-parallel training (A.8), per-block rematerialization (A.3) and
+reading a JAX checkpoint's optax state (A.4).
 """
 
 from __future__ import annotations
@@ -28,7 +27,7 @@ import torch
 from . import keys as K
 from .data.dataset import GraphDataset, Loader
 from .data.elements import type_map_from_species, z_to_symbol
-from .data.vasp import Structure
+from .data.vasp import Structure, read_outcar, read_structure_list
 from .logger import Logger
 from .model.build import build_model_spec
 from .model.nequip import NequIP, init_params, load_jax_params
@@ -51,29 +50,44 @@ def _expand_paths(config: Dict, paths_key: str) -> List[str]:
     return paths
 
 
-def _read_file(path: str, fmt: str) -> List[Structure]:
+def _read_file(path: str, fmt: str,
+               fmt_args: Optional[Dict] = None) -> List[Structure]:
     """One data file -> labeled structures, dispatched on the file name
     first, then the configured data_format (reference reader matrix:
-    sevenn/train/dataload.py:157-300).  The port reads extxyz; the other
-    formats raise."""
+    sevenn/train/dataload.py:157-300).  ``fmt_args`` passes through to
+    ``ase.io.read`` for data_format 'ase' (reference
+    ``data_format_args``)."""
     base = os.path.basename(path)
-    if fmt == 'ase' or fmt in ('pkl', 'pickle') \
-            or base.endswith(('.pkl', '.pickle')):
-        raise NotImplementedError(
-            f'{path}: data_format {fmt!r} (ase / pickled Atoms) is not '
-            'ported yet: ROADMAP A.6')
+    if fmt == 'ase':
+        from .data.readers import read_ase
+
+        structs = read_ase(path, **(fmt_args or {}))
+        for s in structs:
+            s.info['label'] = os.path.abspath(path)
+        return structs
+    if fmt in ('pkl', 'pickle') or base.endswith(('.pkl', '.pickle')):
+        from .data.readers import read_atoms_pkl
+
+        structs = read_atoms_pkl(path)
+        for s in structs:
+            s.info['label'] = os.path.abspath(path)
+        return structs
     if 'structure_list' in base or fmt == 'structure_list' and \
             not ('OUTCAR' in base or 'POSCAR' in base or 'CONTCAR' in base
                  or base.endswith(('.xyz', '.extxyz'))):
-        raise NotImplementedError(
-            f'{path}: structure_list files are not ported yet (the port '
-            'reads extxyz): ROADMAP A.6')
-    if 'OUTCAR' in base or fmt == 'outcar' or 'POSCAR' in base \
-            or 'CONTCAR' in base or fmt == 'poscar':
-        raise NotImplementedError(
-            f'{path}: OUTCAR / POSCAR readers are not ported yet (the port '
-            'reads extxyz): ROADMAP A.6')
-    if base.endswith(('.xyz', '.extxyz')) or fmt in ('xyz', 'extxyz'):
+        out = []
+        for label, structs in read_structure_list(path).items():
+            for s in structs:
+                s.info['label'] = label
+            out.extend(structs)
+        return out
+    if 'OUTCAR' in base or fmt == 'outcar':
+        structs = read_outcar(path)
+    elif 'POSCAR' in base or 'CONTCAR' in base or fmt == 'poscar':
+        from .data.readers import read_poscar
+
+        structs = [read_poscar(path)]
+    elif base.endswith(('.xyz', '.extxyz')) or fmt in ('xyz', 'extxyz'):
         from .data.readers import read_extxyz
 
         structs = read_extxyz(path)
@@ -91,13 +105,14 @@ def load_structures(config: Dict, paths_key: str = K.LOAD_DATASET
                     ) -> List[Structure]:
     """Load labeled structures per the data config (paths may glob)."""
     fmt = config.get(K.DATA_FORMAT, 'structure_list')
+    fmt_args = config.get(K.DATA_FORMAT_ARGS) or {}
     out: List[Structure] = []
     for path in _expand_paths(config, paths_key):
         if path.endswith('.sevenn_data'):
             raise NotImplementedError(
                 f'{path}: .sevenn_data datasets are not ported yet: ROADMAP '
                 'A.10')
-        out.extend(_read_file(path, fmt))
+        out.extend(_read_file(path, fmt, fmt_args))
     return out
 
 

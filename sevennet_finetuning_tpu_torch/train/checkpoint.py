@@ -1,8 +1,12 @@
 """Checkpoints: pickle files in the JAX package's layout.
 
-Port of ``save_checkpoint`` / ``load_checkpoint`` / ``model_from_checkpoint``
-/ ``save_pytree`` / ``load_pytree`` of
-``sevennet_finetuning_tpu/train/checkpoint.py``, pickle branch only.
+Port of ``sevennet_finetuning_tpu/train/checkpoint.py``: ``save_checkpoint``
+/ ``load_checkpoint`` / ``model_from_checkpoint`` / ``save_pytree`` /
+``load_pytree``, and the deploy artifact (``save_deployed`` /
+``load_deployed`` / ``model_from_deployed``: one npz of named float arrays
+and the JSON config, the same layout in both packages, so each reads the
+other's).  A reference torch ``.pth`` zip is not read (it needs
+``compat/state_dict_import``, ROADMAP A.10).
 
 A checkpoint is one pickle of numpy arrays and builtins:
 ``model_state_dict`` (the parameters by the JAX package's names),
@@ -29,7 +33,7 @@ from __future__ import annotations
 
 import importlib
 import pickle
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -116,11 +120,26 @@ def load_checkpoint(path: str) -> dict:
     dict; a JAX checkpoint's optax state is dropped
     (``optax_state_dropped``)."""
     with open(path, 'rb') as f:
-        if f.read(2) == b'PK':
+        magic = f.read(2)
+    if magic == b'PK':
+        # npz (the deploy artifact) and torch archives are both zips
+        import zipfile
+
+        with zipfile.ZipFile(path) as zf:
+            is_deployed = '__format__.npy' in zf.namelist()
+        if not is_deployed:
             raise NotImplementedError(
-                f'{path}: zip checkpoints (deploy npz, reference torch '
-                '.pth) are not ported yet: ROADMAP A.6')
-        f.seek(0)
+                f'{path}: reference torch .pth checkpoints need '
+                'compat/state_dict_import, not ported yet: ROADMAP A.10')
+        params, config = load_deployed(path)
+        return {
+            'model_state_dict': params,
+            'config': config,
+            'epoch': 0,
+            'optimizer_state_dict': None,
+            'scheduler_state_dict': None,
+        }
+    with open(path, 'rb') as f:
         blob = _Unpickler(f).load()
     state = blob.get('optimizer_state_dict')
     if blob.get('format') == FORMAT:
@@ -130,6 +149,76 @@ def load_checkpoint(path: str) -> dict:
         blob['optimizer_state_dict'] = None
         blob['optax_state_dropped'] = state is not None
     return blob
+
+
+def save_deployed(path: str, params, config: Dict):
+    """Write a deployment artifact: a single npz of named float arrays
+    plus the JSON-encoded config -- self-describing and safe to share
+    (no pickle; the reference's counterpart is the frozen TorchScript
+    with _extra_files metadata, reference: sevenn/scripts/deploy.py:34-51).
+
+    Layout: '<group>/<param>' arrays + '__config__' (JSON bytes) +
+    '__format__' (version tag), as the JAX package writes it."""
+    import json
+
+    flat = {}
+    for group, sub in _to_numpy(params).items():
+        if isinstance(sub, dict):
+            for name, arr in sub.items():
+                flat[f'{group}/{name}'] = np.asarray(arr)
+        else:
+            flat[group] = np.asarray(sub)
+
+    def _jsonable(v):
+        if isinstance(v, (np.floating, np.integer)):
+            return v.item()
+        if isinstance(v, np.ndarray):
+            return v.tolist()
+        raise TypeError(f'config value not serializable: {type(v)}')
+
+    cfg = json.dumps(config, default=_jsonable)
+    flat['__config__'] = np.frombuffer(cfg.encode(), dtype=np.uint8)
+    flat['__format__'] = np.frombuffer(b'sevenn-ft-tpu-deploy-v1',
+                                       dtype=np.uint8)
+    with open(path, 'wb') as f:
+        np.savez(f, **flat)
+
+
+def load_deployed(path: str) -> Tuple[Dict, Dict]:
+    """(params, config) from a deployment artifact.  Pickle-free."""
+    import json
+
+    from .. import keys as K
+
+    with np.load(path, allow_pickle=False) as z:
+        tag = bytes(z['__format__']).decode()
+        if not tag.startswith('sevenn-ft-tpu-deploy'):
+            raise ValueError(f'{path}: not a deployment artifact ({tag})')
+        config = json.loads(bytes(z['__config__']).decode())
+        params: Dict = {}
+        for key in z.files:
+            if key.startswith('__'):
+                continue
+            group, _, name = key.partition('/')
+            if name:
+                params.setdefault(group, {})[name] = z[key]
+            else:
+                params[group] = z[key]
+    # JSON stringifies the int keys of the type map
+    if config.get(K.TYPE_MAP):
+        config[K.TYPE_MAP] = {
+            int(k): int(v) for k, v in config[K.TYPE_MAP].items()
+        }
+    return params, config
+
+
+def model_from_deployed(path: str):
+    """Rebuild (spec, params, config) from a deployment artifact (the
+    JAX package's return value; ``Calculator`` loads the params)."""
+    from ..model.build import build_model_spec
+
+    params, config = load_deployed(path)
+    return build_model_spec(config), params, config
 
 
 def save_pytree(path: str, tree):

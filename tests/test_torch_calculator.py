@@ -6,9 +6,12 @@ Tolerances: energy rel 2e-6; forces and stress max-abs rel 1e-5 (float32
 sums taken in another order over ~4,300 edges and five layers).
 
 ``test_port_imports_no_jax`` serves a structure, runs its graph with the
-edge slots shuffled through ``run_blocks(edges_sorted=False)`` and takes
-a reEWC train step on the CPU in a fresh interpreter, then checks that
-neither jax, optax nor the JAX package was imported.
+edge slots shuffled through ``run_blocks(edges_sorted=False)``, takes
+a reEWC train step, runs the train CLI, ``main get_model``, MD (both
+loops), a D3 calculation and ``main inference`` with D3 on the CPU in a
+fresh interpreter, then checks that neither jax, optax nor the JAX
+package was imported.  ``test_dispersion_is_refused`` (named when D3
+was refused) holds the port's D3 terms against the MD golden file.
 
 The golden file (energies, forces and stress for every structure of
 ft.extxyz, computed by the JAX Calculator on the CPU) is what
@@ -160,6 +163,29 @@ def test_port_imports_no_jax():
         'blob = load_checkpoint(str(tmp / "out" / "checkpoint_1.pth"))\n'
         'assert blob["epoch"] == 1 and blob["optimizer_state_dict"]\n'
         'cli(["preset", "base"])\n'
+        # MD, D3, get_model and inference on the CPU
+        'from sevennet_finetuning_tpu_torch.data.vasp import Structure\n'
+        'from sevennet_finetuning_tpu_torch.md import VelocityVerlet\n'
+        'import numpy as np\n'
+        'cli(["get_model", str(tmp / "out" / "checkpoint_1.pth"), "-o",\n'
+        '     str(tmp / "dep.sevenn")])\n'
+        'dep = Calculator.from_deployed(str(tmp / "dep.sevenn"), device="cpu")\n'
+        'md = VelocityVerlet(s, calculator=dep, dt_fs=1.0)\n'
+        'md.set_temperature(300.0, seed=0)\n'
+        'md.run_device(3, seg_steps=2)\n'
+        'md.run(2)\n'
+        'assert np.isfinite(md.result.total).all() and md.result.segments\n'
+        'd3c = Calculator(dep.spec, load_checkpoint(str(tmp / "dep.sevenn"))\n'
+        '                 ["model_state_dict"], device="cpu",\n'
+        '                 d3={"functional": "pbe", "damping": "zero",\n'
+        '                     "cutoff": 15.0, "cn_cutoff": 10.0})\n'
+        'e3, f3, s3 = d3c.d3_terms(s)\n'
+        'assert e3 < 0 and f3.shape == (len(s), 3)\n'
+        'from sevennet_finetuning_tpu_torch.data.readers import write_extxyz\n'
+        'write_extxyz(str(tmp / "s12.extxyz"), [s])\n'
+        'cli(["inference", str(tmp / "dep.sevenn"), str(tmp / "s12.extxyz"),\n'
+        '     "-o", str(tmp / "inf"), "--d3", "pbe,bj", "--device", "cpu"])\n'
+        'assert (tmp / "inf" / "per_atom.csv").exists()\n'
         'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
         '("jax", "jaxlib", "optax") or m.split(".")[0] == '
         '"sevennet_finetuning_tpu")\n'
@@ -187,7 +213,13 @@ def test_entry_points_need_cuda_unless_asked(monkeypatch):
 
 
 def test_dispersion_is_refused():
+    """D3 was refused before it was ported; now ``Calculator(d3=...)`` on
+    SevenNet-0 gives the JAX-CPU golden's D3 terms and GNN + D3 totals
+    for the 12-atom structure (D3 energy rel 1e-5, forces and stress
+    1e-4 of max; totals at the serving limits).  The test keeps the name
+    it had while it checked the refusal."""
     from sevennet_finetuning_tpu_torch.calculator import Calculator
+    from sevennet_finetuning_tpu_torch.data.readers import read_extxyz
     from sevennet_finetuning_tpu_torch.model.build import build_model_spec
     from sevennet_finetuning_tpu_torch.train.checkpoint import (
         load_checkpoint)
@@ -195,9 +227,20 @@ def test_dispersion_is_refused():
     blob = load_checkpoint(str(CKPT))
     assert blob['optimizer_state_dict'] is None
     spec = build_model_spec(blob['config'])
-    with pytest.raises(NotImplementedError, match='D3'):
-        Calculator(spec, blob['model_state_dict'], device='cpu',
-                   dispersion={'functional': 'pbe', 'damping': 'bj'})
+    calc = Calculator(spec, blob['model_state_dict'], device='cpu',
+                      d3={'functional': 'pbe', 'damping': 'bj'})
+    gold = np.load(ROOT / 'sevennet_finetuning_tpu_torch/golden/'
+                   'md_hfo2_jax_cpu.npz')
+    s = read_extxyz(str(FT))[4]
+    e3, f3, s3 = calc.d3_terms(s)
+    assert abs(e3 - gold['d3_energy'][4]) <= 1e-5 * abs(gold['d3_energy'][4])
+    assert _rel(f3, gold['d3_forces_4']) <= 1e-4
+    assert _rel(s3, gold['d3_stress'][4]) <= 1e-4
+    res = calc.calculate(s)
+    assert abs(res['energy'] - gold['total_energy'][4]) <= 2e-6 * abs(
+        gold['total_energy'][4])
+    assert _rel(res['forces'], gold['total_forces_4']) <= 1e-4
+    assert _rel(res['stress'], gold['total_stress'][4]) <= 1e-4
 
 
 def _write_golden():

@@ -1,7 +1,8 @@
 """The port's model against the JAX package's on ft.extxyz.
 
 A narrow NequIP (channel 16, lmax 2, 3 convolutions, linear
-self-connection) is initialised by JAX ``init_params`` and carried across
+self-connection; the parity variant also with the FCTP self-connection)
+is initialised by JAX ``init_params`` and carried across
 with ``load_jax_params``; energy, forces, stress and every captured
 intermediate (``cap``) are compared.  Two variants: SevenNet-0-like
 (SE(3), XPLOR cutoff, linear readout) and E(3) parity with the polynomial
@@ -85,8 +86,9 @@ def _rel_close(got, want, rtol=RTOL, name=''):
 
 @pytest.fixture(scope='module')
 def batches():
-    """The same five structures collated by both packages (the JAX side
-    on its scipy neighbor list, the path the port copies)."""
+    """The same five structures collated by both packages, both on the
+    scipy neighbor list (the two builders order a node's edges
+    differently, so the packages must share one)."""
     import os
 
     old = os.environ.get('SEVENN_NO_NATIVE')
@@ -94,13 +96,13 @@ def batches():
     try:
         jg = [j_graph.structure_to_graph(s, 5.0, TYPE_MAP)
               for s in j_read(str(FT))]
+        tg = [graph.structure_to_graph(s, 5.0, TYPE_MAP)
+              for s in read_extxyz(str(FT))]
     finally:
         if old is None:
             del os.environ['SEVENN_NO_NATIVE']
         else:
             os.environ['SEVENN_NO_NATIVE'] = old
-    tg = [graph.structure_to_graph(s, 5.0, TYPE_MAP)
-          for s in read_extxyz(str(FT))]
     n_node = graph.bucket_capacity(sum(len(g[K.POS]) for g in tg))
     n_edge = graph.bucket_capacity(sum(g[K.EDGE_IDX].shape[1] for g in tg))
     jb = j_graph.collate(jg, n_node=n_node, n_edge=n_edge, n_graph=6)
@@ -208,9 +210,17 @@ def test_checkpoint_model_matches_architecture():
     assert config[K.INTERACTION_TYPE] == 'nequip'
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(batches):
+    """mace blocks still raise; the FCTP ('nequip') self-connection, which
+    raised before it was ported, gives JAX's energies, forces and stress
+    (E(3) parity variant, 1e-5 relative).  The test keeps the name it had
+    while both options raised."""
     cfg = _config('parity')
     with pytest.raises(NotImplementedError):
         build_model_spec({**cfg, K.INTERACTION_TYPE: 'mace'})
-    with pytest.raises(NotImplementedError):
-        build_model_spec({**cfg, K.SELF_CONNECTION_TYPE: 'nequip'})
+    cfg = {**cfg, K.SELF_CONNECTION_TYPE: 'nequip'}
+    j_spec = j_build(cfg)
+    params = jax.tree_util.tree_map(np.asarray, init_params(j_spec, seed=3))
+    model = load_jax_params(NequIP(build_model_spec(cfg)), params)
+    model.requires_grad_(False)
+    test_energy_forces_stress_match((j_spec, params, model), batches)

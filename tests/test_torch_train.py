@@ -93,9 +93,13 @@ TERMS = ('Total', 'Energy', 'Force', 'Stress', 'EWC')
 TYPE_MAP = {72: 0, 8: 1}
 
 
-def _no_native():
-    """The JAX neighbor list on its scipy path, the one the port copies."""
-    os.environ['SEVENN_NO_NATIVE'] = '1'
+@pytest.fixture(autouse=True, scope='module')
+def _ckdtree_neighbor_list():
+    """Both packages build this file's graphs with the cKDTree neighbor
+    list (the native core orders edges otherwise); restored after."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv('SEVENN_NO_NATIVE', '1')
+        yield
 
 
 def _jax_device(batch):
@@ -225,7 +229,6 @@ def _small_structures(reader):
 
 @pytest.fixture(scope='module')
 def narrow():
-    _no_native()
     cfg = _narrow_config()
     j_spec = j_build(cfg)
     params = jax.tree_util.tree_map(np.asarray, init_params(j_spec, seed=5))
@@ -402,7 +405,6 @@ def ft900_loaders(reader, ds_cls, loader_cls, cutoff, type_map):
 
 
 def _write_goldens():
-    _no_native()
     jt, cfg = _jax_trainer()
     tm = cfg[JK.TYPE_MAP]
     batches = ft12_batches(j_read, cfg[JK.CUTOFF], tm)
@@ -459,7 +461,6 @@ def run_jax_stages(workdir):
     from sevennet_finetuning_tpu.main import cmd_train as j_cmd_train
     from sevennet_finetuning_tpu_torch.train.recipe import pipeline_stages
 
-    _no_native()
     workdir = Path(workdir)
     fisher_dir = workdir / 'fisher_out'
     for name, cfg, wd, fs in zip(
@@ -510,6 +511,8 @@ def _write_pipeline_golden():
 if __name__ == '__main__':
     sys.path.insert(0, str(ROOT))
     jax.config.update('jax_platforms', 'cpu')
+    # the goldens are made on the cKDTree neighbor list, as the tests run
+    os.environ['SEVENN_NO_NATIVE'] = '1'
     if sys.argv[1:] == ['pipeline']:
         _write_pipeline_golden()
     else:

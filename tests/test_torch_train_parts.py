@@ -52,6 +52,15 @@ FT900 = ROOT / 'experiments/ft_reewc_900/data/ft900.extxyz'
 TYPE_MAP = {72: 0, 8: 1}
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _ckdtree_neighbor_list():
+    """Both packages build this file's graphs with the cKDTree neighbor
+    list (the native core orders edges otherwise); restored after."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv('SEVENN_NO_NATIVE', '1')
+        yield
+
+
 def _rel_close(got, want, rtol=1e-6, atol=0.0):
     got = float(got)
     want = float(want)
@@ -229,9 +238,6 @@ def test_metrics_match_jax():
 
 @pytest.fixture(scope='module')
 def graphs():
-    import os
-
-    os.environ['SEVENN_NO_NATIVE'] = '1'
     structs = j_read(str(FT900))[:21]
     j_ds = j_dataset.GraphDataset.from_structures(structs, 5.0, TYPE_MAP)
     t_ds = dataset.GraphDataset.from_structures(
