@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives ``sevennet_finetuning_tpu_torch`` (never JAX) through ten phases
-and exits non-zero if any fails:
+Drives ``sevennet_finetuning_tpu_torch`` (never JAX) through eleven
+phases and exits non-zero if any fails:
 
 1. build   -- compile every CUDA source of ``csrc/`` (one nvcc each, in
               parallel) and print the build time;
@@ -137,6 +137,27 @@ and exits non-zero if any fails:
               768 atoms with and without D3, the steps per segment, peak
               memory and, from a profile of a 10-step run, the device busy
               share.
+11. families -- the MACE and Gaunt interaction families at full width,
+              the three configurations of ``golden/families_jax_cpu.npz``
+              (the repo's mace interaction at MACE-MP-0 medium's widths,
+              l <= 3 filter and 128 channels up to l = 3; gaunt and
+              gaunt_gate at SevenNet-0's widths) with weights from
+              init_params(spec, 0): a ``Calculator`` per family serves
+              ft.extxyz against the golden (the serving limits; Gaunt's
+              energy within 3e-5, its float32 floor: PERF.md), each
+              request launching exactly its census (MACE agg 2, multi 2,
+              segment-sum 5; Gaunt 1 / 1 / 8; Gaunt-gate 2 / 2 / 11); MACE
+              and Gaunt take three train steps on ft900 structure 0
+              against the golden (loss terms, every leaf's first-step
+              gradient within 1e-3 of its max|g|), each step launching
+              its census (MACE agg 2, multi 4, gagg 2, gmulti 2,
+              segment-sum 7; Gaunt 1 / 2 / 1 / 1 / 13).  Every distinct
+              shape of segment_sum, cg_agg, cg_multi, cg_gagg and
+              cg_gmulti launched is held against its plain version, and
+              the new shapes (MACE's l = 3 layouts; segment_sum at D =
+              1,152 and 10,368) are timed beside their bounds.  Prints
+              each family's parameter count, ms per request (wall and
+              profiled device time), ms per train step and peak memory.
 
 Before the last line it prints the card's name and power limit and a
 JSON line with every kernel's numbers; the last line is
@@ -232,6 +253,8 @@ PATH_KERNELS = {
     'unsorted': ('segment_sum', 'cg_quad'),
     'probes': PROBES,
     'md': ('segment_sum', 'cg_agg', 'cg_multi'),
+    'families': ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg',
+                 'cg_gmulti'),
 }
 # the path whose count a kernel's "launches" reports: the train step for
 # the kernels of the sorted convolution, the unsorted pass for cg_quad
@@ -350,6 +373,39 @@ MD_CENSUS = {'cg_agg': 5, 'cg_multi': 5, 'segment_sum': 8}
 D3_SEGMENT_SUMS = 5
 # the FCTP model (EXAMPLE_MD_MODEL) has four convolutions
 FCTP_CENSUS = {'cg_agg': 4, 'cg_multi': 4, 'segment_sum': 7}
+# the families phase (golden/families_jax_cpu.npz: its configurations,
+# JAX-CPU serving of ft.extxyz and three train steps of MACE and Gaunt on
+# ft900 structure 0): the kernels it captures, and the launches of one
+# request and of one train step per family (PERF.md explains each count).
+# Serving is held at the serving limits; the first train step's loss at
+# STEP0_TOL and later steps at TRAJ_TOL; every leaf's first-step gradient
+# within GRAD_TOL (1e-3) of its max|g| (the port's plain CPU run read at
+# most 2.3e-6 for MACE and 4.1e-6 for Gaunt against the golden)
+GOLDEN_FAMILIES = PKG / 'golden/families_jax_cpu.npz'
+FAMILY_KERNELS = ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg',
+                  'cg_gmulti')
+FAMILY_SERVE_CENSUS = {
+    'mace_mp0_medium_widths': {'cg_agg': 2, 'cg_multi': 2,
+                               'segment_sum': 5},
+    'gaunt_sevennet0_widths': {'cg_agg': 1, 'cg_multi': 1,
+                               'segment_sum': 8},
+    'gaunt_gate_sevennet0_widths': {'cg_agg': 2, 'cg_multi': 2,
+                                    'segment_sum': 11}}
+FAMILY_TRAIN_CENSUS = {
+    'mace_mp0_medium_widths': {'cg_agg': 2, 'cg_multi': 4, 'cg_gagg': 2,
+                               'cg_gmulti': 2, 'segment_sum': 7},
+    'gaunt_sevennet0_widths': {'cg_agg': 1, 'cg_multi': 2, 'cg_gagg': 1,
+                               'cg_gmulti': 1, 'segment_sum': 13}}
+FAMILY_TERMS = ('Total', 'Energy', 'Force', 'Stress')
+GRAD_TOL.update(dict.fromkeys(FAMILY_TRAIN_CENSUS, 1e-3))
+# the energy limit of a family where the serving limit lies under the
+# model's own float32 error: gaunt_sevennet0_widths at init grows its
+# features ~x^3 a block (1.8e8 after block 2) and its atomic energies
+# cancel 4:1, so float32 lies 4.4e-6 to 6.9e-6 from float64 on the port's
+# CPU run and 4.8e-6 to 7.1e-6 in the JAX golden (96- and 12-atom
+# structures): two float32 runs may part by ~1.4e-5 (the card read
+# 1.10e-5 on the 12-atom structure); about twice that
+FAMILY_ENERGY_TOL = {'gaunt_sevennet0_widths': 3e-5}
 # each raw loss term (not weighted by its share of the total) at the
 # checkpoint's parameters, batch 8: within 2e-3 of its JAX value (readings
 # up to 4.7e-4, the energy term's float32 residual; ft12's 12-atom energy
@@ -707,22 +763,199 @@ def batch8(calc):
     return batch_to_torch(b, calc.device), n_edge
 
 
+def conv_kernel_cases(t, layout, dst, N, randn, x_grad=True):
+    """cg_agg, cg_multi, cg_gagg and cg_gmulti at one convolution layout
+    on random legs of every edge slot of ``dst`` (ascending, sentinel N):
+    each held against its plain version (``KERNEL_TOL``), the same bits in
+    two launches, timed beside its plain version and its bound.  ``t``
+    labels the cases; ``x_grad`` False drops the xn job from the block's
+    jobs (block 0's input, the embedding, needs no cotangent).  Returns
+    the four lists of cases."""
+    import torch
+
+    from sevennet_finetuning_tpu_torch.ops import _cuda
+    from sevennet_finetuning_tpu_torch.ops.cg_tables import (
+        gmulti_passes, gmulti_term_count)
+    from sevennet_finetuning_tpu_torch.ops.fused_conv_agg import (
+        _EMIT, agg_config, agg_cuda, agg_plain)
+    from sevennet_finetuning_tpu_torch.ops.fused_conv_multi import (
+        _EMIT_LEGS, _JOB_LEGS, gagg_cuda, gagg_plain, gmulti_cuda,
+        gmulti_plain, multi_cuda, multi_plain)
+
+    E = dst.shape[0]
+    live = int((dst < N).sum())
+    agg_cases, multi_cases, gagg_cases, gmulti_cases = [], [], [], []
+    x = randn(E, layout.dim_x)
+    sh = randn(E, layout.dim_sh)
+    w = randn(E, layout.dim_w)
+    # x/sh/w rows of padded edges are never needed: the agg sum ends
+    # at the last live edge and multi's outputs there are zero
+    dims = {'x': layout.dim_x, 'sh': layout.dim_sh, 'w': layout.dim_w}
+    leg_bytes = 4 * live * sum(dims.values())
+
+    def job_leg_bytes(jobs):
+        # the legs the jobs read: xn needs sh and w, shn x and w, wn x
+        # and sh
+        return 4 * live * sum(dims[leg] for leg in
+                              {leg for j in jobs for leg in _JOB_LEGS[j]})
+
+    got = agg_cuda(x, sh, w, dst, layout, N)
+    want = agg_plain(x, sh, w, dst, layout, N)
+    err = compare(f'cg_agg {t}', got, want)
+    same_bits(f'cg_agg {t}',
+              lambda: agg_cuda(x, sh, w, dst, layout, N))
+    # one-term cg_gagg computes the same function (fusing the w
+    # product into its sums, where cg_agg rounds it as JAX does): the
+    # yardstick, timed below (cg_gagg's "1 term" case)
+    same = torch.equal(got, gagg_cuda([x, sh, w], dst, ((0, 1, 2),),
+                                      layout, N))
+    log(f'  cg_agg {t}: the same bits as one-term cg_gagg: '
+        f'{same}')
+    # the bound counts the per-term table the first kernel read, so
+    # the times of every PR compare
+    n_terms = gmulti_term_count(layout, 1)
+    b_ms, b_by = bound_ms(
+        leg_bytes + 4 * E + 4 * N * layout.dim_msg + 16 * n_terms,
+        live * (4 * n_terms + layout.dim_msg))
+    agg_cases.append(dict(
+        shape=f'{t}: E={E} N={N} dims x/sh/w/msg '
+              f'{layout.dim_x}/{layout.dim_sh}/{layout.dim_w}/'
+              f'{layout.dim_msg}, launch {agg_config(layout)}',
+        max_abs_err=err, bit_identical=True,
+        ms=cuda_ms(lambda: agg_cuda(x, sh, w, dst, layout, N)),
+        plain_ms=cuda_ms(lambda: agg_plain(x, sh, w, dst, layout, N),
+                         iters=5),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        device_us=device_us_per_call(
+            lambda: agg_cuda(x, sh, w, dst, layout, N))))
+
+    # the block's jobs (block 0's input, the embedding, needs no
+    # cotangent), one job each of xn, shn, wn (the counterpart of
+    # bwd_pallas, row 4), and xn + wn: the outer backward's jobs
+    # without the shn cotangent that the train step computes but does
+    # not need.  The bound counts the per-term table the first
+    # kernel read, so the times compare
+    ybar = randn(N, layout.dim_msg)
+    for sub, label in (
+            (('xn', 'shn', 'wn') if x_grad else ('shn', 'wn'), 'jobs'),
+            (('xn',), 'single job'), (('shn',), 'single job'),
+            (('wn',), 'single job'), (('xn', 'wn'), 'jobs (no shn)')):
+        got = multi_cuda(ybar, x, sh, w, dst, sub, layout, N)
+        want = multi_plain(ybar, x, sh, w, dst, sub, layout, N)
+        err = compare(f'cg_multi {t} {sub}', got, want)
+        same_bits(f'cg_multi {t} {sub}',
+                  lambda: multi_cuda(ybar, x, sh, w, dst, sub, layout, N))
+        n_terms = gmulti_term_count(layout, len(sub))
+        b_ms, b_by = bound_ms(
+            job_leg_bytes(sub) + 4 * E + 4 * N * layout.dim_msg
+            + 4 * E * sum(dims[_EMIT[j]] for j in sub) + 16 * n_terms,
+            live * 4 * n_terms)
+        multi_cases.append(dict(
+            shape=f'{t} {label} {"+".join(sub)}: E={E} N={N}',
+            max_abs_err=err, bit_identical=True,
+            ms=cuda_ms(lambda: multi_cuda(ybar, x, sh, w, dst, sub,
+                                          layout, N)),
+            plain_ms=cuda_ms(lambda: multi_plain(
+                ybar, x, sh, w, dst, sub, layout, N), iters=5),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by))
+
+    # the double backward at this block: cotangents of xn / shn / wn
+    cx = randn(E, layout.dim_x)
+    cs = randn(E, layout.dim_sh)
+    cw = randn(E, layout.dim_w)
+    pool = [x, sh, w, cx, cs, cw]
+    pool_dims = tuple(p.shape[1] for p in pool)
+
+    def pool_bytes(used):
+        # the live rows of the pool arrays that the terms / jobs read
+        return 4 * live * sum(pool_dims[i] for i in set(used))
+
+    # CGNodeMulti.backward's three terms; then one term on [x, sh, w],
+    # cg_agg's function (its yardstick).  The bound counts the
+    # per-term table the first kernel read, whose entries are the
+    # scalar couplings x terms, so the times compare
+    terms = ((0, 1, 5), (0, 4, 2), (3, 1, 2))
+    for tm, label in ((terms, '3 terms'),
+                      (((0, 1, 2),), "1 term (cg_agg's function)")):
+        got = gagg_cuda(pool, dst, tm, layout, N)
+        want = gagg_plain(pool, dst, tm, layout, N)
+        err = compare(f'cg_gagg {t} {label}', got, want)
+        same_bits(f'cg_gagg {t} {label}',
+                  lambda: gagg_cuda(pool, dst, tm, layout, N))
+        n_terms = gmulti_term_count(layout, len(tm))
+        b_ms, b_by = bound_ms(
+            pool_bytes(i for term in tm for i in term)
+            + 4 * E + 4 * N * layout.dim_msg + 16 * n_terms,
+            live * (4 * n_terms + len(tm) * layout.dim_msg))
+        gagg_cases.append(dict(
+            shape=f'{t} {label}: E={E} N={N}', max_abs_err=err,
+            bit_identical=True,
+            ms=cuda_ms(lambda: gagg_cuda(pool, dst, tm, layout, N)),
+            plain_ms=cuda_ms(lambda: gagg_plain(pool, dst, tm, layout,
+                                                N), iters=5),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by))
+
+    # CGNodeMulti.backward's jobs; then without the sh group, whose
+    # cotangent the train step computes but does not need
+    full = ((('x', 1, 5, 'x'), ('x', 4, 2, 'x'), ('sh', 0, 5, 'sh'),
+             ('sh', 3, 2, 'sh'), ('w', 0, 4, 'w'), ('w', 3, 1, 'w')),
+            ('x', 'sh', 'w'))
+    no_sh = (tuple(j for j in full[0] if j[3] != 'sh'), ('x', 'w'))
+    # CGNodeGAgg.backward of the gagg terms above with every leg live
+    # (a third order): three jobs of each emit mode, several passes
+    gagg_bwd = (tuple((leg, idx[b], idx[c], idx[leg])
+                      for term in terms
+                      for idx in [dict(zip(('x', 'sh', 'w'), term))]
+                      for leg, (b, c) in _EMIT_LEGS.items()),
+                tuple(sorted({i for term in terms for i in term})))
+    for label, (jobs, groups) in (('6 jobs x/sh/w', full),
+                                  ('4 jobs x/w (no sh)', no_sh),
+                                  ('9 jobs of a gagg backward',
+                                   gagg_bwd)):
+        gi = {g: i for i, g in enumerate(groups)}
+        n_pass = len(gmulti_passes(
+            tuple((m, b, c, gi[g]) for m, b, c, g in jobs), len(groups)))
+        label = f'{label}, {n_pass} pass{"es" if n_pass > 1 else ""}'
+        before = _cuda.LAUNCHES['cg_gmulti']
+        got = gmulti_cuda(ybar, pool, dst, jobs, groups, layout, N)
+        if _cuda.LAUNCHES['cg_gmulti'] - before != n_pass:
+            raise AssertionError(f'cg_gmulti {t} {label}: counted '
+                                 f'{_cuda.LAUNCHES["cg_gmulti"] - before}'
+                                 f' launches for {n_pass} passes')
+        want = gmulti_plain(ybar, pool, dst, jobs, groups, layout, N)
+        err = compare(f'cg_gmulti {t} {label}', got, want)
+        same_bits(f'cg_gmulti {t} {label}',
+                  lambda: gmulti_cuda(ybar, pool, dst, jobs, groups,
+                                      layout, N))
+        # the function's scalar couplings x jobs, counted as a table
+        # of 16-byte terms with 4 operations each, as the bound of the
+        # per-term table the first kernel read, so the times compare
+        n_terms = gmulti_term_count(layout, len(jobs))
+        b_ms, b_by = bound_ms(
+            pool_bytes(i for _, b, c, _ in jobs for i in (b, c))
+            + 4 * E + 4 * N * layout.dim_msg
+            + 4 * E * sum(g.shape[1] for g in got) + 16 * n_terms,
+            live * 4 * n_terms)
+        gmulti_cases.append(dict(
+            shape=f'{t} {label}: E={E} N={N}', max_abs_err=err,
+            bit_identical=True,
+            ms=cuda_ms(lambda: gmulti_cuda(ybar, pool, dst, jobs, groups,
+                                           layout, N)),
+            plain_ms=cuda_ms(lambda: gmulti_plain(
+                ybar, pool, dst, jobs, groups, layout, N), iters=5),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by))
+    return agg_cases, multi_cases, gagg_cases, gmulti_cases
+
+
 def phase_kernels(calc, batch, n_real_edge):
     import torch
 
     from sevennet_finetuning_tpu_torch import keys as K
-    from sevennet_finetuning_tpu_torch.ops import _cuda, scatter
-    from sevennet_finetuning_tpu_torch.ops.cg_tables import (
-        gmulti_passes, gmulti_term_count)
+    from sevennet_finetuning_tpu_torch.ops import scatter
     from sevennet_finetuning_tpu_torch.ops.fused_conv import (
         _MODE_LEGS, _MODE_OUT, layout_from_spec)
-    from sevennet_finetuning_tpu_torch.ops.fused_conv_agg import (
-        _EMIT, agg_config, agg_cuda, agg_plain)
     from sevennet_finetuning_tpu_torch.ops.fused_conv_kernel import (
         quad_config, quad_cuda, quad_plain)
-    from sevennet_finetuning_tpu_torch.ops.fused_conv_multi import (
-        _EMIT_LEGS, _JOB_LEGS, gagg_cuda, gagg_plain, gmulti_cuda, gmulti_plain,
-        multi_cuda, multi_plain)
 
     dev = calc.device
     dst = batch[K.EDGE_IDX][0].contiguous()
@@ -818,165 +1051,12 @@ def phase_kernels(calc, batch, n_real_edge):
     quad_cases = []
     for t in (0, 1, 4):
         layout = layout_from_spec(calc.spec.blocks[t].conv_tp)
-        x = randn(E, layout.dim_x)
-        sh = randn(E, layout.dim_sh)
-        w = randn(E, layout.dim_w)
-        # x/sh/w rows of padded edges are never needed: the agg sum ends
-        # at the last live edge and multi's outputs there are zero
+        for acc, got in zip((agg_cases, multi_cases, gagg_cases,
+                             gmulti_cases),
+                            conv_kernel_cases(f'block {t}', layout, dst, N,
+                                              randn, x_grad=t > 0)):
+            acc.extend(got)
         dims = {'x': layout.dim_x, 'sh': layout.dim_sh, 'w': layout.dim_w}
-        leg_bytes = 4 * live * sum(dims.values())
-
-        def job_leg_bytes(jobs):
-            # the legs the jobs read: xn needs sh and w, shn x and w, wn x
-            # and sh
-            return 4 * live * sum(dims[leg] for leg in
-                                  {leg for j in jobs for leg in _JOB_LEGS[j]})
-
-        got = agg_cuda(x, sh, w, dst, layout, N)
-        want = agg_plain(x, sh, w, dst, layout, N)
-        err = compare(f'cg_agg block {t}', got, want)
-        same_bits(f'cg_agg block {t}',
-                  lambda: agg_cuda(x, sh, w, dst, layout, N))
-        # one-term cg_gagg computes the same function (fusing the w
-        # product into its sums, where cg_agg rounds it as JAX does): the
-        # yardstick, timed below (cg_gagg's "1 term" case)
-        same = torch.equal(got, gagg_cuda([x, sh, w], dst, ((0, 1, 2),),
-                                          layout, N))
-        log(f'  cg_agg block {t}: the same bits as one-term cg_gagg: '
-            f'{same}')
-        # the bound counts the per-term table the first kernel read, so
-        # the times of every PR compare
-        n_terms = gmulti_term_count(layout, 1)
-        b_ms, b_by = bound_ms(
-            leg_bytes + 4 * E + 4 * N * layout.dim_msg + 16 * n_terms,
-            live * (4 * n_terms + layout.dim_msg))
-        agg_cases.append(dict(
-            shape=f'block {t}: E={E} N={N} dims x/sh/w/msg '
-                  f'{layout.dim_x}/{layout.dim_sh}/{layout.dim_w}/'
-                  f'{layout.dim_msg}, launch {agg_config(layout)}',
-            max_abs_err=err, bit_identical=True,
-            ms=cuda_ms(lambda: agg_cuda(x, sh, w, dst, layout, N)),
-            plain_ms=cuda_ms(lambda: agg_plain(x, sh, w, dst, layout, N),
-                             iters=5),
-            library_ms=None, bound_ms=b_ms, bound_by=b_by,
-            device_us=device_us_per_call(
-                lambda: agg_cuda(x, sh, w, dst, layout, N))))
-
-        # the block's jobs (block 0's input, the embedding, needs no
-        # cotangent), one job each of xn, shn, wn (the counterpart of
-        # bwd_pallas, row 4), and xn + wn: the outer backward's jobs
-        # without the shn cotangent that the train step computes but does
-        # not need.  The bound counts the per-term table the first
-        # kernel read, so the times compare
-        ybar = randn(N, layout.dim_msg)
-        for sub, label in (
-                (('shn', 'wn') if t == 0 else ('xn', 'shn', 'wn'), 'jobs'),
-                (('xn',), 'single job'), (('shn',), 'single job'),
-                (('wn',), 'single job'), (('xn', 'wn'), 'jobs (no shn)')):
-            got = multi_cuda(ybar, x, sh, w, dst, sub, layout, N)
-            want = multi_plain(ybar, x, sh, w, dst, sub, layout, N)
-            err = compare(f'cg_multi block {t} {sub}', got, want)
-            same_bits(f'cg_multi block {t} {sub}',
-                      lambda: multi_cuda(ybar, x, sh, w, dst, sub, layout, N))
-            n_terms = gmulti_term_count(layout, len(sub))
-            b_ms, b_by = bound_ms(
-                job_leg_bytes(sub) + 4 * E + 4 * N * layout.dim_msg
-                + 4 * E * sum(dims[_EMIT[j]] for j in sub) + 16 * n_terms,
-                live * 4 * n_terms)
-            multi_cases.append(dict(
-                shape=f'block {t} {label} {"+".join(sub)}: E={E} N={N}',
-                max_abs_err=err, bit_identical=True,
-                ms=cuda_ms(lambda: multi_cuda(ybar, x, sh, w, dst, sub,
-                                              layout, N)),
-                plain_ms=cuda_ms(lambda: multi_plain(
-                    ybar, x, sh, w, dst, sub, layout, N), iters=5),
-                library_ms=None, bound_ms=b_ms, bound_by=b_by))
-
-        # the double backward at this block: cotangents of xn / shn / wn
-        cx = randn(E, layout.dim_x)
-        cs = randn(E, layout.dim_sh)
-        cw = randn(E, layout.dim_w)
-        pool = [x, sh, w, cx, cs, cw]
-        pool_dims = tuple(p.shape[1] for p in pool)
-
-        def pool_bytes(used):
-            # the live rows of the pool arrays that the terms / jobs read
-            return 4 * live * sum(pool_dims[i] for i in set(used))
-
-        # CGNodeMulti.backward's three terms; then one term on [x, sh, w],
-        # cg_agg's function (its yardstick).  The bound counts the
-        # per-term table the first kernel read, whose entries are the
-        # scalar couplings x terms, so the times compare
-        terms = ((0, 1, 5), (0, 4, 2), (3, 1, 2))
-        for tm, label in ((terms, '3 terms'),
-                          (((0, 1, 2),), "1 term (cg_agg's function)")):
-            got = gagg_cuda(pool, dst, tm, layout, N)
-            want = gagg_plain(pool, dst, tm, layout, N)
-            err = compare(f'cg_gagg block {t} {label}', got, want)
-            same_bits(f'cg_gagg block {t} {label}',
-                      lambda: gagg_cuda(pool, dst, tm, layout, N))
-            n_terms = gmulti_term_count(layout, len(tm))
-            b_ms, b_by = bound_ms(
-                pool_bytes(i for term in tm for i in term)
-                + 4 * E + 4 * N * layout.dim_msg + 16 * n_terms,
-                live * (4 * n_terms + len(tm) * layout.dim_msg))
-            gagg_cases.append(dict(
-                shape=f'block {t} {label}: E={E} N={N}', max_abs_err=err,
-                bit_identical=True,
-                ms=cuda_ms(lambda: gagg_cuda(pool, dst, tm, layout, N)),
-                plain_ms=cuda_ms(lambda: gagg_plain(pool, dst, tm, layout,
-                                                    N), iters=5),
-                library_ms=None, bound_ms=b_ms, bound_by=b_by))
-
-        # CGNodeMulti.backward's jobs; then without the sh group, whose
-        # cotangent the train step computes but does not need
-        full = ((('x', 1, 5, 'x'), ('x', 4, 2, 'x'), ('sh', 0, 5, 'sh'),
-                 ('sh', 3, 2, 'sh'), ('w', 0, 4, 'w'), ('w', 3, 1, 'w')),
-                ('x', 'sh', 'w'))
-        no_sh = (tuple(j for j in full[0] if j[3] != 'sh'), ('x', 'w'))
-        # CGNodeGAgg.backward of the gagg terms above with every leg live
-        # (a third order): three jobs of each emit mode, several passes
-        gagg_bwd = (tuple((leg, idx[b], idx[c], idx[leg])
-                          for term in terms
-                          for idx in [dict(zip(('x', 'sh', 'w'), term))]
-                          for leg, (b, c) in _EMIT_LEGS.items()),
-                    tuple(sorted({i for term in terms for i in term})))
-        for label, (jobs, groups) in (('6 jobs x/sh/w', full),
-                                      ('4 jobs x/w (no sh)', no_sh),
-                                      ('9 jobs of a gagg backward',
-                                       gagg_bwd)):
-            gi = {g: i for i, g in enumerate(groups)}
-            n_pass = len(gmulti_passes(
-                tuple((m, b, c, gi[g]) for m, b, c, g in jobs), len(groups)))
-            label = f'{label}, {n_pass} pass{"es" if n_pass > 1 else ""}'
-            before = _cuda.LAUNCHES['cg_gmulti']
-            got = gmulti_cuda(ybar, pool, dst, jobs, groups, layout, N)
-            if _cuda.LAUNCHES['cg_gmulti'] - before != n_pass:
-                raise AssertionError(f'cg_gmulti block {t} {label}: counted '
-                                     f'{_cuda.LAUNCHES["cg_gmulti"] - before}'
-                                     f' launches for {n_pass} passes')
-            want = gmulti_plain(ybar, pool, dst, jobs, groups, layout, N)
-            err = compare(f'cg_gmulti block {t} {label}', got, want)
-            same_bits(f'cg_gmulti block {t} {label}',
-                      lambda: gmulti_cuda(ybar, pool, dst, jobs, groups,
-                                          layout, N))
-            # the function's scalar couplings x jobs, counted as a table
-            # of 16-byte terms with 4 operations each, as the bound of the
-            # per-term table the first kernel read, so the times compare
-            n_terms = gmulti_term_count(layout, len(jobs))
-            b_ms, b_by = bound_ms(
-                pool_bytes(i for _, b, c, _ in jobs for i in (b, c))
-                + 4 * E + 4 * N * layout.dim_msg
-                + 4 * E * sum(g.shape[1] for g in got) + 16 * n_terms,
-                live * 4 * n_terms)
-            gmulti_cases.append(dict(
-                shape=f'block {t} {label}: E={E} N={N}', max_abs_err=err,
-                bit_identical=True,
-                ms=cuda_ms(lambda: gmulti_cuda(ybar, pool, dst, jobs, groups,
-                                               layout, N)),
-                plain_ms=cuda_ms(lambda: gmulti_plain(
-                    ybar, pool, dst, jobs, groups, layout, N), iters=5),
-                library_ms=None, bound_ms=b_ms, bound_by=b_by))
 
         # the per-edge family: each mode on random legs of every edge
         # slot; the bound counts as the JAX kernel's cost_estimate does
@@ -1183,17 +1263,19 @@ def new_trainer(device='cuda', dtype=None):
                    opt_params=load_pytree(str(OPT_PARAMS)), device=device)
 
 
-def check_terms(label, got, gold, i, weights, tol, raw_tol=None):
+def check_terms(label, got, gold, i, weights, tol, raw_tol=None,
+                names=TRAIN_TERMS):
     """The step's total within tol; each weighted term within tol of the
-    total; with raw_tol, each term within raw_tol of its own JAX value."""
+    total; with raw_tol, each term within raw_tol of its own JAX value.
+    ``names``: the total, then the terms."""
     total = abs(float(gold['Total'][i]))
     errs = {k: abs(float(got[k]) - float(gold[k][i])) * weights.get(k, 1.0)
-            / total for k in TRAIN_TERMS}
+            / total for k in names}
     worst = max(errs.values())
     # each term against its own JAX value: a small term (stress at weight
     # 0.01, EWC) carries little of the total
     raw = {k: abs(float(got[k]) / float(gold[k][i]) - 1)
-           for k in TRAIN_TERMS[1:]}
+           for k in names[1:]}
     raw_limit = '' if raw_tol is None else f' (limit {raw_tol:g})'
     log(f'  {label} step {i}: total {float(got["Total"]):.9e} (JAX '
         f'{float(gold["Total"][i]):.9e}), worst rel err {worst:.2e} '
@@ -1208,23 +1290,24 @@ def check_terms(label, got, gold, i, weights, tol, raw_tol=None):
     return worst
 
 
-def check_grads(label, trainer, gold):
+def check_grads(label, trainer, gold, prefix='grad/'):
     """The last step's gradient of every leaf against the golden file's
-    first-step gradient: within GRAD_TOL x max|g| of the leaf (the leaves
-    of GRAD_TOL_LEAF within their own limit).  Also counts elements whose
-    sign differs (|g| > 1e-8 on either side)."""
+    first-step gradient (keys ``prefix`` + group/leaf): within
+    GRAD_TOL[label] x max|g| of the leaf (the leaves of GRAD_TOL_LEAF
+    within their own limit).  Also counts elements whose sign differs
+    (|g| > 1e-8 on either side)."""
     import numpy as np
 
     errs, flips, n, sq_err, sq = [], 0, 0, 0.0, 0.0
     for key in gold.files:
-        if not key.startswith('grad/'):
+        if not key.startswith(prefix):
             continue
-        _, g, name = key.split('/')
+        g, name = key[len(prefix):].split('/')
         want = gold[key]
         got = trainer.params[g][name].grad.cpu().numpy()
         scale = max(float(np.abs(want).max()), 1e-30)
         rel = float(np.abs(got - want).max()) / scale
-        tol = GRAD_TOL_LEAF[label].get((g, name), GRAD_TOL[label])
+        tol = GRAD_TOL_LEAF.get(label, {}).get((g, name), GRAD_TOL[label])
         errs.append((rel, tol, g, name, scale))
         sq_err += float(np.sum((got.astype(np.float64) - want) ** 2))
         sq += float(np.sum(want.astype(np.float64) ** 2))
@@ -1821,11 +1904,14 @@ def neighbor_builder(name):
 
 def _shape_key(a):
     """A launch argument as it enters a capture key: a tensor by its
-    shape, a hashable option by its value, anything else by identity."""
+    shape, a list of tensors (a pool) by their shapes, a hashable option
+    by its value, anything else by identity."""
     import torch
 
     if isinstance(a, torch.Tensor):
         return tuple(a.shape)
+    if isinstance(a, list) and all(isinstance(t, torch.Tensor) for t in a):
+        return tuple(tuple(t.shape) for t in a)
     try:
         hash(a)
     except TypeError:
@@ -1833,9 +1919,22 @@ def _shape_key(a):
     return a
 
 
+def _kept(a):
+    """A launch argument as a capture keeps it: tensors detached."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.detach()
+    if isinstance(a, list):
+        return [_kept(t) for t in a]
+    return a
+
+
 class KernelCapture:
-    """While active, the wrappers of ``segment_sum``, ``cg_agg`` and
-    ``cg_multi`` launch as usual (and count), and the first call at each
+    """While active, the wrappers of ``kernels`` (by default
+    ``segment_sum``, ``cg_agg`` and ``cg_multi``; ``cg_gagg`` and
+    ``cg_gmulti`` on request) launch as usual (and count), and the first
+    call at each
     distinct shape (the argument shapes and the options) keeps its card
     tensors and result; ``check`` then holds every kept result against
     the kernel's plain version on the same tensors and lets the tensors
@@ -1843,7 +1942,8 @@ class KernelCapture:
     launched while the capture is active is checked exactly once; leaving
     it with a kept launch unchecked fails."""
 
-    def __init__(self):
+    def __init__(self, kernels=('segment_sum', 'cg_agg', 'cg_multi')):
+        self.kernels = kernels
         self.records = {}
         self.checked = set()
         self.worst = {}               # check label -> {kernel: max_abs_err}
@@ -1853,10 +1953,14 @@ class KernelCapture:
         from sevennet_finetuning_tpu_torch.ops import fused_conv_multi as M
         from sevennet_finetuning_tpu_torch.ops import scatter as S
 
-        self.patched = [(S, 'segment_sum_cuda', 'segment_sum',
+        self.patched = [
+            p for p in ((S, 'segment_sum_cuda', 'segment_sum',
                          S.segment_sum_plain),
                         (A, 'agg_cuda', 'cg_agg', A.agg_plain),
-                        (M, 'multi_cuda', 'cg_multi', M.multi_plain)]
+                        (M, 'multi_cuda', 'cg_multi', M.multi_plain),
+                        (M, 'gagg_cuda', 'cg_gagg', M.gagg_plain),
+                        (M, 'gmulti_cuda', 'cg_gmulti', M.gmulti_plain))
+            if p[2] in self.kernels]
         self.originals = [getattr(mod, attr)
                           for mod, attr, _, _ in self.patched]
         for (mod, attr, name, _), orig in zip(self.patched, self.originals):
@@ -1871,25 +1975,21 @@ class KernelCapture:
                                  'and never checked')
 
     def _wrap(self, name, orig):
-        import torch
-
         def fn(*args):
             out = orig(*args)
             key = (name,) + tuple(_shape_key(a) for a in args)
             if key not in self.records and key not in self.checked:
                 kept = (tuple(o.detach().clone() for o in out)
                         if isinstance(out, tuple) else out.detach().clone())
-                self.records[key] = (tuple(
-                    a.detach() if isinstance(a, torch.Tensor) else a
-                    for a in args), kept)
+                self.records[key] = (tuple(_kept(a) for a in args), kept)
             return out
 
         return fn
 
     def check(self, label):
         """Each launch kept since the last check against its plain
-        version: ``cg_agg`` and ``cg_multi`` on the same card tensors
-        within KERNEL_TOL; ``segment_sum`` bit for bit against its plain
+        version: ``cg_agg``, ``cg_multi``, ``cg_gagg`` and ``cg_gmulti`` on
+        the same card tensors within KERNEL_TOL; ``segment_sum`` bit for bit against its plain
         version on the host CPU, which adds each row's edges in edge order
         as the kernel does (on the card the plain version's ``index_add_``
         adds in the order its atomics land: 2.3e-6 of max off the kernel
@@ -1906,8 +2006,8 @@ class KernelCapture:
                               got.cpu(), plains[name](msg.cpu(), dst.cpu(),
                                                       n), 0.0)
             else:
-                err = compare(f'{label} {name} {tuple(args[0].shape)}',
-                              got, plains[name](*args))
+                err = compare(f'{label} {name} {key[1]}', got,
+                              plains[name](*args))
             worst[name] = max(worst.get(name, 0.0), err)
         log(f'  {label}: {len(self.records)} new kernel shapes checked '
             f'against their plain versions, {len(self.checked)} before')
@@ -2285,6 +2385,236 @@ def _md_runs(cap):
     return counts
 
 
+def family_configs(gold):
+    """{name: flat model config} of the families golden (its one copy of
+    the three configurations)."""
+    from sevennet_finetuning_tpu_torch import keys as K
+
+    cfgs = json.loads(str(gold['configs']))
+    for cfg in cfgs.values():
+        cfg[K.TYPE_MAP] = {int(z): i for z, i in cfg[K.TYPE_MAP]}
+    return cfgs
+
+
+def family_census(label, got, want):
+    """The launches of one request or train step: exactly ``want`` of the
+    families' kernels, none of the others."""
+    from sevennet_finetuning_tpu_torch.ops import _cuda
+
+    full = {k: want.get(k, 0) for k in _cuda.KERNELS}
+    got = {k: got.get(k, 0) for k in _cuda.KERNELS}
+    if got != full:
+        raise AssertionError(f'{label}: launches {got}, expected {full}')
+
+
+def family_kernel_rows(rows, calc_mace, calc_gaunt, structure):
+    """The families' new kernel shapes on the 96-atom structure's graphs,
+    each held against its plain version, timed and bounded (appended to
+    ``rows``): cg_agg / cg_multi / cg_gagg / cg_gmulti at MACE's two
+    layouts (l <= 3 filter, 128 channels up to l = 3), and segment_sum at
+    the Gaunt aggregation's D = 1,152 and its source gather's backward,
+    D = 10,368."""
+    import torch
+
+    from sevennet_finetuning_tpu_torch import keys as K
+    from sevennet_finetuning_tpu_torch.ops import scatter
+    from sevennet_finetuning_tpu_torch.ops.fused_conv import layout_from_spec
+
+    gen = torch.Generator(device='cpu').manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to('cuda')
+
+    b = calc_mace.batch(structure)
+    dst = b[K.EDGE_IDX][0].contiguous()
+    N = b[K.POS].shape[0]
+    for t, blk in enumerate(calc_mace.spec.blocks):
+        layout = layout_from_spec(blk.conv_tp)
+        for name, cases in zip(('cg_agg', 'cg_multi', 'cg_gagg',
+                                'cg_gmulti'),
+                               conv_kernel_cases(f'mace block {t}', layout,
+                                                 dst, N, randn,
+                                                 x_grad=t > 0)):
+            rows[name].extend(cases)
+    b = calc_gaunt.batch(structure)
+    dst = b[K.EDGE_IDX][0].contiguous()
+    N = b[K.POS].shape[0]
+    e = dst.shape[0]
+    n_live = int((dst < N).sum())
+    for D, label in ((1152, 'Gaunt aggregation'),
+                     (10368, "Gaunt source gather's backward")):
+        msg = randn(e, D)
+        got = scatter.segment_sum_cuda(msg, dst, N)
+        err = compare(f'segment_sum E={e} D={D} N={N}', got.cpu(),
+                      scatter.segment_sum_plain(msg.cpu(), dst.cpu(), N),
+                      0.0)
+        same_bits(f'segment_sum E={e} D={D} N={N}',
+                  lambda: scatter.segment_sum_cuda(msg, dst, N))
+        idx_long = dst.long()
+
+        def library():
+            return torch.zeros(N + 1, D, device='cuda').index_add_(
+                0, idx_long, msg)
+
+        b_ms, b_by = bound_ms(4 * (n_live * D + e + N * D), n_live * D)
+        rows['segment_sum'].append(dict(
+            shape=f'E={e} D={D} N={N} ({label}, 96 atoms, '
+                  f'{"staged" if scatter.segment_plan(e, D, N) else "rows"})',
+            max_abs_err=err, bit_identical=True,
+            ms=cuda_ms(lambda: scatter.segment_sum_cuda(msg, dst, N)),
+            plain_ms=cuda_ms(lambda: scatter.segment_sum_plain(msg, dst, N)),
+            library_ms=cuda_ms(library), bound_ms=b_ms, bound_by=b_by,
+            device_us=device_us_per_call(
+                lambda: scatter.segment_sum_cuda(msg, dst, N))))
+    for name, cases in rows.items():
+        for c in cases:
+            if c['shape'].startswith('mace') or 'Gaunt' in c['shape']:
+                log(f'  {name} [{c["shape"]}]: kernel {c["ms"]:.4f} ms, '
+                    f'plain {c["plain_ms"]:.4f} ms, bound '
+                    f'{c["bound_ms"] * 1e3:.1f} us ({c["bound_by"]})')
+
+
+def phase_families(rows):
+    """The MACE and Gaunt families at full width (``golden/
+    families_jax_cpu.npz``'s configurations, init_params(spec, 0)) on the
+    card: each serves ft.extxyz through ``Calculator`` against the golden
+    (the serving limits) with its launch census per request; MACE and
+    Gaunt take three train steps on ft900 structure 0 against the golden
+    (the first step's loss within STEP0_TOL, every leaf's first-step
+    gradient within GRAD_TOL of its max|g|, steps 2-3 within
+    TRAJ_TOL) with their census per step; every distinct kernel shape
+    launched is held against its plain version (``KernelCapture``).  Then
+    the families' new kernel shapes are timed into ``rows``.  Returns the
+    launch counts of the requests and train steps."""
+    t_phase = time.perf_counter()
+    with KernelCapture(FAMILY_KERNELS) as cap:
+        counts, calcs, structure = _family_runs(cap)
+    # the new shapes' timings (their launches are not the path's)
+    family_kernel_rows(rows, calcs['mace_mp0_medium_widths'],
+                       calcs['gaunt_sevennet0_widths'], structure)
+    log(f'[families] phase {time.perf_counter() - t_phase:.1f} s')
+    return counts
+
+
+def _family_runs(cap):
+    """The families' requests and train steps; returns the launch counts,
+    the calculators by name and ft900 structure 0."""
+    import numpy as np
+    import torch
+
+    from sevennet_finetuning_tpu_torch import keys as K
+    from sevennet_finetuning_tpu_torch.calculator import Calculator
+    from sevennet_finetuning_tpu_torch.data.dataset import (
+        GraphDataset, Loader)
+    from sevennet_finetuning_tpu_torch.data.readers import read_extxyz
+    from sevennet_finetuning_tpu_torch.model.build import build_model_spec
+    from sevennet_finetuning_tpu_torch.model.nequip import (
+        NequIP, init_params, load_jax_params)
+    from sevennet_finetuning_tpu_torch.ops import _cuda
+    from sevennet_finetuning_tpu_torch.train.metrics import (
+        init_accumulators)
+    from sevennet_finetuning_tpu_torch.train.trainer import Trainer
+
+    gold = np.load(GOLDEN_FAMILIES)
+    cfgs = family_configs(gold)
+    train = json.loads(str(gold['train_config']))
+    structs = read_extxyz(str(FT))
+    s900 = read_extxyz(str(FT900))[0]
+    results, calcs = {}, {}
+    _cuda.LAUNCHES.clear()
+    for name, cfg in cfgs.items():
+        spec = build_model_spec(cfg)
+        params = init_params(spec, 0)
+        calc = calcs[name] = Calculator(spec, params, device='cuda')
+        n_par = sum(int(p.numel()) for p in calc.model.parameters())
+        if n_par != int(gold[f'{name}/n_params']):
+            raise AssertionError(f'{name}: {n_par} parameters, golden '
+                                 f'{int(gold[f"{name}/n_params"])}')
+        calc.calculate(structs[0])                   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for i, s in enumerate(structs):
+            before = dict(_cuda.LAUNCHES)
+            t0 = time.perf_counter()
+            res = calc.calculate(s)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            family_census(f'{name} request {i}', _launch_diff(before),
+                          FAMILY_SERVE_CENSUS[name])
+            check_served(f'{name} request {i} ({len(s)} atoms, '
+                         f'{ms[-1]:.2f} ms)', res,
+                         gold[f'{name}/energy'][i],
+                         gold[f'{name}/forces_{i}'],
+                         gold[f'{name}/stress'][i],
+                         e_tol=FAMILY_ENERGY_TOL.get(name,
+                                                     GOLDEN_ENERGY_TOL))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        cap.check(f'families {name} requests')
+        wall, busy = profile_device(f'{name} 96-atom request',
+                                    lambda: calc.calculate(structs[0]))
+        results[name] = dict(
+            params=n_par, request_ms=[round(x, 3) for x in ms],
+            request_96_ms=round(float(np.median(ms[:4])), 3),
+            request_96_device_ms=None if busy is None else round(busy, 3),
+            request_96_profiled_wall_ms=round(wall, 3),
+            serve_peak_gib=round(peak, 3),
+            census_per_request=FAMILY_SERVE_CENSUS[name])
+        log(f'[families] {name}: {n_par} parameters, 96-atom request '
+            f'{results[name]["request_96_ms"]} ms wall (median of 4), '
+            f'device {results[name]["request_96_device_ms"]} ms, peak '
+            f'memory {peak:.3f} GiB')
+        cap.check(f'families {name} profiled request')
+
+    for name in train['trained']:
+        cfg = cfgs[name]
+        spec = calcs[name].spec
+        trainer = Trainer(load_jax_params(NequIP(spec), init_params(spec, 0)),
+                          {**cfg, **train['recipe']}, device='cuda')
+        ds = GraphDataset.from_structures([s900], spec.cutoff,
+                                          cfg[K.TYPE_MAP])
+        batch = trainer.place_batch(next(iter(Loader(ds, 1))))
+        acc = init_accumulators(trainer.metric_specs, trainer.device)
+        tgold = {k: gold[f'{name}/train/{k}'] for k in FAMILY_TERMS}
+        weights = {ls.name: ls.weight for ls in trainer.loss_specs}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for step in range(train['steps']):
+            before = dict(_cuda.LAUNCHES)
+            t0 = time.perf_counter()
+            acc, terms = trainer.train_step(batch, acc)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            family_census(f'{name} train step {step}', _launch_diff(before),
+                          FAMILY_TRAIN_CENSUS[name])
+            check_terms(name, dict(terms), tgold, step, weights,
+                        STEP0_TOL if step == 0 else TRAJ_TOL,
+                        names=FAMILY_TERMS)
+            if step == 0:
+                check_grads(name, trainer, gold, prefix=f'{name}/grad/')
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        cap.check(f'families {name} train steps')
+        wall, busy = profile_device(
+            f'{name} train step', lambda: trainer.train_step(batch, acc))
+        cap.check(f'families {name} profiled train step')
+        results[name].update(
+            train_step_ms=[round(x, 3) for x in ms],
+            train_step_device_ms=None if busy is None else round(busy, 3),
+            train_peak_gib=round(peak, 3),
+            census_per_train_step=FAMILY_TRAIN_CENSUS[name])
+        r = results[name]
+        log(f'[families] {name} train: ms per step {r["train_step_ms"]}, '
+            f'device {r["train_step_device_ms"]} ms, peak memory '
+            f'{peak:.3f} GiB')
+
+    counts = dict(_cuda.LAUNCHES)
+    log(f'[families] launches of the phase {counts}; {len(cap.checked)} '
+        f'distinct kernel shapes, each against its plain version, largest '
+        f'max_abs_err by check {cap.worst}')
+    log('[families] ' + json.dumps({'families': results}))
+    return counts, calcs, s900
+
+
 def _rel_l2(got, want):
     import numpy as np
 
@@ -2416,7 +2746,8 @@ def main():
         path_counts = {'serve': serve_counts, 'train': phase_train(),
                        'pipeline': phase_pipeline(),
                        'unsorted': phase_unsorted(batch),
-                       'probes': probe_counts}
+                       'probes': probe_counts,
+                       'families': phase_families(rows)}
     path_counts['md'] = phase_md()
 
     # one row per kernel at its interior-block / widest shape; every

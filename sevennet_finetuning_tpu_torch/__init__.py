@@ -9,9 +9,11 @@ its own copies of the host-side code and never imports JAX.
 - ``config``, ``presets``: YAML -> validated config, preset inputs
 - ``data``      : structures, extxyz reader, neighbor lists, dataset
                   statistics and the padded-batch loader
-- ``model``     : padded graph batches, the NequIP model, spec builder,
-                  ``init_params``
-- ``ops``       : equivariant primitives; ``scatter`` and the
+- ``model``     : padded graph batches, the model (the nequip, mace,
+                  gaunt, gaunt_gate and custom interaction families),
+                  spec builder, ``init_params``
+- ``ops``       : equivariant primitives (the symmetric contraction and
+                  the Gaunt FFT products among them); ``scatter`` and the
                   ``fused_conv_*`` modules wrap the CUDA kernels in
                   ``csrc/`` (plain PyTorch versions run for CPU tensors)
 - ``train``     : trainer (train / eval steps, rehearsal, Fisher), loss,

@@ -1,10 +1,12 @@
 """Model assembly from a flat config dict.
 
-Port of ``sevennet_finetuning_tpu/model/build.py`` for
-``interaction_type: nequip``: per-layer output irreps are inferred from
-the tensor product of node and filter irreps, capped at lmax, full parity
-in hidden layers, scalars only ('even', l=0) at the last layer; an
-``irreps_manual`` list overrides inference.
+Port of ``sevennet_finetuning_tpu/model/build.py`` (reference:
+sevenn/model_build.py:186-445) for every interaction type: 'nequip',
+'mace', 'gaunt', 'gaunt_gate' and 'custom' (a plugin block).  Per-layer
+output irreps are inferred from the tensor product of node and filter
+irreps, capped at lmax, with the family's parity rule in hidden layers
+and scalars only ('even', l=0) at the last layer; an ``irreps_manual``
+list overrides inference.
 """
 
 from __future__ import annotations
@@ -14,7 +16,23 @@ from typing import Dict
 from .. import keys as K
 from ..irreps import Irreps, tp_out_irreps
 from ..ops.linear import linear_spec
-from .nequip import EdgeEmbedSpec, ModelSpec, ReadoutSpec, build_nequip_block
+from .nequip import (EdgeEmbedSpec, ModelSpec, ReadoutSpec, build_gaunt_block,
+                     build_mace_block, build_nequip_block)
+
+
+def _load_callback(path: str, module: str, function: str):
+    """Dotted-path plugin loader shared by the custom interaction-block
+    and custom loss hooks (reference: sevenn/model_build.py:92-100,
+    sevenn/train/loss.py:312-321)."""
+    import importlib
+    import os
+    import sys
+
+    if not os.path.isdir(path):
+        raise ValueError(f'no such plugin dir: {path}')
+    if path not in sys.path:
+        sys.path.insert(1, path)
+    return getattr(importlib.import_module(module), function)
 
 
 def build_model_spec(config: Dict) -> ModelSpec:
@@ -31,10 +49,16 @@ def build_model_spec(config: Dict) -> ModelSpec:
     cutoff = float(config.get(K.CUTOFF, 4.5))
     biases = config.get(K.USE_BIAS_IN_LINEAR, False)
     interaction = config.get(K.INTERACTION_TYPE, 'nequip')
-    if interaction != 'nequip':
+    if interaction not in ('nequip', 'mace', 'gaunt', 'gaunt_gate',
+                           'custom'):
         raise NotImplementedError(
-            f'interaction type {interaction!r} is not ported yet: '
-            'ROADMAP A.9')
+            f'interaction type {interaction!r} not yet available'
+        )
+    custom_builder = None
+    if interaction == 'custom':
+        custom_builder = _load_callback(
+            **config[K._CUSTOM_INTERACTION_BLOCK_CALLBACK]
+        )
 
     rb = config.get(K.RADIAL_BASIS, {K.RADIAL_BASIS_NAME: 'bessel'})
     assert rb.get(K.RADIAL_BASIS_NAME, 'bessel') == 'bessel'
@@ -81,43 +105,162 @@ def build_model_spec(config: Dict) -> ModelSpec:
     conv_denominator = [float(d) for d in conv_denominator]
 
     restrict_last = config.get(K._RESTRICT_LAST_LAYER, True)
+    train_denominator = config.get(K.TRAIN_DENOMINATOR, False)
+    correlation = config.get(K.CORRELATION, 3)
     blocks = []
     cur_lmax_node = lmax_node
     for t in range(num_layers):
-        parity_mode = 'full'
-        if t == num_layers - 1 and restrict_last:
-            cur_lmax_node = 0
-            parity_mode = 'even'
-        irreps_out_tp = tp_out_irreps(
-            irreps_x, irreps_filter, cur_lmax_node, parity_mode
-        )
-        irreps_out = (
-            tp_out_irreps(
-                irreps_x, irreps_filter, cur_lmax_node, parity_mode,
-                fix_multiplicity=channel,
+        if interaction == 'custom':
+            # plugin hook (reference: sevenn/model_build.py:92-100): the
+            # callback builds a CustomBlockSpec with init/apply
+            parity_mode = 'full'
+            if t == num_layers - 1 and restrict_last:
+                cur_lmax_node = 0
+                parity_mode = 'even'
+            irreps_out = (
+                tp_out_irreps(
+                    irreps_x, irreps_filter, cur_lmax_node, parity_mode,
+                    fix_multiplicity=channel,
+                )
+                if not irreps_manual
+                else irreps_manual[t + 1]
             )
-            if not irreps_manual
-            else irreps_manual[t + 1]
-        )
-        blocks.append(
-            build_nequip_block(
+            blk = custom_builder(
                 t=t,
                 irreps_x=irreps_x,
                 irreps_filter=irreps_filter,
-                irreps_out_tp=irreps_out_tp,
                 irreps_out=irreps_out,
                 num_species=num_species,
                 radial_hidden=radial_hidden,
                 bessel_num=bessel_num,
-                act_radial=act_radial,
-                act_scalar=act_scalar,
-                act_gate=act_gate,
-                self_connection=self_connection,
-                biases=biases,
-                train_denominator=config.get(K.TRAIN_DENOMINATOR, False),
-                denominator=conv_denominator[t],
+                config=config,
             )
-        )
+            assert blk.block_type == 'custom' and blk.t == t
+            blocks.append(blk)
+        elif interaction in ('gaunt', 'gaunt_gate'):
+            # reference: sevenn/model_build.py:327-347
+            parity_mode = 'sph'
+            fix = channel
+            if interaction == 'gaunt_gate':
+                if t == num_layers - 1 and restrict_last:
+                    cur_lmax_node = 0
+                    parity_mode = 'even'
+                    fix = False
+                irreps_out_tp = tp_out_irreps(
+                    irreps_x, irreps_filter, cur_lmax_node, parity_mode,
+                    fix_multiplicity=fix,
+                )
+            else:
+                irreps_out_tp = tp_out_irreps(
+                    irreps_x, irreps_filter, cur_lmax_node, 'sph',
+                    fix_multiplicity=channel,
+                )
+                if t == num_layers - 1 and restrict_last:
+                    cur_lmax_node = 0
+                    parity_mode = 'even'
+            irreps_out = (
+                tp_out_irreps(
+                    irreps_x, irreps_filter, cur_lmax_node, parity_mode,
+                    fix_multiplicity=channel,
+                )
+                if not irreps_manual
+                else irreps_manual[t + 1]
+            )
+            blocks.append(
+                build_gaunt_block(
+                    t=t,
+                    irreps_x=irreps_x,
+                    irreps_filter=irreps_filter,
+                    irreps_out_tp=irreps_out_tp,
+                    irreps_out=irreps_out,
+                    num_species=num_species,
+                    radial_hidden=radial_hidden,
+                    bessel_num=bessel_num,
+                    act_radial=act_radial,
+                    self_connection=(
+                        'linear' if interaction == 'gaunt'
+                        else self_connection
+                    ),
+                    denominator=conv_denominator[t],
+                    train_denominator=train_denominator,
+                    biases=biases,
+                    gate_block=(interaction == 'gaunt_gate'),
+                    act_scalar=act_scalar,
+                    act_gate=act_gate,
+                    correlation=correlation,
+                )
+            )
+        elif interaction == 'mace':
+            # reference: sevenn/model_build.py:316-325 -- conv output
+            # keeps sph parity up to lmax_edge; last-layer output scalars
+            parity_mode = 'sph'
+            irreps_out_tp = tp_out_irreps(
+                irreps_x, irreps_filter, lmax_edge, 'sph'
+            )
+            if t == num_layers - 1 and restrict_last:
+                cur_lmax_node = 0
+                parity_mode = 'even'
+            irreps_out = (
+                tp_out_irreps(
+                    irreps_x, irreps_filter, cur_lmax_node, parity_mode,
+                    fix_multiplicity=channel,
+                )
+                if not irreps_manual
+                else irreps_manual[t + 1]
+            )
+            blocks.append(
+                build_mace_block(
+                    t=t,
+                    irreps_x=irreps_x,
+                    irreps_filter=irreps_filter,
+                    irreps_out_tp=irreps_out_tp,
+                    irreps_out=irreps_out,
+                    correlation=correlation,
+                    num_species=num_species,
+                    radial_hidden=radial_hidden,
+                    bessel_num=bessel_num,
+                    act_radial=act_radial,
+                    self_connection=self_connection,
+                    denominator=conv_denominator[t],
+                    train_denominator=train_denominator,
+                    biases=biases,
+                )
+            )
+        else:
+            parity_mode = 'full'
+            if t == num_layers - 1 and restrict_last:
+                cur_lmax_node = 0
+                parity_mode = 'even'
+            irreps_out_tp = tp_out_irreps(
+                irreps_x, irreps_filter, cur_lmax_node, parity_mode
+            )
+            irreps_out = (
+                tp_out_irreps(
+                    irreps_x, irreps_filter, cur_lmax_node, parity_mode,
+                    fix_multiplicity=channel,
+                )
+                if not irreps_manual
+                else irreps_manual[t + 1]
+            )
+            blocks.append(
+                build_nequip_block(
+                    t=t,
+                    irreps_x=irreps_x,
+                    irreps_filter=irreps_filter,
+                    irreps_out_tp=irreps_out_tp,
+                    irreps_out=irreps_out,
+                    num_species=num_species,
+                    radial_hidden=radial_hidden,
+                    bessel_num=bessel_num,
+                    act_radial=act_radial,
+                    act_scalar=act_scalar,
+                    act_gate=act_gate,
+                    self_connection=self_connection,
+                    biases=biases,
+                    train_denominator=train_denominator,
+                    denominator=conv_denominator[t],
+                )
+            )
         irreps_x = blocks[-1].irreps_out
 
     if config.get(K.READOUT_AS_FCN, False):

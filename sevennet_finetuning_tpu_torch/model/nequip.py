@@ -1,6 +1,6 @@
 """The NequIP-style equivariant GNN potential: spec, module, apply.
 
-Port of ``sevennet_finetuning_tpu/model/nequip.py`` for the serving path:
+Port of ``sevennet_finetuning_tpu/model/nequip.py``:
 
 - a frozen ``ModelSpec`` carries every static decision (irreps per
   layer, TP instructions, activation names, cutoff function...);
@@ -16,15 +16,23 @@ Port of ``sevennet_finetuning_tpu/model/nequip.py`` for the serving path:
 
 ``run_blocks`` runs the interaction blocks with the JAX package's
 signature.  With ``edges_sorted=True`` (``energy_network``; collate
-batches are dst-sorted) each convolution is the scatter-fused branch:
+batches are dst-sorted) each CG convolution is the scatter-fused branch:
 gather by source, then ``conv_aggregate``.  With ``edges_sorted=False``
 (a caller whose graph is not dst-sorted) it is the per-edge branch:
 gather by source, per-edge messages (the ``cg_quad`` kernel), then
 ``aggregate_messages`` over a stable device sort of dst.  The
 self-connection is a linear map of x ('linear') or the fully connected
 TP of x with the one-hot species embedding ('nequip', plain PyTorch as
-in the JAX package).  Other interaction types, halo exchange and remat
-wait for later slices and raise ``NotImplementedError``.
+in the JAX package).
+
+The block families of the JAX package (``BlockSpec.block_type``):
+'nequip' (CG convolution, gate), 'mace' (CG convolution, then the
+symmetric-contraction product basis of ``ops/symmetric_contraction``,
+si3 and the residual), 'gaunt' (the Gaunt FFT convolution of
+``ops/gaunt`` where both sides carry l > 0, the residual, then the Gaunt
+product basis), 'gaunt_gate' (the Gaunt convolution in a gated block),
+and 'custom' (a ``CustomBlockSpec`` plugin).  The halo exchange and
+remat raise ``NotImplementedError`` naming their ROADMAP items.
 Batches are the padded dicts of ``model.graph`` as tensors
 (``batch_to_torch``).
 """
@@ -44,6 +52,8 @@ from ..irreps import Irreps
 from ..ops.fused_conv import conv_messages, layout_from_spec, stride_to_e3nn
 from ..ops.fused_conv_agg import conv_aggregate
 from ..ops.gate import GateSpec, apply_gate, gate_spec
+from ..ops.gaunt import (apply_gaunt_conv, apply_gaunt_pb, gaunt_conv_spec,
+                         gaunt_pb_shapes, gaunt_pb_spec, init_gaunt_pb)
 from ..ops.linear import (LinearSpec, apply_linear, init_linear_weights,
                           linear_spec)
 from ..ops.mlp import mlp_apply, mlp_init
@@ -51,6 +61,10 @@ from ..ops.radial import bessel_basis, bessel_init, poly_cutoff, xplor_cutoff
 from ..ops.scatter import (aggregate_messages, gather_rows, inverse_perm,
                            scatter_rows, segment_sum_sorted, sort_perm)
 from ..ops.spherical import spherical_harmonics
+from ..ops.symmetric_contraction import (apply_sym_contraction,
+                                         init_sym_contraction,
+                                         sym_contraction_shapes,
+                                         sym_contraction_spec)
 from ..ops.tensor_product import (TensorProductSpec, apply_tp, fctp_spec,
                                   init_tp_weights, uvu_tp_spec)
 from ..ops.util import safe_norm
@@ -85,15 +99,38 @@ class BlockSpec:
     radial_hs: Tuple[int, ...]
     act_radial: str
     si2: LinearSpec
-    gate: GateSpec
+    gate: Optional[GateSpec]               # None for mace / gaunt blocks
     train_denominator: bool = False
     # the convolution denominator a fresh model starts from (init_params)
     denominator: float = 1.0
-    # the JAX BlockSpec's kind fields: only nequip blocks with the CG
-    # convolution are ported ('mace', 'gaunt' and 'custom' blocks and the
-    # gaunt convolution are ROADMAP A.9)
-    block_type: str = 'nequip'
-    conv_kind: str = 'cg'
+    block_type: str = 'nequip'  # 'nequip' | 'mace' | 'gaunt' | 'gaunt_gate'
+    conv_kind: str = 'cg'                  # 'cg' | 'gaunt'
+    pb_spec: object = None                 # SymContraction / GauntPB spec
+    si3: Optional[LinearSpec] = None       # (mace)
+    gaunt_conv: object = None              # GauntConvSpec when 'gaunt'
+
+
+@dataclass(frozen=True)
+class CustomBlockSpec:
+    """User-defined interaction block (the reference's plugin hook,
+    reference: sevenn/model_build.py:92-100, config key
+    _custom_interaction_block_callback).
+
+    The callback returns one of these per layer, as in the JAX package:
+    ``init(rng) -> {name: ndarray}`` creates the block's parameters from
+    the numpy generator of ``init_params``; ``apply(params, x, ctx) ->
+    x_out`` is PyTorch, with ``params`` a dict {name: tensor} and ``ctx``
+    holding onehot, emb (radial embedding), edge_attr (SH), edge_src,
+    edge_dst (tensors), n_node and exchange_fn (None: the halo-parallel
+    path is not ported).  A plugin differs between the two packages only
+    in its array library."""
+
+    t: int
+    irreps_x: Irreps
+    irreps_out: Irreps
+    init: object
+    apply: object
+    block_type: str = 'custom'
 
 
 @dataclass(frozen=True)
@@ -175,6 +212,161 @@ def build_nequip_block(
     )
 
 
+def build_mace_block(
+    t: int,
+    irreps_x: Irreps,
+    irreps_filter: Irreps,
+    irreps_out_tp: Irreps,
+    irreps_out: Irreps,
+    correlation: int,
+    num_species: int,
+    radial_hidden: Tuple[int, ...],
+    bessel_num: int,
+    act_radial: str,
+    self_connection: str,
+    biases: bool,
+    train_denominator: bool = False,
+    denominator: float = 1.0,
+) -> BlockSpec:
+    """MACE interaction block: conv -> si2 to uniform multiplicity ->
+    symmetric contraction (product basis) -> si3; no gate (reference:
+    sevenn/nn/interaction_blocks.py:89-162)."""
+    irreps_out = Irreps(irreps_out)
+    if not all(mi.ir.p == (-1) ** mi.ir.l for mi in irreps_out):
+        raise ValueError(f'mace output parity must be '
+                         f'spherical-harmonics-like, got {irreps_out!r}')
+    feature_mul = irreps_out[0].mul
+    if not all(mi.mul == feature_mul for mi in irreps_out):
+        raise ValueError(f'mace output irreps need one multiplicity, got '
+                         f'{irreps_out!r}')
+
+    node_attr_irreps = Irreps(f'{num_species}x0e')
+    if self_connection == 'nequip':
+        sc = fctp_spec(irreps_x, node_attr_irreps, irreps_out)
+    elif self_connection == 'linear':
+        sc = linear_spec(irreps_x, irreps_out, biases=False)
+    else:
+        sc = None
+
+    si1 = linear_spec(irreps_x, irreps_x, biases=biases)
+    conv_tp = uvu_tp_spec(irreps_x, irreps_filter, irreps_out_tp)
+    conv_out_simpl = conv_tp.irreps_out.simplify()
+    # uniform multiplicity for the product basis (reference:
+    # interaction_blocks.py:113-118)
+    irreps_si2_out = Irreps(
+        [(feature_mul, mi.ir) for mi in irreps_out_tp]
+    )
+    si2 = linear_spec(conv_out_simpl, irreps_si2_out, biases=biases)
+    pb = sym_contraction_spec(irreps_si2_out, irreps_out, correlation,
+                              num_species)
+    si3 = linear_spec(irreps_out, irreps_out, biases=biases)
+    return BlockSpec(
+        t=t,
+        irreps_x=irreps_x,
+        irreps_out=irreps_out,
+        self_connection=self_connection,
+        sc_spec=sc,
+        si1=si1,
+        conv_tp=conv_tp,
+        radial_hs=(bessel_num,) + tuple(radial_hidden)
+        + (conv_tp.weight_numel,),
+        act_radial=act_radial,
+        si2=si2,
+        gate=None,
+        train_denominator=train_denominator,
+        denominator=denominator,
+        block_type='mace',
+        pb_spec=pb,
+        si3=si3,
+    )
+
+
+def build_gaunt_block(
+    t: int,
+    irreps_x: Irreps,
+    irreps_filter: Irreps,
+    irreps_out_tp: Irreps,
+    irreps_out: Irreps,
+    num_species: int,
+    radial_hidden: Tuple[int, ...],
+    bessel_num: int,
+    act_radial: str,
+    self_connection: str,
+    biases: bool,
+    gate_block: bool,
+    act_scalar: Optional[Dict[str, str]] = None,
+    act_gate: Optional[Dict[str, str]] = None,
+    correlation: int = 3,
+    train_denominator: bool = False,
+    denominator: float = 1.0,
+) -> BlockSpec:
+    """Gaunt interaction blocks (reference:
+    sevenn/nn/interaction_blocks.py:165-335).
+
+    gate_block=True -> 'gaunt_gate': NequIP structure whose convolution
+    uses the Fourier-basis Gaunt product (the CG convolution when either
+    side is scalar-only).  gate_block=False -> 'gaunt':
+    uniform-multiplicity blocks with a Gaunt self-product basis and no
+    gate."""
+    node_attr_irreps = Irreps(f'{num_species}x0e')
+    use_gaunt_conv = irreps_x.lmax > 0 and Irreps(irreps_out_tp).lmax > 0
+
+    if gate_block:
+        gate = gate_spec(irreps_out, act_scalar, act_gate)
+        target = gate.irreps_in
+    else:
+        gate = None
+        target = Irreps(irreps_out_tp)
+
+    if self_connection == 'nequip':
+        sc = fctp_spec(irreps_x, node_attr_irreps, target)
+    elif self_connection == 'linear':
+        sc = linear_spec(irreps_x, target, biases=False)
+    else:
+        sc = None
+
+    si1 = linear_spec(irreps_x, irreps_x, biases=biases)
+    conv_tp = uvu_tp_spec(irreps_x, irreps_filter, irreps_out_tp)
+    if use_gaunt_conv:
+        gconv = gaunt_conv_spec(
+            irreps_x, irreps_filter, Irreps(irreps_out_tp),
+            radial_hidden, bessel_num, act_radial,
+        )
+        radial_hs = (bessel_num,) + tuple(radial_hidden) \
+            + (gconv.weight_numel,)
+        conv_out = Irreps(irreps_out_tp)
+    else:
+        gconv = None
+        radial_hs = (bessel_num,) + tuple(radial_hidden) \
+            + (conv_tp.weight_numel,)
+        conv_out = conv_tp.irreps_out.simplify()
+
+    si2 = linear_spec(conv_out, target, biases=biases)
+    pb = None
+    if not gate_block:
+        pb = gaunt_pb_spec(Irreps(irreps_out_tp), irreps_out, correlation)
+
+    return BlockSpec(
+        t=t,
+        irreps_x=irreps_x,
+        irreps_out=(gate.irreps_out if gate_block else Irreps(irreps_out)),
+        self_connection=self_connection,
+        sc_spec=sc,
+        si1=si1,
+        conv_tp=conv_tp,
+        radial_hs=radial_hs,
+        act_radial=act_radial,
+        si2=si2,
+        gate=gate,
+        train_denominator=train_denominator,
+        denominator=denominator,
+        block_type=('gaunt_gate' if gate_block else 'gaunt'),
+        pb_spec=pb,
+        conv_kind=('gaunt' if use_gaunt_conv else 'cg'),
+        gaunt_conv=gconv,
+    )
+
+
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
@@ -197,6 +389,12 @@ def param_shapes(spec: ModelSpec) -> Dict[str, Dict[str, Tuple[int, ...]]]:
          'onehot_to_feature_x': _linear_shapes(_embed_spec(spec))}
     for blk in spec.blocks:
         t = blk.t
+        if blk.block_type == 'custom':
+            # the plugin's init, drawn from a throwaway generator
+            p[f'{t}_custom_block'] = {
+                n: tuple(np.shape(v))
+                for n, v in blk.init(np.random.default_rng(0)).items()}
+            continue
         if blk.self_connection in ('nequip', 'linear'):
             p[f'{t}_self_connection_intro'] = _linear_shapes(blk.sc_spec)
         p[f'{t}_self_interaction_1'] = _linear_shapes(blk.si1)
@@ -205,6 +403,12 @@ def param_shapes(spec: ModelSpec) -> Dict[str, Dict[str, Tuple[int, ...]]]:
         conv['denominator'] = (1,)
         p[f'{t}_convolution'] = conv
         p[f'{t}_self_interaction_2'] = _linear_shapes(blk.si2)
+        if blk.block_type == 'mace':
+            p[f'{t}_equivariant_product_basis'] = sym_contraction_shapes(
+                blk.pb_spec)
+            p[f'{t}_self_interaction_3'] = _linear_shapes(blk.si3)
+        elif blk.block_type == 'gaunt':
+            p[f'{t}_gaunt_product_basis'] = gaunt_pb_shapes(blk.pb_spec)
     if spec.readout.as_fcn:
         hs = spec.readout.fcn_hs
         p['readout_FCN'] = {f'w{i}': (a, b)
@@ -231,6 +435,9 @@ def init_params(spec: ModelSpec, seed: int = 0
     }
     for blk in spec.blocks:
         t = blk.t
+        if blk.block_type == 'custom':
+            p[f'{t}_custom_block'] = blk.init(rng)
+            continue
         if blk.self_connection == 'nequip':
             p[f'{t}_self_connection_intro'] = {
                 f'w{i}': w
@@ -243,6 +450,13 @@ def init_params(spec: ModelSpec, seed: int = 0
         conv['denominator'] = np.array([blk.denominator], np.float32)
         p[f'{t}_convolution'] = conv
         p[f'{t}_self_interaction_2'] = _linear_params(blk.si2, rng)
+        # the product-basis draws follow the block's others, in JAX's order
+        if blk.block_type == 'mace':
+            p[f'{t}_equivariant_product_basis'] = init_sym_contraction(
+                blk.pb_spec, rng)
+            p[f'{t}_self_interaction_3'] = _linear_params(blk.si3, rng)
+        elif blk.block_type == 'gaunt':
+            p[f'{t}_gaunt_product_basis'] = init_gaunt_pb(blk.pb_spec, rng)
     if spec.readout.as_fcn:
         p['readout_FCN'] = {f'w{i}': w for i, w in
                             enumerate(mlp_init(spec.readout.fcn_hs, rng))}
@@ -308,6 +522,8 @@ def trainable_mask(spec: ModelSpec) -> Dict[str, Dict[str, bool]]:
             for group, names in param_shapes(spec).items()}
     mask['edge_embedding']['bessel_coeffs'] = spec.edge.bessel_trainable
     for blk in spec.blocks:
+        if blk.block_type == 'custom':
+            continue
         mask[f'{blk.t}_convolution']['denominator'] = blk.train_denominator
     mask['rescale_atomic_energy']['shift'] = spec.train_shift_scale
     mask['rescale_atomic_energy']['scale'] = spec.train_shift_scale
@@ -384,11 +600,6 @@ def run_blocks(spec: ModelSpec, params, x: torch.Tensor,
     if remat:
         raise NotImplementedError('per-block rematerialization is not '
                                   'ported: ROADMAP A.3')
-    for blk in spec.blocks:
-        if blk.block_type != 'nequip' or blk.conv_kind != 'cg':
-            raise NotImplementedError(
-                f'{blk.block_type} blocks with the {blk.conv_kind} '
-                'convolution are not ported: ROADMAP A.9')
     if cap is None:
         def cap(name, val):
             return None
@@ -407,6 +618,13 @@ def run_blocks(spec: ModelSpec, params, x: torch.Tensor,
 def _run_one_block(blk, p, x, onehot, emb, edge_attr, edge_src, edge_dst,
                    n_node, cap, src_perm, src_inv, dst_sort):
     t = blk.t
+    if blk.block_type == 'custom':
+        ctx = dict(onehot=onehot, emb=emb, edge_attr=edge_attr,
+                   edge_src=edge_src, edge_dst=edge_dst, n_node=n_node,
+                   exchange_fn=None)
+        x = blk.apply(dict(p[f'{t}_custom_block'].items()), x, ctx)
+        cap(f'{t}_custom_block', x)
+        return x
     if blk.self_connection == 'nequip':
         # FCTP of x with the one-hot species embedding: a small einsum,
         # outside any kernel in both packages
@@ -420,41 +638,69 @@ def _run_one_block(blk, p, x, onehot, emb, edge_attr, edge_src, edge_dst,
     if sc is not None:
         cap(f'{t}_self_connection_intro', sc)
 
+    cg = blk.conv_kind == 'cg'
     x = apply_linear(blk.si1, _linear_w(p[f'{t}_self_interaction_1']), x,
-                     out_stride=True)
-    cap(f'{t}_self_interaction_1', lambda: stride_to_e3nn(blk.irreps_x, x))
+                     out_stride=cg)
+    if cg:
+        cap(f'{t}_self_interaction_1',
+            lambda: stride_to_e3nn(blk.irreps_x, x))
+    else:
+        cap(f'{t}_self_interaction_1', x)
 
-    # gather_rows' backward drops padded-edge cotangents; exact because
-    # EDGE_MASK zeroes the radial embedding, so padded messages and their
-    # gradients are identically zero
     conv_p = p[f'{t}_convolution']
     n_w = len(blk.radial_hs) - 1
-    layout = layout_from_spec(blk.conv_tp)
-    w_edge = mlp_apply([conv_p[f'weight_nn_w{i}'] for i in range(n_w)],
-                       emb, blk.act_radial)
-    x_src = gather_rows(x, edge_src, src_perm, src_inv)
-    if dst_sort is None:
-        # scatter-fused convolution on dst-sorted edges: the [E, dim_msg]
-        # message tensor never exists (ops/fused_conv_agg)
-        x = conv_aggregate(layout, x_src, edge_attr, w_edge, edge_dst,
-                           n_node)
+    mlp_w = [conv_p[f'weight_nn_w{i}'] for i in range(n_w)]
+    if not cg:
+        # the Gaunt convolution: per-edge products of sample grids, the
+        # sorted segment sum by dst (ops/gaunt)
+        x = apply_gaunt_conv(blk.gaunt_conv, mlp_w, x, edge_attr, emb,
+                             edge_src, edge_dst, n_node,
+                             conv_p['denominator'],
+                             sorted_dst=dst_sort is None, src_perm=src_perm,
+                             src_inv=src_inv, dst_sort=dst_sort)
     else:
-        # unsorted dst: per-edge messages, edge-major (the JAX branch's
-        # mlp_apply_T / conv_messages_T without its two transposes), then
-        # the sorted segment sum over dst's stable sort
-        msg = conv_messages(layout, x_src, edge_attr, w_edge)
-        x = aggregate_messages(msg, edge_dst, n_node, False, *dst_sort)
-    x = x / conv_p['denominator']
-    # back to the e3nn flat layout at the node-sized boundary
-    x = stride_to_e3nn(blk.conv_tp.irreps_out, x)
+        # gather_rows' backward drops padded-edge cotangents; exact because
+        # EDGE_MASK zeroes the radial embedding, so padded messages and
+        # their gradients are identically zero
+        layout = layout_from_spec(blk.conv_tp)
+        w_edge = mlp_apply(mlp_w, emb, blk.act_radial)
+        x_src = gather_rows(x, edge_src, src_perm, src_inv)
+        if dst_sort is None:
+            # scatter-fused convolution on dst-sorted edges: the
+            # [E, dim_msg] message tensor never exists (ops/fused_conv_agg)
+            x = conv_aggregate(layout, x_src, edge_attr, w_edge, edge_dst,
+                               n_node)
+        else:
+            # unsorted dst: per-edge messages, edge-major (the JAX branch's
+            # mlp_apply_T / conv_messages_T without its two transposes),
+            # then the sorted segment sum over dst's stable sort
+            msg = conv_messages(layout, x_src, edge_attr, w_edge)
+            x = aggregate_messages(msg, edge_dst, n_node, False, *dst_sort)
+        x = x / conv_p['denominator']
+        # back to the e3nn flat layout at the node-sized boundary
+        x = stride_to_e3nn(blk.conv_tp.irreps_out, x)
     cap(f'{t}_convolution', x)
 
     x = apply_linear(blk.si2, _linear_w(p[f'{t}_self_interaction_2']), x)
     cap(f'{t}_self_interaction_2', x)
-    if sc is not None:
-        x = x + sc
-    x = apply_gate(blk.gate, x)
-    cap(f'{t}_equivariant_gate', x)
+    if blk.block_type == 'gaunt':
+        if sc is not None:
+            x = x + sc
+        x = apply_gaunt_pb(blk.pb_spec, p[f'{t}_gaunt_product_basis'], x)
+        cap(f'{t}_gaunt_product_basis', x)
+    elif blk.block_type == 'mace':
+        x = apply_sym_contraction(
+            blk.pb_spec, p[f'{t}_equivariant_product_basis'], x, onehot)
+        cap(f'{t}_equivariant_product_basis', x)
+        x = apply_linear(blk.si3, _linear_w(p[f'{t}_self_interaction_3']), x)
+        cap(f'{t}_self_interaction_3', x)
+        if sc is not None:
+            x = x + sc
+    else:
+        if sc is not None:
+            x = x + sc
+        x = apply_gate(blk.gate, x)
+        cap(f'{t}_equivariant_gate', x)
     return x
 
 

@@ -5,8 +5,14 @@ sevenn/train/loss.py:8-309).  Reductions are masked means over static
 padded batches: the mask combines padding and NaN labels ("unlabeled",
 which the reference filters out by boolean indexing -- identical in
 value).  Optional per-structure data weights multiply elementwise before
-the mean, as in the reference's weighted criterion.  The ``custom`` loss
-plugin is not ported yet and raises ``NotImplementedError``.
+the mean, as in the reference's weighted criterion.
+
+``loss: custom`` loads a plugin (``loss_param``: path, module, function)
+whose callback receives the config and returns [(term_name, weight, fn)];
+``fn(params, output)`` returns a scalar tensor, with ``params`` the dict
+{block: {leaf: tensor}} under the JAX package's names and ``output`` the
+model's output dict of tensors.  A plugin differs between the two
+packages only in its array library.
 """
 
 from __future__ import annotations
@@ -49,10 +55,12 @@ def _masked_mean(err, mask, weights=None):
 class LossSpec:
     """One term of the training objective."""
 
-    name: str          # 'Energy' | 'Force' | 'Stress' | 'EWC'
+    name: str          # 'Energy' | 'Force' | 'Stress' | 'EWC' | custom
     weight: float
     criterion: str = 'mse'
     criterion_params: Tuple[Tuple[str, float], ...] = ()
+    # plugin terms (loss: 'custom'): fn(params, output_dict) -> scalar
+    custom_fn: Optional[Callable] = None
 
 
 def energy_loss(out: Dict, crit: Callable,
@@ -118,7 +126,8 @@ def build_loss_fn(loss_specs: Tuple[LossSpec, ...],
     ``use_data_weights`` the energy, force and stress terms take the
     batch's per-graph weights (``K.DATA_WEIGHT``)."""
     crits = {ls.name: _criterion(ls.criterion, **dict(ls.criterion_params))
-             for ls in loss_specs if ls.name != 'EWC'}
+             for ls in loss_specs
+             if ls.name != 'EWC' and ls.custom_fn is None}
     weight_key = {'Energy': K.PER_ATOM_ENERGY, 'Force': K.FORCE,
                   'Stress': K.STRESS}
 
@@ -128,7 +137,9 @@ def build_loss_fn(loss_specs: Tuple[LossSpec, ...],
         for ls in loss_specs:
             w = (out.get(K.DATA_WEIGHT, {}).get(weight_key[ls.name])
                  if use_data_weights and ls.name in weight_key else None)
-            if ls.name == 'Energy':
+            if ls.custom_fn is not None:
+                v = ls.custom_fn(params, out)
+            elif ls.name == 'Energy':
                 v = energy_loss(out, crits[ls.name], w)
             elif ls.name == 'Force':
                 v = force_loss(out, crits[ls.name], w)
@@ -151,8 +162,17 @@ def loss_specs_from_config(config: Dict) -> Tuple[LossSpec, ...]:
     sevenn/train/loss.py:268-309)."""
     name = config.get(K.LOSS, 'mse')
     if str(name).lower() == 'custom':
-        raise NotImplementedError('the custom loss plugin is not ported '
-                                  'yet: ROADMAP A.9')
+        # plugin hook (reference: sevenn/train/loss.py:312-321)
+        from ..model.build import _load_callback
+
+        callback = _load_callback(**config.get(K.LOSS_PARAM, {}))
+        specs = [LossSpec(n, float(w), 'custom', custom_fn=fn)
+                 for n, w, fn in callback(config)]
+        cont = config.get(K.CONTINUE, {})
+        if cont.get(K.FISHER) and cont.get(K.OPT_PARAMS):
+            lam = float(cont.get(K.EWC_LAMBDA, 0.0))
+            specs.append(LossSpec('EWC', lam / 2.0))
+        return tuple(specs)
     lp = tuple(sorted(config.get(K.LOSS_PARAM, {}).items()))
     specs: List[LossSpec] = [
         LossSpec('Energy', 1.0, name, lp),

@@ -8,10 +8,11 @@ sums taken in another order over ~4,300 edges and five layers).
 ``test_port_imports_no_jax`` serves a structure, runs its graph with the
 edge slots shuffled through ``run_blocks(edges_sorted=False)``, takes
 a reEWC train step, runs the train CLI, ``main get_model``, MD (both
-loops), a D3 calculation and ``main inference`` with D3 on the CPU in a
-fresh interpreter, then checks that neither jax, optax nor the JAX
-package was imported.  ``test_dispersion_is_refused`` (named when D3
-was refused) holds the port's D3 terms against the MD golden file.
+loops), a D3 calculation, ``main inference`` with D3 and a full-width
+serve of the mace, gaunt and gaunt_gate families on the CPU in a fresh
+interpreter, then checks that neither jax, optax nor the JAX package was
+imported.  ``test_dispersion_matches_md_golden`` holds the port's D3
+terms against the MD golden file.
 
 The golden file (energies, forces and stress for every structure of
 ft.extxyz, computed by the JAX Calculator on the CPU) is what
@@ -35,6 +36,8 @@ FT = ROOT / 'experiments/ft_reewc/data/ft.extxyz'
 GOLDEN = ROOT / 'sevennet_finetuning_tpu_torch/golden/ft_extxyz_jax_cpu.npz'
 FISHER = ROOT / 'experiments/ft_reewc/fisher_out/fisher_sevenn.pt'
 OPT_PARAMS = ROOT / 'experiments/ft_reewc/fisher_out/opt_params_sevenn.pt'
+GOLDEN_FAMILIES = (ROOT / 'sevennet_finetuning_tpu_torch/golden/'
+                   'families_jax_cpu.npz')
 
 torch.set_num_threads(2)
 
@@ -186,6 +189,20 @@ def test_port_imports_no_jax():
         'cli(["inference", str(tmp / "dep.sevenn"), str(tmp / "s12.extxyz"),\n'
         '     "-o", str(tmp / "inf"), "--d3", "pbe,bj", "--device", "cpu"])\n'
         'assert (tmp / "inf" / "per_atom.csv").exists()\n'
+        # the MACE and Gaunt families at full width: a CPU serve of each
+        # configuration of the families golden
+        'import json\n'
+        'from sevennet_finetuning_tpu_torch.model.build import '
+        'build_model_spec\n'
+        'from sevennet_finetuning_tpu_torch.model.nequip import init_params\n'
+        f'fam = np.load({str(GOLDEN_FAMILIES)!r})\n'
+        'for name, fc in json.loads(str(fam["configs"])).items():\n'
+        '    fc[K.TYPE_MAP] = {int(z): i for z, i in fc[K.TYPE_MAP]}\n'
+        '    fs = build_model_spec(fc)\n'
+        '    fr = Calculator(fs, init_params(fs, 0), device="cpu")'
+        '.calculate(s)\n'
+        '    want = float(fam[name + "/energy"][4])\n'
+        '    assert abs(fr["energy"] - want) <= 2e-6 * abs(want), name\n'
         'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
         '("jax", "jaxlib", "optax") or m.split(".")[0] == '
         '"sevennet_finetuning_tpu")\n'
@@ -212,12 +229,10 @@ def test_entry_points_need_cuda_unless_asked(monkeypatch):
     assert resolve_device('cpu') == torch.device('cpu')
 
 
-def test_dispersion_is_refused():
-    """D3 was refused before it was ported; now ``Calculator(d3=...)`` on
-    SevenNet-0 gives the JAX-CPU golden's D3 terms and GNN + D3 totals
-    for the 12-atom structure (D3 energy rel 1e-5, forces and stress
-    1e-4 of max; totals at the serving limits).  The test keeps the name
-    it had while it checked the refusal."""
+def test_dispersion_matches_md_golden():
+    """``Calculator(d3=...)`` on SevenNet-0 gives the JAX-CPU golden's D3
+    terms and GNN + D3 totals for the 12-atom structure (D3 energy rel
+    1e-5, forces and stress 1e-4 of max; totals at the serving limits)."""
     from sevennet_finetuning_tpu_torch.calculator import Calculator
     from sevennet_finetuning_tpu_torch.data.readers import read_extxyz
     from sevennet_finetuning_tpu_torch.model.build import build_model_spec

@@ -210,14 +210,19 @@ def test_checkpoint_model_matches_architecture():
     assert config[K.INTERACTION_TYPE] == 'nequip'
 
 
-def test_unported_options_raise(batches):
-    """mace blocks still raise; the FCTP ('nequip') self-connection, which
-    raised before it was ported, gives JAX's energies, forces and stress
-    (E(3) parity variant, 1e-5 relative).  The test keeps the name it had
-    while both options raised."""
+def test_mace_spec_and_fctp_self_connection_match_jax(batches):
+    """The mace interaction builds the JAX package's blocks (kinds and
+    parameter shapes); the FCTP ('nequip') self-connection gives JAX's
+    energies, forces and stress (E(3) parity variant, 1e-5 relative)."""
     cfg = _config('parity')
-    with pytest.raises(NotImplementedError):
-        build_model_spec({**cfg, K.INTERACTION_TYPE: 'mace'})
+    mace = {**cfg, K.INTERACTION_TYPE: 'mace', K.NODE_FEATURE_MULTIPLICITY: 4}
+    spec, j_spec = build_model_spec(mace), j_build(mace)
+    assert [b.block_type for b in spec.blocks] == [
+        b.block_type for b in j_spec.blocks] == ['mace'] * 3
+    assert {g: {n: v.shape for n, v in d.items()} for g, d in
+            init_params(j_spec, seed=0).items()} == {
+        g: {n: tuple(p.shape) for n, p in d.items()}
+        for g, d in NequIP(spec).params.items()}
     cfg = {**cfg, K.SELF_CONNECTION_TYPE: 'nequip'}
     j_spec = j_build(cfg)
     params = jax.tree_util.tree_map(np.asarray, init_params(j_spec, seed=3))

@@ -476,12 +476,11 @@ def _poscar_text(s):
     ('structure_list', 'structure_list'), ('atoms.pkl', 'structure_list'),
     ('data.traj', 'ase'),
 ])
-def test_unported_readers_raise(tmp_path, monkeypatch, name, fmt):
-    """Each format the port used to refuse (ROADMAP A.6) is now read:
-    synthetic files written from the 12-atom structures of replay.extxyz,
-    read by the port's ``_read_file`` as JAX's reads them, field by
-    field, and as the structures they were written from.  The test keeps
-    the name it had while it checked the refusals."""
+def test_readers_match_jax(tmp_path, monkeypatch, name, fmt):
+    """Each structure format is read: synthetic files written from the
+    12-atom structures of replay.extxyz, read by the port's
+    ``_read_file`` as JAX's reads them, field by field, and as the
+    structures they were written from."""
     import pickle
     import sys
     import types
@@ -554,10 +553,22 @@ def test_unported_model_options_raise():
     assert got == {g: {n: v.shape for n, v in d.items()}
                    for g, d in j_init(j_spec, 0).items()}
     assert got['0_self_connection_intro']
-    with pytest.raises(NotImplementedError, match=r'A\.9'):
-        build_model_spec({**NARROW, K.INTERACTION_TYPE: 'mace'})
-    with pytest.raises(NotImplementedError, match=r'A\.9'):
-        loss.loss_specs_from_config({K.LOSS: 'custom'})
+    # every interaction family builds (the MACE and Gaunt families give
+    # the JAX package's parameter shapes); an unknown one raises in both
+    for itype in ('mace', 'gaunt', 'gaunt_gate'):
+        cfg = {**NARROW, K.INTERACTION_TYPE: itype, K.IS_PARITY: True}
+        assert {g: {n: v.shape for n, v in d.items()}
+                for g, d in init_params(build_model_spec(cfg), 0).items()
+                } == {g: {n: v.shape for n, v in d.items()}
+                      for g, d in j_init(j_build(cfg), 0).items()}
+    with pytest.raises(NotImplementedError, match='not yet available'):
+        build_model_spec({**NARROW, K.INTERACTION_TYPE: 'allegro'})
+    # the custom loss loads its plugin (missing here) as JAX's does
+    plugin = {'path': '/nonexistent/plugins', 'module': 'm',
+              'function': 'f'}
+    with pytest.raises(ValueError, match='no such plugin dir'):
+        loss.loss_specs_from_config({K.LOSS: 'custom',
+                                     K.LOSS_PARAM: plugin})
 
 
 def test_pretrained_name_needs_its_directory(monkeypatch, tmp_path):

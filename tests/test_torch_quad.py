@@ -39,7 +39,6 @@ from JAX on the CPU) is written by
     PYTHONPATH=. python tests/test_torch_quad.py
 """
 
-import dataclasses
 import functools
 import os
 import sys
@@ -67,7 +66,8 @@ from sevennet_finetuning_tpu_torch import keys as K
 from sevennet_finetuning_tpu_torch.irreps import Irreps
 from sevennet_finetuning_tpu_torch.model.build import build_model_spec
 from sevennet_finetuning_tpu_torch.model.nequip import (
-    NequIP, embed_nodes, load_jax_params, readout_and_rescale, run_blocks)
+    NequIP, embed_nodes, init_params, load_jax_params, readout_and_rescale,
+    run_blocks)
 from sevennet_finetuning_tpu_torch.ops import cg_tables, scatter
 from sevennet_finetuning_tpu_torch.ops.fused_conv import (
     _MODE_LEGS, CGQuad, cg_apply, cg_apply_edge, layout_from_spec)
@@ -950,12 +950,27 @@ def test_run_blocks_refuses_unported_paths(narrow):
         run_blocks(spec, *args, halo_split={})
     with pytest.raises(NotImplementedError, match='A.3'):
         run_blocks(spec, *args, remat=True)
-    for kind in ({'block_type': 'mace'}, {'block_type': 'custom'},
-                 {'conv_kind': 'gaunt'}):
-        bad = dataclasses.replace(spec, blocks=tuple(
-            dataclasses.replace(b, **kind) for b in spec.blocks))
-        with pytest.raises(NotImplementedError, match='A.9'):
-            run_blocks(bad, *args)
+    # the MACE and Gaunt families take the unsorted path too, and agree
+    # with their sorted one on the same graph
+    order = np.lexsort((idx[1], idx[0]))
+    for itype in ('mace', 'gaunt', 'gaunt_gate'):
+        fam = build_model_spec({**_narrow_config(), K.IS_PARITY: True,
+                                K.NODE_FEATURE_MULTIPLICITY: 4,
+                                K.INTERACTION_TYPE: itype})
+        fp = load_jax_params(NequIP(fam), init_params(fam, 0)).params
+        _, fx = embed_nodes(fam, fp, torch.from_numpy(atom_type),
+                            torch.float32)
+        outs = []
+        with torch.no_grad():
+            for o, srt in ((np.arange(len(order)), False), (order, True)):
+                outs.append(run_blocks(
+                    fam, fp, fx, onehot, torch.from_numpy(emb[o]),
+                    torch.from_numpy(edge_attr[o]),
+                    torch.from_numpy(np.ascontiguousarray(idx[1][o])),
+                    torch.from_numpy(np.ascontiguousarray(idx[0][o])),
+                    n_node, edges_sorted=srt))
+        assert torch.isfinite(outs[0]).all()
+        _close(outs[0], outs[1].numpy(), FEATURE_TOL, itype)
 
 
 # ---------------------------------------------------------------------------

@@ -128,9 +128,21 @@ def test_loss_terms_match_jax(crit):
         _rel_close(got[k], want[k])
 
 
-def test_unported_loss_options_raise():
-    with pytest.raises(NotImplementedError, match=r'A\.9'):
-        loss.loss_specs_from_config({K.LOSS: 'custom'})
+def test_custom_and_weighted_loss_options(tmp_path):
+    # the custom loss plugin: the callback's terms, in its order
+    (tmp_path / 'loss_plugin.py').write_text(
+        'def build(config):\n'
+        '    return [("Energy", 1.0, lambda p, o: o["e"].sum()),\n'
+        '            ("Reg", 0.5, lambda p, o: o["e"].abs().sum())]\n')
+    specs = loss.loss_specs_from_config({K.LOSS: 'custom', K.LOSS_PARAM: {
+        'path': str(tmp_path), 'module': 'loss_plugin', 'function': 'build'}})
+    assert [(s.name, s.weight) for s in specs] == [('Energy', 1.0),
+                                                   ('Reg', 0.5)]
+    total, terms = loss.build_loss_fn(specs)({}, {'e': torch.tensor([
+        -2.0, 3.0])})
+    assert float(total) == 1.0 + 0.5 * 5.0
+    assert {k: float(v) for k, v in terms.items()} == {'Energy': 1.0,
+                                                       'Reg': 5.0}
     # per-structure data weights are ported: the terms stay the same ones
     assert [s.name for s in loss.loss_specs_from_config(
         {K.LOAD_DATASET_WITH_WEIGHTS: True})] == ['Energy', 'Force']
