@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives ``sevennet_finetuning_tpu_torch`` (never JAX) through eleven
+Drives ``sevennet_finetuning_tpu_torch`` (never JAX) through twelve
 phases and exits non-zero if any fails:
 
 1. build   -- compile every CUDA source of ``csrc/`` (one nvcc each, in
@@ -158,6 +158,35 @@ phases and exits non-zero if any fails:
               1,152 and 10,368) are timed beside their bounds.  Prints
               each family's parameter count, ms per request (wall and
               profiled device time), ms per train step and peak memory.
+12. compat  -- checkpoint and deploy interop at SevenNet-0's full width
+              (the card's name and power limit printed first): (1) the
+              checkpoint as a reference training .pth (state_dict_from_
+              params, the reference's trainer.py layout) through
+              ``Calculator.from_checkpoint``: every parameter bit-equal,
+              the five requests at the serving limits with the serve
+              census; (2) ``main get_model --torchscript``: the artifact
+              loaded on the card and fed pair_e3gnn's input dict, each
+              structure at the serving limits against the golden and
+              against the Calculator, atomic energies summing to the
+              total, its metadata (89 symbols, cutoff 5.0, model_type),
+              and ``_config_from_frozen`` / ``_extract_weight_ops`` on the
+              graph the card's torch froze equal to the CPU's reading
+              (``TS_FROZEN_CONFIG``, ``TS_WEIGHT_OP_SHAPES``); (3) ``-p``:
+              five segments with comm_size of the spec, chained in one
+              domain over structure 0 (forces from the accumulated dE/dr)
+              within 6.4e-6 eV/atom and 1.9e-4 eV/A of the golden (ten
+              times the CPU reading); (4) ``main graph_build`` of ft.extxyz
+              and an artifact built with the checkpoint's type map, each
+              the data of the pipeline phase's reEWC stage: log.csv within
+              1e-6 relative of that phase's, the stage's census, rebuilt
+              (graph_build's own species) or reused (the checkpoint's
+              type map); (5) the checkpoint continued with its own adam
+              state, two batch-8 steps at LR 1e-4, against
+              ``golden/continue_ft900_jax_cpu.npz`` (the train phase's
+              limits; every leaf's first update printed beside the
+              golden's), and from a reset optimizer, which must miss the
+              second step's limit.  The phase's launches are asserted
+              (agg 135, multi 215, gagg 80, gmulti 80, segment-sum >= 248).
 
 Before the last line it prints the card's name and power limit and a
 JSON line with every kernel's numbers; the last line is
@@ -177,6 +206,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -255,6 +285,7 @@ PATH_KERNELS = {
     'md': ('segment_sum', 'cg_agg', 'cg_multi'),
     'families': ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg',
                  'cg_gmulti'),
+    'compat': ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg', 'cg_gmulti'),
 }
 # the path whose count a kernel's "launches" reports: the train step for
 # the kernels of the sorted convolution, the unsorted pass for cg_quad
@@ -412,6 +443,41 @@ FAMILY_ENERGY_TOL = {'gaunt_sevennet0_widths': 3e-5}
 # term is too small to resolve and is held by the total-weighted check)
 RAW_TERM_TOL = 2e-3
 
+# the compat phase (checkpoint and deploy interop; PERF.md section 4):
+# - the continue of the in-repo checkpoint with its own adam state, two
+#   batch-8 steps at LR 1e-4 (tests/test_torch_optax_state.py makes it)
+GOLDEN_CONTINUE = PKG / 'golden/continue_ft900_jax_cpu.npz'
+# - the parallel TorchScript chain over ft.extxyz structure 0 in one
+#   domain against the serving golden: ten times the CPU reading (6.4e-7
+#   eV/atom, forces 1.88e-5 eV/A; torch 2.13 on the CPU), inside the JAX
+#   test's own 1e-4 eV/atom and 2e-4 eV/A
+PAR_ENERGY_TOL = 6.4e-6
+PAR_FORCE_TOL = 1.9e-4
+# - a .sevenn_data fine-tune against the pipeline phase's extxyz one: the
+#   same graphs, seed and deterministic sums
+COMPAT_CSV_TOL = 1e-6
+# - what compat/torchscript_import reads from the serial artifact of
+#   SevenNet-0 that get_model --torchscript writes, frozen by torch 2.13 on
+#   the CPU: the weighted ops' shapes in graph order, and the parsed config
+#   without its type map.  Cutoff, species, channel, the 8 Bessel
+#   functions and the XPLOR cutoff at 4.5 are SevenNet-0's; lmax 1 and
+#   _normalize_sph False are the parser's defaults (it looks for e3nn's
+#   sh_l_m names and clamp_min, which the exporter's graph, with its
+#   monomial SH tables, does not hold), as the JAX parser reads them too
+TS_WEIGHT_OP_SHAPES = (
+    (8,), (1, 1), (3, 3), (6, 5), (89, 128), (128,), (128, 576),
+    (128, 128), (128,), (1152, 576), (576,), (480, 576), (480, 480),
+    (480,), (3136, 576), (576,), (480, 576), (480, 480), (480,),
+    (3136, 576), (576,), (480, 576), (480, 480), (480,), (3136, 576),
+    (576,), (480, 128), (480, 480), (480,), (224, 128), (128,), (128, 64),
+    (64,), (64, 1), (1,), (89,), (89,))
+TS_FROZEN_CONFIG = {
+    '_number_of_species': 89, 'cutoff': 5.0, 'channel': 128, 'lmax': 1,
+    'is_parity': True, 'num_convolution_layer': 3,
+    'radial_basis': {'radial_basis_name': 'bessel', 'bessel_basis_num': 8},
+    'cutoff_function': {'cutoff_function_name': 'XPLOR', 'cutoff_on': 4.5},
+    '_normalize_sph': False, 'self_connection_type': 'nequip',
+    'conv_denominator': 1.0, 'shift': 0.0, 'scale': 1.0}
 
 def log(*args):
     print(*args, flush=True)
@@ -1102,7 +1168,9 @@ def phase_kernels(calc, batch, n_real_edge):
     return rows
 
 
-def phase_serve(calc):
+def phase_serve(calc, results=None, label='serve'):
+    """The five requests of ft.extxyz against the serving golden, each
+    with its launch census; each result is appended to ``results``."""
     import numpy as np
     import torch
 
@@ -1121,6 +1189,8 @@ def phase_serve(calc):
         t0 = time.perf_counter()
         res = calc.calculate(s)
         latencies.append((time.perf_counter() - t0) * 1e3)
+        if results is not None:
+            results.append(res)
         got = {k: _cuda.LAUNCHES[k] - before.get(k, 0)
                for k in _cuda.KERNELS}
         if (got['cg_agg'] != 5 or got['cg_multi'] != 5
@@ -1142,7 +1212,7 @@ def phase_serve(calc):
             raise AssertionError(f'request {i} disagrees with the golden '
                                  'file')
     counts = dict(_cuda.LAUNCHES)
-    log(f'[serve] {len(structs)} requests, latency ms '
+    log(f'[{label}] {len(structs)} requests, latency ms '
         f'{[round(x, 3) for x in latencies]}, median '
         f'{sorted(latencies)[len(latencies) // 2]:.3f} ms')
     return counts
@@ -1568,16 +1638,16 @@ def check_csv(path, gold, floors):
             f'{want:.9e} ({share:.2f} of the limit {limit:.3e})')
 
 
-def phase_pipeline():
+def phase_pipeline(tmp):
     """The train CLI of the port on the card: the two stages of
     ``recipe.pipeline_stages`` (a Fisher stage with -fs, then a 3-epoch
     reEWC fine-tune with rehearsal consuming its artifacts) through
-    ``main.main`` into a temporary directory, held against
-    ``golden/pipeline_ft_jax_cpu.npz``; returns the launch counts of the
-    two stages."""
+    ``main.main`` into the directory ``tmp`` (the compat phase reruns the
+    fine-tune from its Fisher artifacts and compares with its log.csv),
+    held against ``golden/pipeline_ft_jax_cpu.npz``; returns the launch
+    counts of the two stages."""
     import hashlib
     import re
-    import tempfile
 
     import numpy as np
     import torch
@@ -1592,86 +1662,85 @@ def phase_pipeline():
     from sevennet_finetuning_tpu_torch.train.recipe import pipeline_stages
 
     gold = np.load(GOLDEN_PIPELINE)
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        fisher_dir, ft_dir = tmp / 'fisher_out', tmp / 'ft_out'
-        stages = pipeline_stages(ROOT, str(fisher_dir))
+    tmp = Path(tmp)
+    fisher_dir, ft_dir = tmp / 'fisher_out', tmp / 'ft_out'
+    stages = pipeline_stages(ROOT, str(fisher_dir))
+    torch.cuda.synchronize()
+    _cuda.LAUNCHES.clear()
+    walls = {}
+    for name, cfg, wd, extra in zip(('fisher', 'ft'), stages,
+                                    (fisher_dir, ft_dir),
+                                    (['-fs'], [])):
+        path = tmp / f'{name}_input.yaml'
+        path.write_text(yaml.safe_dump(cfg))
+        t0 = time.perf_counter()
+        cli(['train', str(path), '-w', str(wd)] + extra)
         torch.cuda.synchronize()
-        _cuda.LAUNCHES.clear()
-        walls = {}
-        for name, cfg, wd, extra in zip(('fisher', 'ft'), stages,
-                                        (fisher_dir, ft_dir),
-                                        (['-fs'], [])):
-            path = tmp / f'{name}_input.yaml'
-            path.write_text(yaml.safe_dump(cfg))
-            t0 = time.perf_counter()
-            cli(['train', str(path), '-w', str(wd)] + extra)
-            torch.cuda.synchronize()
-            walls[name] = time.perf_counter() - t0
-        counts = {k: _cuda.LAUNCHES[k] for k in _cuda.KERNELS}
+        walls[name] = time.perf_counter() - t0
+    counts = {k: _cuda.LAUNCHES[k] for k in _cuda.KERNELS}
 
-        # stage 1: the anchor bit for bit, the Fisher leaf by leaf
-        fisher = load_pytree(str(fisher_dir / 'fisher_sevenn.pt'))
-        anchor = load_pytree(str(fisher_dir / 'opt_params_sevenn.pt'))
-        worst = []
-        for g, names in fisher.items():
-            for n, got in names.items():
-                a = np.ascontiguousarray(anchor[g][n], np.float32)
-                if hashlib.sha256(a.tobytes()).hexdigest() != str(
-                        gold[f'opt_params_sha256/{g}/{n}']):
-                    raise AssertionError(f'opt_params {g}/{n} differs from '
-                                         'the JAX anchor')
-                want_f = gold[f'fisher/{g}/{n}']
-                scale = max(float(np.abs(want_f).max()), 1e-30)
-                rel = float(np.abs(got - want_f).max()) / scale
-                tol = PIPELINE_FISHER_TOL_LEAF.get((g, n), PIPELINE_FISHER_TOL)
-                worst.append((rel / tol, rel, tol, f'{g}/{n}', scale))
-        worst.sort(reverse=True)
-        log(f'  opt_params: {len(worst)} leaves bit-equal to JAX; Fisher '
-            'leaves, worst (rel err / limit, max|F|):')
-        for share, rel, tol, key, scale in worst[:5]:
-            log(f'    {key}: {rel:.2e} / {tol:g} ({scale:.3e})')
-        if worst[0][0] > 1:
-            raise AssertionError(f'Fisher leaves disagree with the golden '
-                                 f'file: {worst[:5]}')
+    # stage 1: the anchor bit for bit, the Fisher leaf by leaf
+    fisher = load_pytree(str(fisher_dir / 'fisher_sevenn.pt'))
+    anchor = load_pytree(str(fisher_dir / 'opt_params_sevenn.pt'))
+    worst = []
+    for g, names in fisher.items():
+        for n, got in names.items():
+            a = np.ascontiguousarray(anchor[g][n], np.float32)
+            if hashlib.sha256(a.tobytes()).hexdigest() != str(
+                    gold[f'opt_params_sha256/{g}/{n}']):
+                raise AssertionError(f'opt_params {g}/{n} differs from '
+                                     'the JAX anchor')
+            want_f = gold[f'fisher/{g}/{n}']
+            scale = max(float(np.abs(want_f).max()), 1e-30)
+            rel = float(np.abs(got - want_f).max()) / scale
+            tol = PIPELINE_FISHER_TOL_LEAF.get((g, n), PIPELINE_FISHER_TOL)
+            worst.append((rel / tol, rel, tol, f'{g}/{n}', scale))
+    worst.sort(reverse=True)
+    log(f'  opt_params: {len(worst)} leaves bit-equal to JAX; Fisher '
+        'leaves, worst (rel err / limit, max|F|):')
+    for share, rel, tol, key, scale in worst[:5]:
+        log(f'    {key}: {rel:.2e} / {tol:g} ({scale:.3e})')
+    if worst[0][0] > 1:
+        raise AssertionError(f'Fisher leaves disagree with the golden '
+                             f'file: {worst[:5]}')
 
-        # stage 2: log.csv, the checkpoints, the best one served
-        floors = _stage_floors(FT)
-        for k, v in _stage_floors(REPLAY).items():  # the memory columns
-            floors[k] = max(floors[k], v)
-        check_csv(ft_dir / 'log.csv', gold, floors)
-        names = sorted(p.name for p in ft_dir.glob('checkpoint_*.pth'))
-        if names != [str(x) for x in gold['checkpoints']]:
-            raise AssertionError(f'checkpoints {names} != golden '
-                                 f'{list(gold["checkpoints"])}')
-        text = (ft_dir / 'log.sevenn').read_text()
-        epoch_s = [float(x) for x in re.findall(r'epoch time: ([0-9.]+) s',
-                                                text)]
-        best = load_checkpoint(str(ft_dir / 'checkpoint_best.pth'))
-        calc = Calculator.from_checkpoint(str(ft_dir / 'checkpoint_best.pth'),
-                                          device='cuda')
-        errs = []
-        for s in read_extxyz(str(FT)):
-            res = calc.calculate(s)
-            if not (np.isfinite(res['energy'])
-                    and res['forces'].shape == (len(s), 3)
-                    and np.isfinite(res['forces']).all()
-                    and res['stress'].shape == (6,)):
-                raise AssertionError('checkpoint_best.pth serves non-finite '
-                                     'or misshapen results')
-            errs.append(abs(res['energy'] - s.energy) / len(s))
-        log(f'  checkpoint_best.pth (epoch {best["epoch"]}) served ft.extxyz:'
-            f' |E - label| per atom {[f"{e:.2e}" for e in errs]} eV')
-        if max(errs) > 1e-2:
-            raise AssertionError('checkpoint_best.pth does not fit its own '
-                                 f'training data: {errs}')
+    # stage 2: log.csv, the checkpoints, the best one served
+    floors = _stage_floors(FT)
+    for k, v in _stage_floors(REPLAY).items():  # the memory columns
+        floors[k] = max(floors[k], v)
+    check_csv(ft_dir / 'log.csv', gold, floors)
+    names = sorted(p.name for p in ft_dir.glob('checkpoint_*.pth'))
+    if names != [str(x) for x in gold['checkpoints']]:
+        raise AssertionError(f'checkpoints {names} != golden '
+                             f'{list(gold["checkpoints"])}')
+    text = (ft_dir / 'log.sevenn').read_text()
+    epoch_s = [float(x) for x in re.findall(r'epoch time: ([0-9.]+) s',
+                                            text)]
+    best = load_checkpoint(str(ft_dir / 'checkpoint_best.pth'))
+    calc = Calculator.from_checkpoint(str(ft_dir / 'checkpoint_best.pth'),
+                                      device='cuda')
+    errs = []
+    for s in read_extxyz(str(FT)):
+        res = calc.calculate(s)
+        if not (np.isfinite(res['energy'])
+                and res['forces'].shape == (len(s), 3)
+                and np.isfinite(res['forces']).all()
+                and res['stress'].shape == (6,)):
+            raise AssertionError('checkpoint_best.pth serves non-finite '
+                                 'or misshapen results')
+        errs.append(abs(res['energy'] - s.energy) / len(s))
+    log(f'  checkpoint_best.pth (epoch {best["epoch"]}) served ft.extxyz:'
+        f' |E - label| per atom {[f"{e:.2e}" for e in errs]} eV')
+    if max(errs) > 1e-2:
+        raise AssertionError('checkpoint_best.pth does not fit its own '
+                             f'training data: {errs}')
 
-        # where a stage's wall time goes: each stage once more under the
-        # profiler (into other directories, after the counts were read)
-        for name, extra in (('fisher', ['-fs']), ('ft', [])):
-            profile_device(f'{name} stage', lambda: cli(
-                ['train', str(tmp / f'{name}_input.yaml'), '-w',
-                 str(tmp / f'{name}_profiled')] + extra), top=8)
+    # where a stage's wall time goes: each stage once more under the
+    # profiler (into other directories, after the counts were read)
+    for name, extra in (('fisher', ['-fs']), ('ft', [])):
+        profile_device(f'{name} stage', lambda: cli(
+            ['train', str(tmp / f'{name}_input.yaml'), '-w',
+             str(tmp / f'{name}_profiled')] + extra), top=8)
     # the launches: a Fisher sample and a train step run the same
     # kernels (TRAIN_CENSUS), a valid batch those of a request
     n_fisher = 5 - int(5 * 0.2)           # replay.extxyz's train split
@@ -2615,6 +2684,529 @@ def _family_runs(cap):
     return counts, calcs, s900
 
 
+def pair_e3gnn_inputs(s, g, type_map, device):
+    """The input dict LAMMPS pair_e3gnn builds for one cell
+    (pair_e3gnn.cpp:205-215), on ``device``."""
+    import numpy as np
+    import torch
+
+    from sevennet_finetuning_tpu_torch import keys as K
+
+    return {
+        'x': torch.tensor([type_map[int(z)] for z in s.atomic_numbers],
+                          dtype=torch.long, device=device),
+        'pos': torch.tensor(np.asarray(s.pos), dtype=torch.float32,
+                            device=device, requires_grad=True),
+        'edge_index': torch.tensor(np.asarray(g[K.EDGE_IDX]),
+                                   dtype=torch.long, device=device),
+        'pbc_shift': torch.tensor(np.asarray(g[K.CELL_SHIFT]),
+                                  dtype=torch.float32, device=device),
+        'cell_lattice_vectors': torch.tensor(
+            np.asarray(s.cell), dtype=torch.float32, device=device),
+        'cell_volume': torch.tensor(float(s.volume), device=device),
+        'num_atoms': torch.tensor(len(s), device=device),
+    }
+
+
+def chain_segments(segs, types, idx, edge_vec, device):
+    """The parallel segment chain in one domain without ghosts, as
+    pair_e3gnn_parallel.cpp:207-541 runs it: each segment's forward, then
+    the manual backward that chains the cotangents of x and
+    self_cont_tmp and sums dE/d(edge_vec) over the segments.  Returns
+    (energy, forces) with forces from the accumulated dE/dr."""
+    import numpy as np
+    import torch
+
+    n = len(types)
+    ev = torch.tensor(edge_vec, dtype=torch.float32, device=device,
+                      requires_grad=True)
+    out = segs[0]({
+        'x': torch.tensor(types, dtype=torch.long, device=device),
+        'x_ghost': torch.zeros((0,), dtype=torch.long, device=device),
+        'edge_index': torch.tensor(idx, dtype=torch.long, device=device),
+        'edge_vec': ev, 'num_atoms': torch.tensor([n], device=device),
+        'nlocal': torch.tensor([n], device=device)})
+    wrt = [[ev]]
+    for seg in segs[1:]:
+        e_v = out['edge_vec'].clone()
+        xg = torch.zeros((0, out['x'].shape[1]), device=device,
+                         requires_grad=True)
+        out = dict(out, edge_vec=e_v, x_ghost=xg)
+        wrt.append([e_v, out['x'], out['self_cont_tmp'], xg])
+        out = seg(out)
+    energy = out['inferred_total_energy'].squeeze()
+    dE_dr = torch.zeros_like(ev)
+    gx = gtmp = of = None
+    for i in range(len(wrt) - 1, -1, -1):
+        if i == len(wrt) - 1:
+            grads = torch.autograd.grad([energy], wrt[i], allow_unused=True)
+        else:
+            grads = torch.autograd.grad(of, wrt[i], [gx, gtmp],
+                                        allow_unused=True)
+        if grads[0] is not None:
+            dE_dr = dE_dr + grads[0]
+        if i == 0:
+            break
+        of = [wrt[i][1], wrt[i][2]]
+        gx, gtmp = grads[1], grads[2]
+    d = dE_dr.detach().cpu().numpy().astype(np.float64)
+    f = np.zeros((n, 3))
+    np.add.at(f, idx[0], d)        # dst
+    np.add.at(f, idx[1], -d)       # src
+    return float(energy.detach()), f
+
+
+def compat_reference_pth(tmp, blob, spec):
+    """Check 1: the checkpoint as a reference training .pth (the layout of
+    the reference's trainer.py:98-107, its type map by symbol) through
+    ``Calculator.from_checkpoint`` on the card: every parameter bit-equal
+    to the checkpoint's, the five requests at the serving limits with the
+    serve census.  Returns (results, launch counts)."""
+    import numpy as np
+    import torch
+
+    from sevennet_finetuning_tpu_torch import keys as K
+    from sevennet_finetuning_tpu_torch.calculator import Calculator
+    from sevennet_finetuning_tpu_torch.compat.state_dict_import import (
+        state_dict_from_params)
+    from sevennet_finetuning_tpu_torch.data.elements import z_to_symbol
+
+    sd = state_dict_from_params(spec, blob['model_state_dict'])
+    cfg = dict(blob['config'])
+    cfg[K.TYPE_MAP] = {z_to_symbol(z): i for z, i in cfg[K.TYPE_MAP].items()}
+    path = tmp / 'checkpoint_reference.pth'
+    torch.save({'model_state_dict': {k: torch.from_numpy(
+        np.ascontiguousarray(v)) for k, v in sd.items()}, 'config': cfg,
+        'epoch': blob['epoch']}, str(path))
+    t0 = time.perf_counter()
+    calc = Calculator.from_checkpoint(str(path), device='cuda')
+    load_s = time.perf_counter() - t0
+    n_leaves = 0
+    for g, names in blob['model_state_dict'].items():
+        for n, want in names.items():
+            got = calc.model.params[g][n].detach().cpu().numpy()
+            if not (got.dtype == np.float32 and np.array_equal(
+                    got, np.asarray(want, np.float32))):
+                raise AssertionError(f'reference .pth: {g}/{n} differs from '
+                                     'the checkpoint')
+            n_leaves += 1
+    log(f'  reference .pth ({len(sd)} state-dict tensors, '
+        f'{path.stat().st_size} bytes, epoch {blob["epoch"]}): '
+        f'Calculator.from_checkpoint {load_s:.2f} s, {n_leaves} leaves '
+        'bit-equal to the checkpoint')
+    results = []
+    counts = phase_serve(calc, results, label='compat reference .pth')
+    return results, counts
+
+
+def compat_torchscript_serial(tmp, spec, served):
+    """Check 2: ``main get_model <ckpt> --torchscript``; the artifact on
+    the card through pair_e3gnn's input dict against the golden and the
+    port's Calculator (serving limits), atomic energies summing to the
+    total, its metadata, and what compat/torchscript_import reads from the
+    graph the card's torch froze."""
+    import numpy as np
+    import torch
+
+    from sevennet_finetuning_tpu_torch import keys as K
+    from sevennet_finetuning_tpu_torch.compat import torchscript_import
+    from sevennet_finetuning_tpu_torch.data.readers import read_extxyz
+    from sevennet_finetuning_tpu_torch.main import main as cli
+    from sevennet_finetuning_tpu_torch.model.graph import structure_to_graph
+    from sevennet_finetuning_tpu_torch.ops import _cuda
+
+    gold = np.load(GOLDEN)
+    t0 = time.perf_counter()
+    cli(['get_model', str(CKPT), '--torchscript', '-o',
+         str(tmp / 'deployed_serial.sevenn')])
+    export_s = time.perf_counter() - t0
+    path = tmp / 'deployed_serial.pt'
+    meta = dict.fromkeys(('chemical_symbols_to_index', 'cutoff',
+                          'num_species', 'model_type', 'version', 'dtype',
+                          'time'), '')
+    model = torch.jit.load(str(path), map_location='cuda', _extra_files=meta)
+    meta = {k: v.decode() if isinstance(v, bytes) else v
+            for k, v in meta.items()}
+    shown = dict(meta, chemical_symbols_to_index='...')
+    log(f'  get_model --torchscript: {path.stat().st_size} bytes in '
+        f'{export_s:.2f} s; metadata {shown}')
+    if (len(meta['chemical_symbols_to_index'].split()) != 89
+            or float(meta['cutoff']) != 5.0 or meta['num_species'] != '89'
+            or meta['model_type'] != 'E3_equivariant_model'
+            or meta['dtype'] != 'single'):
+        raise AssertionError(f'TorchScript metadata {meta}')
+    tm = dict(spec.type_map)
+    for i, s in enumerate(read_extxyz(str(FT))):
+        g = structure_to_graph(s, spec.cutoff, tm)
+        before = dict(_cuda.LAUNCHES)
+        t0 = time.perf_counter()
+        out = model(pair_e3gnn_inputs(s, g, tm, 'cuda'))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if _launch_diff(before):
+            raise AssertionError('the TorchScript artifact launched a '
+                                 f'kernel of csrc: {_launch_diff(before)}')
+        res = {'energy': float(out['inferred_total_energy'].detach()),
+               'forces': out['inferred_force'].detach().cpu().numpy(),
+               'stress': out['inferred_stress'].detach().cpu().numpy()}
+        ae = float(out['atomic_energy'].detach().sum())
+        log(f'  torchscript request {i} ({len(s)} atoms): {ms:.2f} ms, '
+            f'sum of atomic energies - total {ae - res["energy"]:.3e} eV')
+        check_served(f'torchscript request {i} vs golden', res,
+                     gold['energy'][i], gold[f'forces_{i}'],
+                     gold['stress'][i])
+        check_served(f'torchscript request {i} vs Calculator', res,
+                     served[i]['energy'], served[i]['forces'],
+                     served[i]['stress'])
+        if abs(ae - res['energy']) > GOLDEN_ENERGY_TOL * abs(res['energy']):
+            raise AssertionError(f'atomic energies sum to {ae}, total '
+                                 f'{res["energy"]}')
+    # steady state at one shape: each request above was the artifact's
+    # first at its edge count (the TorchScript executor profiles and
+    # specialises a new shape before it optimises it)
+    s = read_extxyz(str(FT))[0]
+    g = structure_to_graph(s, spec.cutoff, tm)
+    times = []
+    for _ in range(12):
+        inp = pair_e3gnn_inputs(s, g, tm, 'cuda')
+        t0 = time.perf_counter()
+        model(inp)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f'  torchscript: structure 0 twelve times, ms '
+        f'{[round(t, 2) for t in times]}; median of the last eight '
+        f'{np.median(times[4:]):.3f} ms')
+    # the graph as the card's torch froze it, read on the host
+    host = torch.jit.load(str(path), map_location='cpu')
+    code, consts = host.code_with_constants
+    cfg = torchscript_import._config_from_frozen(code, consts.const_mapping,
+                                                 meta)
+    frozen_tm = cfg.pop(K.TYPE_MAP)
+    shapes = tuple(tuple(a.shape) for a, _, _ in
+                   torchscript_import._extract_weight_ops(host.graph))
+    log(f'  _config_from_frozen on the card\'s frozen graph: {cfg} (type '
+        f'map of {len(frozen_tm)} species); _extract_weight_ops: '
+        f'{len(shapes)} weighted ops (CPU: {len(TS_WEIGHT_OP_SHAPES)})')
+    if frozen_tm != tm or cfg != TS_FROZEN_CONFIG:
+        raise AssertionError(f'_config_from_frozen reads {cfg}, the CPU '
+                             f'{TS_FROZEN_CONFIG}')
+    if shapes != TS_WEIGHT_OP_SHAPES:
+        raise AssertionError(f'_extract_weight_ops finds {shapes}, the CPU '
+                             f'{TS_WEIGHT_OP_SHAPES}')
+
+
+def compat_torchscript_parallel(tmp, spec):
+    """Check 3: ``get_model --torchscript -p``: five segment files with
+    comm_size of the spec, chained in one domain on the card over
+    structure 0 of ft.extxyz, energy and forces (from dE/dr) against the
+    serving golden within PAR_ENERGY_TOL / PAR_FORCE_TOL."""
+    import numpy as np
+    import torch
+
+    from sevennet_finetuning_tpu_torch import keys as K
+    from sevennet_finetuning_tpu_torch.compat.torchscript_export_parallel \
+        import comm_size_of
+    from sevennet_finetuning_tpu_torch.data.readers import read_extxyz
+    from sevennet_finetuning_tpu_torch.main import main as cli
+    from sevennet_finetuning_tpu_torch.model.graph import structure_to_graph
+    from sevennet_finetuning_tpu_torch.ops import _cuda
+
+    gold = np.load(GOLDEN)
+    t0 = time.perf_counter()
+    cli(['get_model', str(CKPT), '--torchscript', '-p', '-o',
+         str(tmp / 'deployed_parallel.sevenn')])
+    export_s = time.perf_counter() - t0
+    ts_dir = tmp / 'deployed_parallel_parallel'
+    names = sorted(p.name for p in ts_dir.iterdir())
+    if names != [f'deployed_parallel_{i}.pt' for i in range(5)]:
+        raise AssertionError(f'segment files {names}')
+    meta = {'comm_size': ''}
+    segs = [torch.jit.load(str(ts_dir / n), map_location='cuda',
+                           _extra_files=meta if i == 0 else {})
+            for i, n in enumerate(names)]
+    comm = int(meta['comm_size'])
+    if comm != comm_size_of(spec):
+        raise AssertionError(f'comm_size {comm} != {comm_size_of(spec)}')
+    s = read_extxyz(str(FT))[0]
+    tm = dict(spec.type_map)
+    g = structure_to_graph(s, spec.cutoff, tm)
+    idx = np.asarray(g[K.EDGE_IDX])
+    ev = (np.asarray(s.pos)[idx[1]] - np.asarray(s.pos)[idx[0]]
+          + np.asarray(g[K.CELL_SHIFT]) @ np.asarray(s.cell))
+    types = np.array([tm[int(z)] for z in s.atomic_numbers])
+    before = dict(_cuda.LAUNCHES)
+    times = []
+    for _ in range(8):             # the executor's warm-up at this shape
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e, f = chain_segments(segs, types, idx, ev, 'cuda')
+        times.append((time.perf_counter() - t0) * 1e3)
+    if _launch_diff(before):
+        raise AssertionError('the segments launched a kernel of csrc')
+    ms = (f'{[round(t, 2) for t in times]}, median of the last four '
+          f'{np.median(times[4:]):.3f}')
+    e_err = abs(e - float(gold['energy'][0])) / len(s)
+    f_err = float(np.abs(f - gold['forces_0']).max())
+    log(f'  get_model --torchscript -p: {len(segs)} segments, comm_size '
+        f'{comm}, exported in {export_s:.2f} s; chain (forward and manual '
+        f'backward) over {len(s)} atoms eight times, ms {ms}: energy err '
+        f'{e_err:.3e} eV/atom (limit {PAR_ENERGY_TOL:g}), forces max err '
+        f'{f_err:.3e} eV/A (limit {PAR_FORCE_TOL:g})')
+    if e_err > PAR_ENERGY_TOL or f_err > PAR_FORCE_TOL:
+        raise AssertionError('the parallel chain disagrees with the golden '
+                             'file')
+
+
+def _csv_rows(path):
+    import csv
+
+    with open(path) as f:
+        return list(csv.DictReader(f))
+
+
+FT_STAGE_CENSUS = {k: 6 * TRAIN_CENSUS[k] + 3 * v for k, v in
+                   {'cg_agg': 5, 'cg_multi': 5, 'cg_gagg': 0, 'cg_gmulti': 0,
+                    'cg_quad': 0}.items()}
+
+
+def compat_sevenn_data(tmp, pipeline_dir, spec):
+    """Check 4: ``main graph_build`` of the pipeline phase's fine-tune data
+    and an artifact built with the checkpoint's type map, each the
+    ``load_dataset_path`` of that phase's reEWC stage (its own Fisher
+    artifacts): log.csv within COMPAT_CSV_TOL of the extxyz run's, the
+    stage's census, and whether the stage reused the prebuilt graphs or
+    rebuilt them from the stored structures.  Returns the launch
+    counts."""
+    from collections import Counter
+
+    import torch
+    import yaml
+
+    from sevennet_finetuning_tpu_torch.data import dataset
+    from sevennet_finetuning_tpu_torch.main import main as cli
+    from sevennet_finetuning_tpu_torch.ops import _cuda
+    from sevennet_finetuning_tpu_torch.pipeline import _read_file
+    from sevennet_finetuning_tpu_torch.train.recipe import pipeline_stages
+
+    art = tmp / 'ft_graph_build.sevenn_data'
+    cli(['graph_build', str(FT), str(spec.cutoff), '-o', str(art)])
+    reuse = tmp / 'ft_checkpoint_type_map.sevenn_data'
+    structs = _read_file(str(FT), 'structure_list')
+    tm = dict(spec.type_map)
+    dataset.save_sevenn_data(str(reuse), dataset.GraphDataset.from_structures(
+        structs, spec.cutoff, tm), spec.cutoff, tm, structures=structs)
+    want = _csv_rows(pipeline_dir / 'ft_out' / 'log.csv')
+    label = structs[0].info['label']
+    built = []
+    orig = dataset.GraphDataset.from_structures
+
+    def recording(structures, *args, **kwargs):
+        built.append(sum(s.info.get('label') == label for s in structures))
+        return orig(structures, *args, **kwargs)
+
+    total = Counter()
+    for name, path in (('graph_build', art), ('checkpoint type map', reuse)):
+        blob = dataset._load_blob(str(path))
+        stored = {int(z): int(i) for z, i in blob['type_map'].items()}
+        cfg = pipeline_stages(ROOT, str(pipeline_dir / 'fisher_out'))[1]
+        cfg['data']['load_dataset_path'] = [str(path)]
+        wd = tmp / name.replace(' ', '_')
+        y = tmp / f'{wd.name}.yaml'
+        y.write_text(yaml.safe_dump(cfg))
+        built.clear()
+        before = dict(_cuda.LAUNCHES)
+        dataset.GraphDataset.from_structures = staticmethod(recording)
+        t0 = time.perf_counter()
+        try:
+            cli(['train', str(y), '-w', str(wd)])
+            torch.cuda.synchronize()
+        finally:
+            dataset.GraphDataset.from_structures = staticmethod(orig)
+        wall = time.perf_counter() - t0
+        counts = _launch_diff(before)
+        total.update(counts)
+        rebuilt = sum(built)
+        how = (f'rebuilt from its {rebuilt} stored structures' if rebuilt
+               else 'trained on its prebuilt graphs')
+        log(f'  {name} artifact ({len(blob["graphs"])} graphs, type map of '
+            f'{len(stored)} species, cutoff {blob["cutoff"]}): the stage '
+            f'{how}; {wall:.2f} s wall; launches {counts}')
+        if bool(rebuilt) == (stored == tm) or rebuilt not in (0, 5):
+            raise AssertionError(f'{name}: {rebuilt} structures rebuilt')
+        if any(counts.get(k, 0) != v for k, v in FT_STAGE_CENSUS.items()) \
+                or counts.get('segment_sum', 0) < 6 * TRAIN_CENSUS[
+                    'segment_sum']:
+            raise AssertionError(f'{name}: launches {counts}, expected '
+                                 f'{FT_STAGE_CENSUS}')
+        got = _csv_rows(wd / 'log.csv')
+        if len(got) != len(want) or list(got[0]) != list(want[0]):
+            raise AssertionError(f'{name}: log.csv rows or columns differ')
+        worst = (0.0, '')
+        for i, (a, b) in enumerate(zip(got, want)):
+            for col in b:
+                x, w = float(a[col]), float(b[col])
+                rel = abs(x - w) / abs(w) if w else abs(x)
+                if rel > worst[0]:
+                    worst = (rel, f'row {i} {col}')
+        log(f'  {name}: log.csv against the extxyz run: largest relative '
+            f'difference {worst[0]:.3e} ({worst[1] or "all bit-equal"}; '
+            f'limit {COMPAT_CSV_TOL:g})')
+        if worst[0] > COMPAT_CSV_TOL:
+            raise AssertionError(f'{name}: log.csv differs from the extxyz '
+                                 'run')
+    return dict(total)
+
+
+def compat_continue(blob):
+    """Check 5: the checkpoint continued with its own adam state (no
+    reset_optimizer) for two batch-8 steps (ft900, then replay900) at LR
+    1e-4, against ``golden/continue_ft900_jax_cpu.npz``: the first step's
+    loss terms (STEP0_TOL, RAW_TERM_TOL) and gradients (GRAD_TOL, against
+    ``train_ft900_jax_cpu.npz``'s first step, the same one), the second
+    step's (TRAJ_TOL), each step's census; every leaf's first
+    update beside the golden's.  The same steps from a reset optimizer
+    must miss the second step's limit (the state moves the update).
+    Returns the launch counts."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from sevennet_finetuning_tpu_torch import keys as K
+    from sevennet_finetuning_tpu_torch.data.dataset import (
+        GraphDataset, Loader)
+    from sevennet_finetuning_tpu_torch.data.readers import read_extxyz
+    from sevennet_finetuning_tpu_torch.train.metrics import init_accumulators
+    from sevennet_finetuning_tpu_torch.train.optim import set_lr
+
+    gold = np.load(GOLDEN_CONTINUE)
+    total = Counter()
+    second = {}
+    for restored in (True, False):
+        label = 'restored' if restored else 'reset'
+        trainer = new_trainer()
+        if restored:
+            trainer.load_optimizer_state(blob['optimizer_state_dict'])
+            state = trainer.optimizer.state_dict()
+            log(f'  optax state: {len(state["state"])} adam leaves, step '
+                f'{float(state["state"][0]["step"]):.0f}, its LR '
+                f'{state["param_groups"][0]["lr"]:.6e} set to 1e-4')
+            set_lr(trainer.optimizer, 1e-4)
+        weights = {ls.name: ls.weight for ls in trainer.loss_specs}
+        tm = dict(trainer.spec.type_map)
+        loaders = [Loader(GraphDataset.from_structures(
+            read_extxyz(str(p))[:24], trainer.spec.cutoff, tm), BATCH)
+            for p in (FT900, REPLAY900)]
+        if loaders[0].n_edge != int(gold['n_edge_slots']):
+            raise AssertionError(f'edge slots {loaders[0].n_edge} != golden '
+                                 f'{int(gold["n_edge_slots"])}')
+        batches = [trainer.place_batch(next(iter(ld))) for ld in loaders]
+        before = {g: {n: p.detach().clone() for n, p in names.items()}
+                  for g, names in trainer.params.items()}
+        acc = init_accumulators(trainer.metric_specs, trainer.device)
+        acc, terms, counts, ms = step_census(trainer, batches[0], acc)
+        total.update(counts)
+        check_terms(f'continue {label}', terms, gold, 0, weights, STEP0_TOL,
+                    RAW_TERM_TOL)
+        if restored:
+            # the first step is the train golden's (same parameters and
+            # batch): its gradients are the continue golden's too
+            check_grads('ft900', trainer, np.load(GOLDEN_FT900))
+        shares = []
+        for g, names in trainer.params.items():
+            for n, p in names.items():
+                got = (p.detach() - before[g][n]).cpu().numpy()
+                want = gold[f'update/{g}/{n}']
+                after = before[g][n].cpu().numpy() + want
+                limit = 1e-3 * float(np.abs(want).max()) + 2 * float(
+                    np.finfo(np.float32).eps) * float(np.abs(after).max())
+                shares.append((float(np.abs(got - want).max()) / limit,
+                               f'{g}/{n}'))
+        shares.sort(reverse=True)
+        log(f'  continue {label}: first update per leaf against the '
+            "golden's (max err / (1e-3 max|update| + 2 ulp)): worst "
+            + ', '.join(f'{k} {v:.2f}' for v, k in shares[:3]))
+        acc, terms, counts, ms = step_census(trainer, batches[1], acc)
+        total.update(counts)
+        second[label] = float(terms['Total'])
+        if restored:
+            check_terms(f'continue {label}', terms, gold, 1, weights,
+                        TRAJ_TOL)
+    miss = abs(second['reset'] / float(gold['Total'][1]) - 1)
+    log(f'  continue: second-step total restored {second["restored"]:.9e}, '
+        f'reset {second["reset"]:.9e}, JAX {float(gold["Total"][1]):.9e}; '
+        f'the reset run misses by {miss:.3f} (limit {TRAJ_TOL:g})')
+    if miss <= TRAJ_TOL:
+        raise AssertionError('a reset optimizer passes the continue check: '
+                             'it cannot tell a restored state from none')
+    return dict(total)
+
+
+# launches of the compat phase: five requests (serve census), two
+# fine-tune stages (FT_STAGE_CENSUS), four train steps (two restored, two
+# reset); segment-sum at least that many
+COMPAT_CENSUS = {k: 5 * {'cg_agg': 5, 'cg_multi': 5}.get(k, 0)
+                 + 2 * FT_STAGE_CENSUS.get(k, 0) + 4 * TRAIN_CENSUS[k]
+                 for k in ('cg_agg', 'cg_multi', 'cg_gagg', 'cg_gmulti',
+                           'cg_quad')}
+COMPAT_MIN_SEGMENT_SUMS = 5 * 8 + 2 * 6 * 13 + 4 * 13
+
+
+def phase_compat(pipeline_dir):
+    """Checkpoint and deploy interop at SevenNet-0's full width: a
+    reference .pth served, the serial and parallel TorchScript artifacts
+    of ``get_model --torchscript`` on the card, ``graph_build`` and
+    .sevenn_data fine-tunes against the pipeline phase's, and a continue
+    of the checkpoint's optax state against its golden.  Returns the
+    phase's launch counts."""
+    from collections import Counter
+
+    import torch
+
+    from sevennet_finetuning_tpu_torch.model.build import build_model_spec
+    from sevennet_finetuning_tpu_torch.ops import _cuda
+    from sevennet_finetuning_tpu_torch.tools.bench_dma import card_line
+    from sevennet_finetuning_tpu_torch.train.checkpoint import (
+        load_checkpoint)
+
+    t_phase = time.perf_counter()
+    log(f'[compat] {card_line()}')
+    blob = load_checkpoint(str(CKPT))
+    spec = build_model_spec(blob['config'])
+    counts = Counter()
+    times = {}
+    torch.cuda.synchronize()
+    _cuda.LAUNCHES.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        served, serve_counts = compat_reference_pth(tmp, blob, spec)
+        counts.update(serve_counts)
+        times['reference .pth'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        compat_torchscript_serial(tmp, spec, served)
+        times['torchscript'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        compat_torchscript_parallel(tmp, spec)
+        times['torchscript -p'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        counts.update(compat_sevenn_data(tmp, pipeline_dir, spec))
+        times['.sevenn_data'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts.update(compat_continue(blob))
+    times['continue'] = time.perf_counter() - t0
+    counts = {k: counts.get(k, 0) for k in _cuda.KERNELS}
+    log(f'[compat] launches of the phase {counts}; expected '
+        f'{COMPAT_CENSUS}, segment_sum >= {COMPAT_MIN_SEGMENT_SUMS}, no '
+        'probe')
+    if (any(counts[k] != v for k, v in COMPAT_CENSUS.items())
+            or counts['segment_sum'] < COMPAT_MIN_SEGMENT_SUMS
+            or any(counts[k] for k in PROBES)):
+        raise AssertionError(f'compat launches {counts}')
+    log(f'[compat] phase {time.perf_counter() - t_phase:.1f} s ('
+        + ', '.join(f'{k} {v:.1f} s' for k, v in times.items()) + ')')
+    return counts
+
 def _rel_l2(got, want):
     import numpy as np
 
@@ -2732,23 +3324,30 @@ def main():
             f64_reference()
         return 0
     probe_rows, probe_counts = phase_probes()
-    # the phases before md build their graphs with the cKDTree neighbor
-    # list, as the port did before it had the native one (the train and
-    # pipeline goldens were made with it); md takes the native list
-    with neighbor_builder('ckdtree'):
-        calc = Calculator.from_checkpoint(str(CKPT), device='cuda')
-        batch, n_real_edge = batch8(calc)
-        rows = phase_kernels(calc, batch, n_real_edge)
-        serve_counts = phase_serve(calc)
-        phase_batch(calc, batch, n_real_edge)
-        phase_profile(calc, batch)
-        del calc
-        path_counts = {'serve': serve_counts, 'train': phase_train(),
-                       'pipeline': phase_pipeline(),
-                       'unsorted': phase_unsorted(batch),
-                       'probes': probe_counts,
-                       'families': phase_families(rows)}
-    path_counts['md'] = phase_md()
+    # the phases but md build their graphs with the cKDTree neighbor list,
+    # as the port did before it had the native one (the train, pipeline
+    # and continue goldens were made with it); md takes the native list.
+    # The pipeline phase's directory lives on for the compat phase
+    work = tempfile.TemporaryDirectory()
+    try:
+        with neighbor_builder('ckdtree'):
+            calc = Calculator.from_checkpoint(str(CKPT), device='cuda')
+            batch, n_real_edge = batch8(calc)
+            rows = phase_kernels(calc, batch, n_real_edge)
+            serve_counts = phase_serve(calc)
+            phase_batch(calc, batch, n_real_edge)
+            phase_profile(calc, batch)
+            del calc
+            path_counts = {'serve': serve_counts, 'train': phase_train(),
+                           'pipeline': phase_pipeline(work.name),
+                           'unsorted': phase_unsorted(batch),
+                           'probes': probe_counts,
+                           'families': phase_families(rows)}
+        path_counts['md'] = phase_md()
+        with neighbor_builder('ckdtree'):
+            path_counts['compat'] = phase_compat(Path(work.name))
+    finally:
+        work.cleanup()
 
     # one row per kernel at its interior-block / widest shape; every
     # measured shape is under "cases".  "launches" is the count on the

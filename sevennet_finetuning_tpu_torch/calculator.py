@@ -6,9 +6,11 @@ model on the calculator's device -- ``cuda`` unless the caller passes
 ``device='cpu'``.  The model runs with its weights frozen, so autograd
 tracks only the edge vectors the forces come from.  ``d3=`` adds Grimme
 D3 dispersion (``ops/d3.py``) on the same device.  ``from_checkpoint``
-reads pickle checkpoints and the npz deploy artifact;
-``from_deployed_torchscript`` and the ASE adapter are not ported
-(ROADMAP A.10, A.6).
+reads pickle checkpoints of either package, reference torch ``.pth``
+files and the npz deploy artifact; ``from_deployed_torchscript`` imports
+the weights of a reference frozen TorchScript (``compat/
+torchscript_import``).  ``SevenNetASECalculator`` adapts the calculator
+to ``ase`` (imported lazily: only usable where ase is installed).
 """
 
 from __future__ import annotations
@@ -81,9 +83,13 @@ class Calculator:
     @classmethod
     def from_deployed_torchscript(cls, path: str, config_overrides=None,
                                   device=None) -> 'Calculator':
-        raise NotImplementedError(
-            'importing a reference TorchScript artifact needs '
-            'compat/torchscript_import, not ported yet: ROADMAP A.10')
+        """The weights of a reference ``deployed_serial.pt`` (frozen
+        TorchScript), served by this package's model on ``device``."""
+        from .compat.torchscript_import import import_deployed_serial
+
+        device = resolve_device(device)
+        spec, params, _, _ = import_deployed_serial(path, config_overrides)
+        return cls(spec, params, device=device)
 
     def batch(self, s: Structure) -> Dict[str, torch.Tensor]:
         """One structure as a padded batch on the calculator's device."""
@@ -143,9 +149,51 @@ class Calculator:
 
 
 class SevenNetASECalculator:
-    """The JAX package's ase adapter (reference: sevenn/sevennet_calculator.py:
-    17-157): not ported, since ase is on neither machine the port runs on."""
+    """ase.calculators adapter over :class:`Calculator` (the reference's
+    SevenNetCalculator surface, reference: sevenn/sevennet_calculator.py:
+    17-157).  Imported lazily: only usable where ase is installed.
+    ``model``: a ``Calculator`` or a checkpoint path (served on
+    ``device``, cuda unless asked otherwise)."""
 
-    def __init__(self, model, **kwargs):
-        raise NotImplementedError(
-            'SevenNetASECalculator is not ported yet: ROADMAP A.6')
+    implemented_properties = ('energy', 'energies', 'forces', 'stress',
+                              'free_energy')
+
+    def __init__(self, model, device=None, **kwargs):
+        from ase.calculators.calculator import Calculator as AseBase
+
+        if isinstance(model, str):
+            model = Calculator.from_checkpoint(model, device=device)
+        self._inner = model
+
+        outer = self
+
+        class _Impl(AseBase):
+            implemented_properties = list(
+                SevenNetASECalculator.implemented_properties
+            )
+
+            def calculate(self, atoms=None, properties=('energy',),
+                          system_changes=None):
+                super().calculate(atoms, properties, system_changes)
+                s = Structure(
+                    species=list(atoms.get_chemical_symbols()),
+                    pos=np.asarray(atoms.get_positions(), float),
+                    cell=np.asarray(atoms.get_cell()[:], float),
+                    pbc=tuple(bool(p) for p in atoms.get_pbc()),
+                )
+                res = outer._inner.calculate(s)
+                self.results = {
+                    'energy': float(res['energy']),
+                    'free_energy': float(res['energy']),
+                    'energies': np.asarray(res['energies']),
+                    'forces': np.asarray(res['forces']),
+                    # ase Voigt order xx yy zz yz xz xy, sign flipped
+                    'stress': -np.asarray(res['stress'])[
+                        [0, 1, 2, 4, 5, 3]
+                    ],
+                }
+
+        self.ase_calculator = _Impl(**kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self.ase_calculator, name)

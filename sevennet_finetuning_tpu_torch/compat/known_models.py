@@ -1,10 +1,14 @@
-"""Pretrained-model names (``continue: checkpoint: 'SevenNet-0'``).
+"""Config overrides for importing known reference release artifacts, and
+pretrained-model names (``continue: checkpoint: 'SevenNet-0'``).
 
-Port of ``pretrained_name_to_path`` and ``EXAMPLE_MD_MODEL`` of
-``sevennet_finetuning_tpu/compat/known_models.py``.  The port searches
-``$SEVENN_PRETRAINED_DIR`` only: the release artifacts there are a
-reference torch ``.pth`` or a frozen TorchScript, which the port's
-``load_checkpoint`` does not read yet (ROADMAP A.10).
+Port of ``sevennet_finetuning_tpu/compat/known_models.py``.  Frozen
+TorchScript graphs do not retain every architecture hyperparameter; these
+tables pin down the shipped SevenNet releases (sources: reference
+pretrained_potentials/SevenNet_0__11July2024/pre_train.yaml and the
+example_inputs deployed models, decoded from their frozen graphs).  The
+port searches ``$SEVENN_PRETRAINED_DIR`` only for release artifacts: a
+reference torch ``.pth`` or a frozen TorchScript, both of which
+``load_checkpoint`` reads.
 """
 
 from __future__ import annotations
@@ -12,6 +16,22 @@ from __future__ import annotations
 import os
 
 from .. import keys as K
+
+SEVENNET_0_11JULY2024 = {
+    K.NODE_FEATURE_MULTIPLICITY: 128,
+    K.LMAX: 2,
+    K.NUM_CONVOLUTION: 5,
+    K.IS_PARITY: False,
+    K.SELF_CONNECTION_TYPE: 'linear',
+    K.IRREPS_MANUAL: [
+        '128x0e', '128x0e+64x1e+32x2e', '128x0e+64x1e+32x2e',
+        '128x0e+64x1e+32x2e', '128x0e+64x1e+32x2e', '128x0e',
+    ],
+    K._NORMALIZE_SPH: True,
+    K._RESTRICT_LAST_LAYER: True,
+    K.SHIFT: [0.0] * 89,           # species-wise; values imported
+    K.SCALE: [1.0] * 89,
+}
 
 
 def pretrained_name_to_path(name: str) -> str:

@@ -15,6 +15,15 @@ Statistics follow the reference:
 - species reference energies by Ridge(alpha=0.1) regression on
   compositions (reference: sevenn/train/dataset.py:279-309)
 - average neighbor count (conv denominator)
+
+``.sevenn_data`` artifacts (``save_sevenn_data`` / ``load_sevenn_data`` /
+``sevenn_data_structures``) have the JAX package's layout, a pickle of
+the graphs, cutoff, type map and (optionally) the structures, so each
+package reads the other's; a JAX-written one pickles
+``sevennet_finetuning_tpu.data.vasp.Structure``, which ``_load_blob``
+maps to this package's copy of the class without importing the JAX
+package.  Reference artifacts (a ``torch.save`` of ``AtomGraphDataset``)
+go through ``compat/sevenn_data_import``.
 """
 
 from __future__ import annotations
@@ -27,6 +36,11 @@ import numpy as np
 from .. import keys as K
 from ..model.graph import bucket_capacity, collate, structure_to_graph
 from .vasp import Structure
+
+# the Structure classes a .sevenn_data pickle may name: the JAX package's
+# and this package's (the same dataclass, copied verbatim)
+_STRUCTURE_CLASSES = (('sevennet_finetuning_tpu.data.vasp', 'Structure'),
+                      ('sevennet_finetuning_tpu_torch.data.vasp', 'Structure'))
 
 
 class GraphDataset:
@@ -137,6 +151,123 @@ class GraphDataset:
         valid = [self.graphs[i] for i in idx[:n_valid]]
         train = [self.graphs[i] for i in idx[n_valid:]]
         return GraphDataset(train), GraphDataset(valid)
+
+
+def _load_blob(path: str):
+    """A .sevenn_data pickle of either package, through an unpickler that
+    resolves the numpy globals of an array and the ``Structure`` class of
+    either package (as this package's), and nothing else."""
+    import pickle
+
+    from ..train.checkpoint import numpy_global
+
+    class _Unpickler(pickle.Unpickler):
+        def find_class(self, module, name):
+            if (module, name) in _STRUCTURE_CLASSES:
+                return Structure
+            fn = numpy_global(module, name)
+            if fn is not None:
+                return fn
+            raise pickle.UnpicklingError(
+                f'{path} references {module}.{name}, which is not loaded')
+
+    with open(path, 'rb') as f:
+        return _Unpickler(f).load()
+
+
+def save_sevenn_data(
+    path: str,
+    dataset: GraphDataset,
+    cutoff: float,
+    type_map: Dict[int, int],
+    structures: Optional[Sequence[Structure]] = None,
+):
+    """Write a prebuilt dataset artifact (the JAX package's .sevenn_data;
+    the reference's is a torch.save of AtomGraphDataset, reference:
+    sevenn/train/dataset.py:453-465).  Stores the graphs plus (optionally)
+    the raw structures so a later load under a different cutoff/type-map
+    can rebuild instead of failing."""
+    import pickle
+
+    blob = {
+        'version': 2,
+        'cutoff': float(cutoff),
+        'type_map': {int(z): int(i) for z, i in type_map.items()},
+        'graphs': dataset.graphs,
+        'structures': list(structures) if structures is not None else None,
+    }
+    with open(path, 'wb') as f:
+        pickle.dump(blob, f)
+
+
+def load_sevenn_data(
+    path: str,
+    cutoff: Optional[float] = None,
+    type_map: Optional[Dict[int, int]] = None,
+    n_cores: int = 1,
+) -> GraphDataset:
+    """Load a .sevenn_data artifact -- either package's (a pickle blob) or
+    a REFERENCE-produced one (torch.save of AtomGraphDataset; imported
+    best-effort via compat.sevenn_data_import and rebuilt with this
+    package's neighbor list).  Uses the stored graphs when the requested
+    cutoff/type-map match (or are unspecified); rebuilds from the stored
+    structures otherwise; errors if a rebuild is needed but the artifact
+    carries no structures."""
+    from ..compat.sevenn_data_import import is_reference_sevenn_data
+
+    if is_reference_sevenn_data(path):
+        from ..compat.sevenn_data_import import (
+            reference_sevenn_data_cutoff,
+            reference_sevenn_data_structures,
+        )
+
+        structures = reference_sevenn_data_structures(path)
+        cut = cutoff if cutoff is not None \
+            else reference_sevenn_data_cutoff(path)
+        if cut is None:
+            raise ValueError(f'{path}: no cutoff stored or requested')
+        if type_map is None:
+            from .elements import type_map_from_species
+
+            type_map = type_map_from_species(
+                {sp for s in structures for sp in s.species}
+            )
+        return GraphDataset.from_structures(
+            structures, float(cut), type_map, n_cores=n_cores
+        )
+
+    blob = _load_blob(path)
+    stored_cut = float(blob['cutoff'])
+    stored_tm = {int(z): int(i) for z, i in blob['type_map'].items()}
+    match = (cutoff is None or abs(stored_cut - float(cutoff)) < 1e-9) \
+        and (type_map is None
+             or stored_tm == {int(z): int(i) for z, i in type_map.items()})
+    if match:
+        return GraphDataset(blob['graphs'])
+    structures = blob.get('structures')
+    if structures is None:
+        raise ValueError(
+            f'{path}: built with cutoff={stored_cut}/different type map '
+            f'and carries no structures to rebuild from '
+            f'(requested cutoff={cutoff})'
+        )
+    return GraphDataset.from_structures(
+        structures, float(cutoff if cutoff is not None else stored_cut),
+        type_map if type_map is not None else stored_tm, n_cores=n_cores,
+    )
+
+
+def sevenn_data_structures(path: str) -> Optional[List[Structure]]:
+    """The raw structures stored in an artifact (None if absent)."""
+    from ..compat.sevenn_data_import import is_reference_sevenn_data
+
+    if is_reference_sevenn_data(path):
+        from ..compat.sevenn_data_import import (
+            reference_sevenn_data_structures,
+        )
+
+        return reference_sevenn_data_structures(path)
+    return _load_blob(path).get('structures')
 
 
 class Loader:

@@ -6,14 +6,18 @@ reference CLI family, reference: sevenn/main/*.py):
     python -m sevennet_finetuning_tpu_torch.main train input.yaml [-w dir]
     python -m sevennet_finetuning_tpu_torch.main train input.yaml -fs
     python -m sevennet_finetuning_tpu_torch.main preset <name>
-    python -m sevennet_finetuning_tpu_torch.main get_model <checkpoint> [-o out]
+    python -m sevennet_finetuning_tpu_torch.main get_model <checkpoint> [-o out] [-ts [-p]]
     python -m sevennet_finetuning_tpu_torch.main inference <checkpoint> <data...>
+    python -m sevennet_finetuning_tpu_torch.main graph_build <data> <cutoff> [-o out]
 
 ``train`` and ``inference`` run on ``cuda`` unless ``--device`` names
 another device (``--device cpu``).  ``get_model`` writes the npz deploy
-artifact, which both packages read.  ``graph_build``, data-parallel
-training (``-d``) and ``get_model --torchscript`` are not ported yet
-and raise ``NotImplementedError`` with their ROADMAP item.
+artifact, which both packages read, and with ``--torchscript`` also the
+reference's TorchScript deploy format (``deployed_serial.pt``, or with
+``-p`` the ``deployed_parallel_{i}.pt`` segment chain) that LAMMPS
+``pair_e3gnn`` loads.  ``graph_build`` writes a ``.sevenn_data``
+artifact.  Data-parallel training (``-d``) is not ported yet and raises
+``NotImplementedError`` with its ROADMAP item (A.8).
 """
 
 from __future__ import annotations
@@ -67,17 +71,14 @@ def cmd_get_model(args):
     """Deploy a checkpoint as a self-contained potential artifact (the
     counterpart of the reference's sevenn_get_model, reference:
     sevenn/main/sevenn_get_model.py): the pickle-free npz + JSON
-    artifact of ``train.checkpoint.save_deployed``; -p only changes the
-    default file name."""
+    artifact of ``train.checkpoint.save_deployed``; with --torchscript
+    also the reference's serial TorchScript (``<out>.pt``) or, with -p,
+    its parallel segment chain (``<out>_parallel/``)."""
     import numpy as np
 
     from . import keys as K
     from .train.checkpoint import load_checkpoint, save_deployed
 
-    if getattr(args, 'torchscript', False):
-        raise NotImplementedError(
-            'get_model --torchscript needs compat/torchscript_export, not '
-            'ported yet: ROADMAP A.10')
     if not os.path.exists(args.checkpoint):
         # pretrained names, like the reference CLI (reference:
         # sevenn/main/sevenn_get_model.py + util.pretrained_name_to_path)
@@ -102,6 +103,27 @@ def cmd_get_model(args):
           f'{config.get(K.CUTOFF)}, {len(tm)} species')
     print('load with Calculator.from_deployed(...) or '
           'Calculator.from_checkpoint(...)')
+    if getattr(args, 'torchscript', False):
+        from .model.build import build_model_spec
+
+        spec = build_model_spec(config)
+        params = blob['model_state_dict']
+        if args.parallel:
+            # reference multi-GPU LAMMPS segment chain
+            # (sevenn/scripts/deploy.py:55-117)
+            from .compat.torchscript_export_parallel import export_parallel
+
+            ts_dir = os.path.splitext(out)[0] + '_parallel'
+            paths = export_parallel(spec, params, ts_dir)
+            print('TorchScript (reference parallel deploy format): '
+                  f'{len(paths)} segments in {ts_dir}/')
+        else:
+            from .compat.torchscript_export import export_serial
+
+            ts_out = os.path.splitext(out)[0] + '.pt'
+            export_serial(spec, params, ts_out)
+            print('TorchScript (reference serial deploy format): '
+                  f'{ts_out}')
 
 
 def cmd_inference(args):
@@ -130,12 +152,20 @@ def cmd_preset(args):
         sys.stdout.write(f.read())
 
 
-def _not_ported(item: str):
-    def run(args):
-        raise NotImplementedError(
-            f'{args.cmd} is not ported yet: ROADMAP {item}')
+def cmd_graph_build(args):
+    """Prebuild the graphs of a data file into a .sevenn_data artifact,
+    atoms typed by the file's own species (the JAX CLI's graph_build)."""
+    from .data.dataset import GraphDataset, save_sevenn_data
+    from .data.elements import type_map_from_species
+    from .pipeline import _read_file
 
-    return run
+    structs = _read_file(args.source, 'structure_list')
+    tm = type_map_from_species({sp for s in structs for sp in s.species})
+    ds = GraphDataset.from_structures(structs, args.cutoff, tm,
+                                      n_cores=args.num_cores)
+    out = args.output or 'graph_built.sevenn_data'
+    save_sevenn_data(out, ds, args.cutoff, tm, structures=structs)
+    print(f'saved {len(ds)} graphs to {out}')
 
 
 def main(argv=None):
@@ -160,7 +190,7 @@ def main(argv=None):
     gm.add_argument('-o', '--output')
     gm.add_argument('-ts', '--torchscript', action='store_true',
                     help='also emit a reference-compatible TorchScript '
-                         'deployed_serial.pt (not ported yet)')
+                         'deployed_serial.pt (LAMMPS interop)')
     gm.add_argument('-p', '--parallel', action='store_true',
                     help='name the artifact for parallel MD use')
     gm.set_defaults(func=cmd_get_model)
@@ -183,11 +213,12 @@ def main(argv=None):
                           'the CPU)')
     inf.set_defaults(func=cmd_inference)
 
-    # the JAX CLI's graph_build, with its arguments, not ported
-    g = sub.add_parser('graph_build',
-                       help='prebuild graphs from data (not ported yet)')
-    g.add_argument('args', nargs='*')
-    g.set_defaults(func=_not_ported('A.10'))
+    g = sub.add_parser('graph_build', help='prebuild graphs from data')
+    g.add_argument('source')
+    g.add_argument('cutoff', type=float)
+    g.add_argument('-o', '--output')
+    g.add_argument('-n', '--num-cores', type=int, default=1)
+    g.set_defaults(func=cmd_graph_build)
 
     args = p.parse_args(argv)
     return args.func(args)

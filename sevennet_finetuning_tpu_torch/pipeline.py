@@ -10,15 +10,19 @@ handling, the epoch loop with CSV + checkpoints, Fisher estimation, and
 rehearsal.
 
 ``train`` runs on ``cuda`` unless the caller passes ``device='cpu'``.
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: ``.sevenn_data`` inputs and the ``save_dataset`` family (A.10),
-data-parallel training (A.8), per-block rematerialization (A.3) and
-reading a JAX checkpoint's optax state (A.4).
+Datasets may be prebuilt ``.sevenn_data`` artifacts (either package's or
+the reference's), and the ``save_dataset`` family writes them; a
+``continue`` keeps the optimizer state of the port's own checkpoints and
+of the JAX package's (its optax state, translated by
+``train/optim.optax_state_dict``).  Not ported yet, each raising
+``NotImplementedError`` with its ROADMAP item: data-parallel training
+(A.8) and per-block rematerialization (A.3).
 """
 
 from __future__ import annotations
 
 import os
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -103,16 +107,23 @@ def _read_file(path: str, fmt: str,
 
 def load_structures(config: Dict, paths_key: str = K.LOAD_DATASET
                     ) -> List[Structure]:
-    """Load labeled structures per the data config (paths may glob)."""
+    """Load labeled structures per the data config (paths may glob).
+    .sevenn_data artifacts contribute their stored structures."""
     fmt = config.get(K.DATA_FORMAT, 'structure_list')
     fmt_args = config.get(K.DATA_FORMAT_ARGS) or {}
     out: List[Structure] = []
     for path in _expand_paths(config, paths_key):
         if path.endswith('.sevenn_data'):
-            raise NotImplementedError(
-                f'{path}: .sevenn_data datasets are not ported yet: ROADMAP '
-                'A.10')
-        out.extend(_read_file(path, fmt, fmt_args))
+            from .data.dataset import sevenn_data_structures
+
+            stored = sevenn_data_structures(path)
+            if stored is None:
+                raise ValueError(
+                    f'{path} has no stored structures; use load_dataset'
+                )
+            out.extend(stored)
+        else:
+            out.extend(_read_file(path, fmt, fmt_args))
     return out
 
 
@@ -123,13 +134,24 @@ def load_dataset(
     type_map: Dict,
     n_cores: int = 1,
 ) -> GraphDataset:
-    """Paths -> GraphDataset (raw files graph-built, optionally in
-    parallel; reference dataset-load path:
-    sevenn/scripts/processing_dataset.py:146-210)."""
-    structs = load_structures(config, paths_key)
+    """Paths -> GraphDataset: raw files are graph-built (optionally in
+    parallel), .sevenn_data artifacts reuse their prebuilt graphs when
+    cutoff/type-map match and rebuild otherwise (reference dataset-load
+    path: sevenn/scripts/processing_dataset.py:146-210)."""
+    from .data.dataset import load_sevenn_data
+
+    fmt = config.get(K.DATA_FORMAT, 'structure_list')
+    fmt_args = config.get(K.DATA_FORMAT_ARGS) or {}
     out = GraphDataset()
-    if structs:
-        out.extend(GraphDataset.from_structures(structs, cutoff, type_map,
+    raw: List[Structure] = []
+    for path in _expand_paths(config, paths_key):
+        if path.endswith('.sevenn_data'):
+            out.extend(load_sevenn_data(path, cutoff, type_map,
+                                        n_cores=n_cores))
+        else:
+            raw.extend(_read_file(path, fmt, fmt_args))
+    if raw:
+        out.extend(GraphDataset.from_structures(raw, cutoff, type_map,
                                                 n_cores=n_cores))
     return out
 
@@ -234,10 +256,22 @@ def resolve_statistics(
     )
 
 
-def setup_species(config: Dict, structures: List[Structure]):
+def setup_species(config: Dict, structures: List[Structure],
+                  prebuilt_paths: Optional[List[str]] = None):
     chem = config.get(K.CHEMICAL_SPECIES, 'Auto')
     if isinstance(chem, str) and chem.lower() == 'auto':
-        species = sorted({sp for s in structures for sp in s.species})
+        found = {sp for s in structures for sp in s.species}
+        for path in prebuilt_paths or []:
+            from .compat.sevenn_data_import import is_reference_sevenn_data
+            from .data.dataset import _load_blob, sevenn_data_structures
+
+            if is_reference_sevenn_data(path):
+                found |= {sp for s in sevenn_data_structures(path)
+                          for sp in s.species}
+            else:
+                found |= {z_to_symbol(z) for z in _load_blob(path)[
+                    'type_map']}
+        species = sorted(found)
     else:
         species = list(chem)
     tm = type_map_from_species(species)
@@ -254,11 +288,6 @@ def _refuse_unported(config: Dict, calc_fisher: bool):
         raise NotImplementedError(
             'per-block rematerialization (remat: True) is not ported yet: '
             'ROADMAP A.3')
-    for key in (K.SAVE_DATASET, K.SAVE_BY_LABEL, K.SAVE_BY_TRAIN_VALID):
-        if config.get(key):
-            raise NotImplementedError(
-                f'{key}: .sevenn_data datasets are not ported yet: ROADMAP '
-                'A.10')
 
 
 def train(config: Dict, working_dir: str = '.', device=None) -> Trainer:
@@ -304,12 +333,6 @@ def _train(config, working_dir, device, logger: Logger, calc_fisher: bool,
         cp_blob = load_checkpoint(cp_path)
         cp_config = cp_blob['config']
         _check_continue_compat(config, cp_config, cont, logger)
-        if cp_blob.get('optax_state_dropped') and not calc_fisher \
-                and not cont.get(K.RESET_OPTIMIZER):
-            raise NotImplementedError(
-                f'{cp_path} holds optax optimizer state, which the port '
-                'does not read yet (ROADMAP A.4); set continue.'
-                'reset_optimizer: True')
         # architecture keys must come from the checkpoint
         for key in (
             K.NODE_FEATURE_MULTIPLICITY, K.LMAX, K.NUM_CONVOLUTION,
@@ -337,18 +360,31 @@ def _train(config, working_dir, device, logger: Logger, calc_fisher: bool,
         config[K.LOAD_DATASET_WITH_WEIGHTS] = True  # enables weighted loss
     n_cores = int(config.get(K.PREPROCESS_NUM_CORES, 1) or 1)
 
-    structures = load_structures(config, K.LOAD_DATASET)
-    if not structures:
+    fmt = config.get(K.DATA_FORMAT, 'structure_list')
+    fmt_args = config.get(K.DATA_FORMAT_ARGS) or {}
+    paths = _expand_paths(config, K.LOAD_DATASET)
+    prebuilt_paths = [p for p in paths if p.endswith('.sevenn_data')]
+    structures: List[Structure] = []
+    for path in paths:
+        if not path.endswith('.sevenn_data'):
+            structures.extend(_read_file(path, fmt, fmt_args))
+    if not structures and not prebuilt_paths:
         raise ValueError(
             f'no structures loaded — check data.{K.LOAD_DATASET} '
             f'(got: {config.get(K.LOAD_DATASET)!r})'
         )
     if not cont.get(K.CHECKPOINT):
-        setup_species(config, structures)
+        setup_species(config, structures, prebuilt_paths)
     tm = config[K.TYPE_MAP]
     cutoff = float(config[K.CUTOFF])
     full = GraphDataset.from_structures(structures, cutoff, tm,
                                         n_cores=n_cores)
+    if prebuilt_paths:
+        from .data.dataset import load_sevenn_data
+
+        for path in prebuilt_paths:
+            full.extend(load_sevenn_data(path, cutoff, tm,
+                                         n_cores=n_cores))
 
     if config.get(K.LOAD_VALIDSET):
         train_set = full
@@ -359,6 +395,12 @@ def _train(config, working_dir, device, logger: Logger, calc_fisher: bool,
             config.get(K.RATIO, 0.1), seed=seed
         )
     logger.timer_end('dataset', 'dataset build')
+
+    # optional .sevenn_data dumps (reference:
+    # sevenn/scripts/processing_dataset.py save_dataset / by_label /
+    # by_train_valid flags)
+    _save_datasets(config, working_dir, logger, full, train_set, valid_set,
+                   cutoff, tm, structures)
 
     logger.statistics(
         {
@@ -411,10 +453,10 @@ def _train(config, working_dir, device, logger: Logger, calc_fisher: bool,
             'optimizer_state_dict'
         ) is not None:
             try:
-                trainer.optimizer.load_state_dict(
-                    cp_blob['optimizer_state_dict'])
+                trainer.load_optimizer_state(cp_blob['optimizer_state_dict'])
             except ValueError as e:  # other leaves or optimizer: reinit
                 logger.writeline(f'optimizer state not restored: {e}')
+                warnings.warn(f'optimizer state not restored: {e}')
         if not cont.get(K.RESET_SCHEDULER) and cp_blob.get(
             'scheduler_state_dict'
         ):
@@ -496,6 +538,39 @@ def _train(config, working_dir, device, logger: Logger, calc_fisher: bool,
                working_dir, mem_loader=mem_loader,
                start_epoch=start_epoch)
     return trainer
+
+
+def _save_datasets(config: Dict, working_dir: str, logger: Logger,
+                   full: GraphDataset, train_set: GraphDataset,
+                   valid_set: GraphDataset, cutoff: float, tm: Dict,
+                   structures: List[Structure]):
+    """The save_dataset_path / save_by_label / save_by_train_valid keys:
+    .sevenn_data artifacts of the whole set (with its raw structures), of
+    each label, and of the train / valid split."""
+    from .data.dataset import save_sevenn_data
+
+    if config.get(K.SAVE_DATASET):
+        name = config[K.SAVE_DATASET]
+        if not isinstance(name, str):
+            name = os.path.join(working_dir, 'total')
+        if not name.endswith('.sevenn_data'):
+            name += '.sevenn_data'
+        save_sevenn_data(name, full, cutoff, tm, structures=structures)
+        logger.writeline(f'dataset saved: {name}')
+    if config.get(K.SAVE_BY_LABEL):
+        by_label: Dict[str, GraphDataset] = {}
+        for g in full.graphs:
+            lbl = str(g.get(K.USER_LABEL, 'none')).replace('/', '_')
+            by_label.setdefault(lbl, GraphDataset()).graphs.append(g)
+        for lbl, ds in by_label.items():
+            save_sevenn_data(os.path.join(working_dir, f'{lbl}.sevenn_data'),
+                             ds, cutoff, tm)
+        logger.writeline(f'dataset saved by label: {sorted(by_label)}')
+    if config.get(K.SAVE_BY_TRAIN_VALID):
+        for nm, ds in (('train', train_set), ('valid', valid_set)):
+            save_sevenn_data(os.path.join(working_dir, f'{nm}.sevenn_data'),
+                             ds, cutoff, tm)
+        logger.writeline('dataset saved: train/valid .sevenn_data')
 
 
 def _radial_embedding_std_mean(config: Dict, train_set: GraphDataset

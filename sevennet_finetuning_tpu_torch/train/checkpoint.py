@@ -5,8 +5,10 @@ Port of ``sevennet_finetuning_tpu/train/checkpoint.py``: ``save_checkpoint``
 ``load_pytree``, and the deploy artifact (``save_deployed`` /
 ``load_deployed`` / ``model_from_deployed``: one npz of named float arrays
 and the JSON config, the same layout in both packages, so each reads the
-other's).  A reference torch ``.pth`` zip is not read (it needs
-``compat/state_dict_import``, ROADMAP A.10).
+other's).  A reference torch ``.pth`` zip (a training checkpoint, a bare
+state dict or a frozen TorchScript) goes through
+``compat/state_dict_import.import_reference_checkpoint``, as in the JAX
+package.
 
 A checkpoint is one pickle of numpy arrays and builtins:
 ``model_state_dict`` (the parameters by the JAX package's names),
@@ -17,20 +19,22 @@ a ``torch.optim`` state dict with every tensor stored as a numpy array,
 so the JAX package's ``load_checkpoint`` (a plain ``pickle.load``) reads
 them too; ``load_checkpoint`` turns the arrays back into tensors.
 
-A JAX checkpoint's ``optimizer_state_dict`` holds optax classes
+A JAX checkpoint's ``optimizer_state_dict`` holds optax NamedTuples
 (``optax.schedules._inject.InjectStatefulHyperparamsState``,
-``ScaleByAdamState``, ...): a plain ``pickle.load`` would import jax and
-optax.  ``_Unpickler`` resolves only the numpy globals an array needs and
-maps every jax/optax global to an inert stub.  That optimizer state is
-then dropped (the port does not read optax state, ROADMAP A.4), and
-``optax_state_dropped`` says that there was one.  ``load_pytree`` reads
-the Fisher / anchor-parameter pickles (``fisher_sevenn.pt``,
-``opt_params_sevenn.pt``: nested dicts of numpy arrays) through the same
-unpickler.
+``ScaleByAdamState``, ``MaskedState``, ...): a plain ``pickle.load`` would
+import jax and optax.  ``_Unpickler`` resolves only the numpy globals an
+array needs and turns every jax/optax/chex class into an ``OptaxState``,
+a tuple that keeps the positional fields pickle rebuilds it from and the
+class's name; ``train/optim.optax_state_dict`` translates that tree into
+the port's optimizer state (``Trainer.load_optimizer_state``).
+``load_pytree`` reads the Fisher / anchor-parameter pickles
+(``fisher_sevenn.pt``, ``opt_params_sevenn.pt``: nested dicts of numpy
+arrays) through the same unpickler.
 """
 
 from __future__ import annotations
 
+import functools
 import importlib
 import pickle
 from typing import Dict, Optional, Tuple
@@ -43,33 +47,72 @@ FORMAT = 'sevennet_finetuning_tpu_torch'
 
 _STUB_ROOTS = ('optax', 'jax', 'jaxlib', 'chex')
 # the numpy globals a pickled array needs; nothing else is resolved
-_NUMPY_NAMES = ('dtype', 'ndarray', '_reconstruct', 'scalar')
+_NUMPY_NAMES = ('dtype', 'ndarray', '_reconstruct', 'scalar', '_frombuffer')
+
+# the fields read by name of the optax NamedTuples the JAX package's
+# optimizers write (optax.inject_hyperparams over optax.masked chains of
+# adam, adamw, sgd, adagrad or radam); MaskedState, MaskedNode and
+# EmptyState are kept as their positional fields
+OPTAX_FIELDS = {
+    'InjectStatefulHyperparamsState': ('count', 'hyperparams',
+                                       'hyperparams_states', 'inner_state'),
+    'ScaleByAdamState': ('count', 'mu', 'nu'),
+    'TraceState': ('trace',),
+    'ScaleByRssState': ('sum_of_squares',),
+}
 
 
-class _Stub:
-    """Inert stand-in for a jax/optax class in a pickled optimizer state."""
+class OptaxState(tuple):
+    """A jax/optax class of a pickled optimizer state: the positional
+    fields pickle rebuilds it from, readable by name (``field``) where the
+    class is one of ``OPTAX_FIELDS``."""
 
-    def __init__(self, *args, **kwargs):
-        pass
+    optax_name = ''
+
+    def __new__(cls, *fields):
+        return super().__new__(cls, fields)
 
     def __setstate__(self, state):
         pass
 
+    def field(self, name: str):
+        names = OPTAX_FIELDS.get(self.optax_name, ())
+        if name not in names or names.index(name) >= len(self):
+            raise ValueError(f'{self.optax_name} has no field {name!r}')
+        return self[names.index(name)]
+
+    def __repr__(self):
+        return f'{self.optax_name}{tuple.__repr__(self)}'
+
+
+@functools.lru_cache(maxsize=None)
+def _optax_class(name: str) -> type:
+    return type(name, (OptaxState,), {'optax_name': name})
+
+
+def numpy_global(module: str, name: str):
+    """A numpy global of ``_NUMPY_NAMES`` (None for any other)."""
+    if module.split('.')[0] != 'numpy' or name not in _NUMPY_NAMES:
+        return None
+    try:
+        mod = importlib.import_module(module)
+    except ImportError:
+        # pickles written under numpy 2 name numpy._core, which numpy 1
+        # spells numpy.core (and the other way round)
+        alt = (module.replace('numpy._core', 'numpy.core')
+               if '_core' in module
+               else module.replace('numpy.core', 'numpy._core'))
+        mod = importlib.import_module(alt)
+    return getattr(mod, name)
+
 
 class _Unpickler(pickle.Unpickler):
     def find_class(self, module, name):
-        root = module.split('.')[0]
-        if root in _STUB_ROOTS:
-            return type(name, (_Stub,), {})
-        if root == 'numpy' and name in _NUMPY_NAMES:
-            try:
-                mod = importlib.import_module(module)
-            except ImportError:
-                # pickles written under numpy 2 name numpy._core, which
-                # numpy 1 spells numpy.core
-                mod = importlib.import_module(
-                    module.replace('numpy._core', 'numpy.core'))
-            return getattr(mod, name)
+        if module.split('.')[0] in _STUB_ROOTS:
+            return _optax_class(name)
+        fn = numpy_global(module, name)
+        if fn is not None:
+            return fn
         raise pickle.UnpicklingError(
             f'checkpoint references {module}.{name}, which is not loaded')
 
@@ -115,10 +158,13 @@ def save_checkpoint(path: str, params, config: Dict, epoch: int = 0,
 
 
 def load_checkpoint(path: str) -> dict:
-    """Load a pickle checkpoint of this package or of the JAX package.
-    The port's own optimizer state comes back as a ``torch.optim`` state
-    dict; a JAX checkpoint's optax state is dropped
-    (``optax_state_dropped``)."""
+    """Load a checkpoint: a pickle of this package or of the JAX package,
+    the npz deploy artifact, or a reference torch ``.pth`` (through
+    ``compat/state_dict_import``).  The port's own optimizer state comes
+    back as a ``torch.optim`` state dict, a JAX checkpoint's as its
+    optax tree of ``OptaxState`` (``Trainer.load_optimizer_state`` reads
+    both); a reference ``.pth``'s torch optimizer state is dropped, as in
+    the JAX package."""
     with open(path, 'rb') as f:
         magic = f.read(2)
     if magic == b'PK':
@@ -127,27 +173,26 @@ def load_checkpoint(path: str) -> dict:
 
         with zipfile.ZipFile(path) as zf:
             is_deployed = '__format__.npy' in zf.namelist()
-        if not is_deployed:
-            raise NotImplementedError(
-                f'{path}: reference torch .pth checkpoints need '
-                'compat/state_dict_import, not ported yet: ROADMAP A.10')
-        params, config = load_deployed(path)
+        if is_deployed:
+            params, config = load_deployed(path)
+            epoch = 0
+        else:
+            from ..compat.state_dict_import import (
+                import_reference_checkpoint)
+
+            _, params, config, epoch = import_reference_checkpoint(path)
         return {
             'model_state_dict': params,
             'config': config,
-            'epoch': 0,
+            'epoch': epoch,
             'optimizer_state_dict': None,
             'scheduler_state_dict': None,
         }
     with open(path, 'rb') as f:
         blob = _Unpickler(f).load()
     state = blob.get('optimizer_state_dict')
-    if blob.get('format') == FORMAT:
-        blob['optimizer_state_dict'] = (None if state is None
-                                        else _to_torch(state))
-    else:
-        blob['optimizer_state_dict'] = None
-        blob['optax_state_dropped'] = state is not None
+    if blob.get('format') == FORMAT and state is not None:
+        blob['optimizer_state_dict'] = _to_torch(state)
     return blob
 
 

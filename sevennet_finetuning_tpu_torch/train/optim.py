@@ -16,6 +16,13 @@ in the JAX package.
   square root, ``optax.radam`` rectifies from rho >= 5 (torch: > 5) with
   rho computed in float32, and optax's sgd trace is g + momentum * trace
   from a zero trace.
+
+``optax_state_dict`` translates a JAX checkpoint's optax state (read by
+``train/checkpoint.py`` without optax) into the state dict of the
+optimizer built here, so a ``continue`` keeps the moments: adam's ``mu``
+/ ``nu`` and shared ``count`` become ``torch.optim.Adam``'s ``exp_avg`` /
+``exp_avg_sq`` / ``step``, and the other rules take their optax state's
+arrays under the same names.
 """
 
 from __future__ import annotations
@@ -353,3 +360,87 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
     """Write the controller's LR into every param group."""
     for group in optimizer.param_groups:
         group['lr'] = lr
+
+
+# the optax state holding each rule's arrays: (class, {field: state key})
+_OPTAX_SOURCE = {
+    'adam': ('ScaleByAdamState', {'mu': 'exp_avg', 'nu': 'exp_avg_sq'}),
+    'adamw': ('ScaleByAdamState', {'mu': 'mu', 'nu': 'nu'}),
+    'radam': ('ScaleByAdamState', {'mu': 'mu', 'nu': 'nu'}),
+    'sgd': ('TraceState', {'trace': 'trace'}),
+    'adagrad': ('ScaleByRssState', {'sum_of_squares': 'sum_of_squares'}),
+}
+
+
+def _optax_find(state, name: str):
+    """The first optax state of class ``name`` in a nested optax state
+    (chains are tuples, wrappers hold theirs in ``inner_state``)."""
+    from .checkpoint import OptaxState
+
+    if isinstance(state, OptaxState) and state.optax_name == name:
+        return state
+    if isinstance(state, tuple):
+        for sub in state:
+            hit = _optax_find(sub, name)
+            if hit is not None:
+                return hit
+    return None
+
+
+def optax_state_dict(optimizer: torch.optim.Optimizer,
+                     params: Dict[str, Dict[str, torch.nn.Parameter]],
+                     state) -> Dict:
+    """The state dict of ``optimizer`` (built by ``build_optimizer`` over
+    ``params``) that continues the JAX package's optax ``state``: each
+    trainable leaf's arrays by its group and name, the step from the
+    optax count (adam's own, else the ``inject_hyperparams`` count), and
+    the LR the optax state holds (the JAX package's first epoch of a
+    continue runs at it).  Raises ``ValueError`` where the state does
+    not fit this optimizer (another rule, mask or shape)."""
+    rule = 'adam' if isinstance(optimizer, torch.optim.Adam) \
+        else getattr(optimizer, 'rule', None)
+    if rule not in _OPTAX_SOURCE:
+        raise ValueError(f'no optax translation for {type(optimizer)}')
+    cls, fields = _OPTAX_SOURCE[rule]
+    src = _optax_find(state, cls)
+    outer = _optax_find(state, 'InjectStatefulHyperparamsState')
+    if src is None or outer is None:
+        raise ValueError(f'the optax state holds no {cls} under '
+                         f'inject_hyperparams ({rule} needs one)')
+    count = int(np.asarray((src if cls == 'ScaleByAdamState'
+                            else outer).field('count')))
+    names = {id(p): (g, n) for g, leaves in params.items()
+             for n, p in leaves.items()}
+    leaves = [p for group in optimizer.param_groups for p in group['params']]
+    trees = {f: src.field(f) for f in fields}
+    for f, tree in trees.items():
+        if not isinstance(tree, dict) or not all(
+                isinstance(sub, dict) for sub in tree.values()):
+            raise ValueError(f'optax {cls}.{f} is not a parameter tree')
+        n_arrays = sum(isinstance(v, np.ndarray) for sub in tree.values()
+                       for v in sub.values())
+        if n_arrays != len(leaves):
+            raise ValueError(f'optax {cls}.{f} holds {n_arrays} arrays, the '
+                             f'optimizer {len(leaves)} trainable leaves')
+    out = {}
+    for i, p in enumerate(leaves):
+        g, n = names[id(p)]
+        entry = {'step': (torch.tensor(float(count)) if rule == 'adam'
+                          else count)}
+        for f, key in fields.items():
+            arr = trees[f].get(g, {}).get(n)
+            if not isinstance(arr, np.ndarray) or arr.shape != tuple(
+                    p.shape):
+                raise ValueError(f'optax {cls}.{f} of {g}/{n}: '
+                                 f'{getattr(arr, "shape", arr)}, the '
+                                 f'parameter {tuple(p.shape)}')
+            entry[key] = torch.tensor(np.array(arr, np.float32))
+        out[i] = entry
+    sd = optimizer.state_dict()
+    sd['state'] = out
+    hyper = outer.field('hyperparams')
+    lr = hyper.get('learning_rate') if isinstance(hyper, dict) else None
+    if lr is not None:
+        for group in sd['param_groups']:
+            group['lr'] = float(np.asarray(lr))
+    return sd

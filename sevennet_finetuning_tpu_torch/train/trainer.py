@@ -39,7 +39,7 @@ from .metrics import (
     metric_specs_from_config,
     update_accumulators,
 )
-from .optim import build_optimizer, set_lr
+from .optim import build_optimizer, optax_state_dict, set_lr
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
 
@@ -224,15 +224,23 @@ class Trainer:
             'scheduler_state_dict': self.lr_controller.state_dict(),
         }
 
+    def load_optimizer_state(self, state):
+        """``state``: a state dict of this port's optimizer, or the optax
+        state of a JAX checkpoint (``load_checkpoint`` keeps it as a tree
+        of ``OptaxState``), translated by ``optim.optax_state_dict``.
+        Raises ``ValueError`` where it does not fit this optimizer."""
+        if not (isinstance(state, dict) and 'param_groups' in state):
+            state = optax_state_dict(self.optimizer, self.params, state)
+        self.optimizer.load_state_dict(state)
+
     def load_state_dicts(self, model_state, optimizer_state=None,
                          scheduler_state=None):
         """``model_state``: a parameter dict of numpy arrays (the port's
-        own checkpoint or the JAX package's); ``optimizer_state``: a
-        state dict of this port's optimizer (JAX optax state is not
-        read)."""
+        own checkpoint or the JAX package's); ``optimizer_state``: what
+        ``load_optimizer_state`` takes."""
         load_jax_params(self.model, model_state)
         if optimizer_state is not None:
-            self.optimizer.load_state_dict(optimizer_state)
+            self.load_optimizer_state(optimizer_state)
         if scheduler_state is not None:
             self.lr_controller.load_state_dict(scheduler_state)
             set_lr(self.optimizer, self.lr_controller.lr)

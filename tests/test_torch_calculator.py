@@ -7,11 +7,13 @@ sums taken in another order over ~4,300 edges and five layers).
 
 ``test_port_imports_no_jax`` serves a structure, runs its graph with the
 edge slots shuffled through ``run_blocks(edges_sorted=False)``, takes
-a reEWC train step, runs the train CLI, ``main get_model``, MD (both
-loops), a D3 calculation, ``main inference`` with D3 and a full-width
-serve of the mace, gaunt and gaunt_gate families on the CPU in a fresh
-interpreter, then checks that neither jax, optax nor the JAX package was
-imported.  ``test_dispersion_matches_md_golden`` holds the port's D3
+a reEWC train step continuing the checkpoint's own optax state, runs
+the train CLI, ``main get_model``, MD (both loops), a D3 calculation,
+``main inference`` with D3, a full-width serve of the mace, gaunt and
+gaunt_gate families, a reference ``.pth`` load, the serial and parallel
+TorchScript exports, the TorchScript importer and a read of a
+JAX-written ``.sevenn_data`` on the CPU in a fresh interpreter, then
+checks that neither jax, optax nor the JAX package was imported.  ``test_dispersion_matches_md_golden`` holds the port's D3
 terms against the MD golden file.
 
 The golden file (energies, forces and stress for every structure of
@@ -88,7 +90,19 @@ def test_golden_file_matches_jax(jax_two):
         assert _rel(gold['stress'][i], want['stress']) <= 1e-5
 
 
-def test_port_imports_no_jax():
+def test_port_imports_no_jax(tmp_path):
+    # a .sevenn_data written by the JAX package (it pickles the JAX
+    # package's Structure class), which the port reads without importing
+    # that package
+    from sevennet_finetuning_tpu.data.dataset import (
+        GraphDataset, save_sevenn_data)
+    from sevennet_finetuning_tpu.data.readers import read_extxyz as j_read
+
+    jax_sevenn_data = tmp_path / 'jax.sevenn_data'
+    structs = j_read(str(FT))
+    save_sevenn_data(str(jax_sevenn_data), GraphDataset.from_structures(
+        structs, 4.0, {8: 0, 72: 1}), 4.0, {8: 0, 72: 1},
+        structures=structs)
     code = (
         'import sys\n'
         'from sevennet_finetuning_tpu_torch.calculator import Calculator\n'
@@ -120,13 +134,19 @@ def test_port_imports_no_jax():
         'from sevennet_finetuning_tpu_torch.data.dataset import '
         'GraphDataset, Loader\n'
         'from sevennet_finetuning_tpu_torch.train.checkpoint import '
-        'load_pytree, model_from_checkpoint\n'
+        'load_checkpoint, load_pytree, model_from_checkpoint\n'
         'from sevennet_finetuning_tpu_torch.train.trainer import Trainer\n'
         f'model, cfg = model_from_checkpoint({str(CKPT)!r}, device="cpu")\n'
         'cfg["continue"] = {"fisher_information": "f", "opt_params": "o", '
         '"ewc_lambda": 1e5}\n'
         f'tr = Trainer(model, cfg, fisher=load_pytree({str(FISHER)!r}), '
         f'opt_params=load_pytree({str(OPT_PARAMS)!r}), device="cpu")\n'
+        # a continue without reset: the checkpoint's own adam state
+        f'cb = load_checkpoint({str(CKPT)!r})\n'
+        'tr.load_state_dicts(cb["model_state_dict"], '
+        'cb["optimizer_state_dict"], cb["scheduler_state_dict"])\n'
+        'assert float(tr.optimizer.state_dict()["state"][0]["step"]) == '
+        '69660\n'
         'ds = GraphDataset.from_structures([s], 5.0, dict(model.spec.type_map))\n'
         'm = tr.run_one_epoch(Loader(ds, 1), is_train=True)\n'
         'assert m["TotalLoss_None"] > 0, m\n'
@@ -203,6 +223,38 @@ def test_port_imports_no_jax():
         '.calculate(s)\n'
         '    want = float(fam[name + "/energy"][4])\n'
         '    assert abs(fr["energy"] - want) <= 2e-6 * abs(want), name\n'
+        # checkpoint and deploy interop: a reference .pth, the serial and
+        # parallel TorchScript exports, the TorchScript importer, a
+        # JAX-written .sevenn_data
+        'from sevennet_finetuning_tpu_torch.compat.state_dict_import import '
+        '(\n    state_dict_from_params)\n'
+        'from sevennet_finetuning_tpu_torch.compat.torchscript_export import '
+        'export_serial\n'
+        'from sevennet_finetuning_tpu_torch.compat.torchscript_export_parallel'
+        ' import export_parallel\n'
+        'from sevennet_finetuning_tpu_torch.compat.torchscript_import import '
+        'import_deployed_serial\n'
+        'from sevennet_finetuning_tpu_torch.data.dataset import '
+        'load_sevenn_data, sevenn_data_structures\n'
+        'small = load_checkpoint(str(tmp / "out" / "checkpoint_1.pth"))\n'
+        'ss = build_model_spec(small["config"])\n'
+        'sd = state_dict_from_params(ss, small["model_state_dict"])\n'
+        'torch.save({"model_state_dict": {k: torch.from_numpy(v) for k, v '
+        'in sd.items()}, "config": small["config"], "epoch": 1},\n'
+        '           str(tmp / "ref.pth"))\n'
+        'rb = load_checkpoint(str(tmp / "ref.pth"))\n'
+        'ref_calc = Calculator.from_checkpoint(str(tmp / "ref.pth"), '
+        'device="cpu")\n'
+        'ts = export_serial(ss, rb["model_state_dict"], str(tmp / "ts"))\n'
+        'segs = export_parallel(ss, rb["model_state_dict"], str(tmp / "par"))\n'
+        'assert len(segs) == 2 and torch.jit.load(ts) is not None\n'
+        'try:\n'
+        '    import_deployed_serial(ts)\n'
+        'except RuntimeError as e:\n'
+        '    assert "weight import incomplete" in str(e)\n'
+        f'jd = load_sevenn_data({str(jax_sevenn_data)!r})\n'
+        f'assert len(jd) == 5 and len(sevenn_data_structures('
+        f'{str(jax_sevenn_data)!r})) == 5\n'
         'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
         '("jax", "jaxlib", "optax") or m.split(".")[0] == '
         '"sevennet_finetuning_tpu")\n'
@@ -240,7 +292,9 @@ def test_dispersion_matches_md_golden():
         load_checkpoint)
 
     blob = load_checkpoint(str(CKPT))
-    assert blob['optimizer_state_dict'] is None
+    # the JAX checkpoint's optax state, kept without optax
+    assert blob['optimizer_state_dict'].optax_name == \
+        'InjectStatefulHyperparamsState'
     spec = build_model_spec(blob['config'])
     calc = Calculator(spec, blob['model_state_dict'], device='cpu',
                       d3={'functional': 'pbe', 'damping': 'bj'})

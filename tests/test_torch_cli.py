@@ -219,15 +219,36 @@ def test_preset_prints_the_port_copy(capsys):
 
 
 @pytest.mark.parametrize('argv,item', [
-    (['get_model', str(CKPT), '--torchscript'], 'A.10'),
-    (['graph_build', 'structure_list', '4.0'], 'A.10'),
     (['train', 'input.yaml', '-d'], 'A.8'),
 ])
 def test_unported_subcommands_raise(argv, item):
-    """What stays unported (get_model and inference are ported:
-    test_torch_serving.py holds them against the JAX CLI)."""
+    """What stays unported (get_model, with --torchscript too, inference
+    and graph_build are ported: test_torch_serving.py,
+    test_torch_compat.py and test_torch_sevenn_data.py hold them against
+    the JAX CLI)."""
     with pytest.raises(NotImplementedError, match=item.replace('.', r'\.')):
         cli(argv)
+
+
+@pytest.mark.parametrize('sub', ['get_model_torchscript', 'graph_build'])
+def test_torchscript_and_graph_build_subcommands_run(tmp_path, sub):
+    """``get_model --torchscript`` and ``graph_build`` write their
+    artifacts: a TorchScript with pair_e3gnn's metadata from the in-repo
+    SevenNet-0 checkpoint, and a .sevenn_data that loads back."""
+    if sub == 'graph_build':
+        from sevennet_finetuning_tpu_torch.data.dataset import (
+            load_sevenn_data)
+
+        out = tmp_path / 'ft.sevenn_data'
+        cli(['graph_build', str(FT), '5.0', '-o', str(out)])
+        assert len(load_sevenn_data(str(out))) == 5
+        return
+    cli(['get_model', str(CKPT), '--torchscript', '-o',
+         str(tmp_path / 'deployed_serial.sevenn')])
+    extra = {'num_species': '', 'cutoff': '', 'model_type': ''}
+    torch.jit.load(str(tmp_path / 'deployed_serial.pt'), _extra_files=extra)
+    assert extra == {'num_species': b'89', 'cutoff': b'5.0',
+                     'model_type': b'E3_equivariant_model'}
 
 
 def test_train_needs_cuda_unless_asked(tmp_path, monkeypatch):

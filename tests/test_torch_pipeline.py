@@ -15,11 +15,13 @@
 - every reader of ``_read_file`` (OUTCAR, POSCAR, structure_list, pickled
   and ase-read Atoms) reads synthetic files as JAX's does;
 - each branch that is not ported raises ``NotImplementedError`` naming
-  its ROADMAP item.
+  its ROADMAP item (A.8, A.3); the ``.sevenn_data`` options and a
+  continue of a JAX checkpoint's optax state run.
 """
 
 import argparse
 import csv
+import warnings
 from pathlib import Path
 
 import jax
@@ -529,18 +531,62 @@ def test_readers_match_jax(tmp_path, monkeypatch, name, fmt):
 @pytest.mark.parametrize('override,item', [
     ({K.IS_DDP: True}, 'A.8'),
     ({K.REMAT: True}, 'A.3'),
-    ({K.SAVE_DATASET: 'total'}, 'A.10'),
-    ({K.LOAD_DATASET: ['graphs.sevenn_data']}, 'A.10'),
-    # a JAX checkpoint's optax state, continued without a reset
-    ({K.CONTINUE: {K.CHECKPOINT: str(CKPT)}, K.NODE_FEATURE_MULTIPLICITY: 32,
-      K.LMAX: 1, K.CUTOFF: 5.0, K.NUM_CONVOLUTION: 3,
-      K.TRAIN_DENOMINATOR: True, K.TRAIN_SHIFT_SCALE: True}, 'A.4'),
 ])
 def test_unported_train_options_raise(tmp_path, override, item):
     cfg = global_config(*read_config_yaml(_yaml(tmp_path / 'in.yaml')))
     cfg.update(override)
     with pytest.raises(NotImplementedError, match=item.replace('.', r'\.')):
         pipeline.train(cfg, str(tmp_path / 'out'), device='cpu')
+
+
+@pytest.mark.parametrize('case', ['save_dataset', 'load_sevenn_data',
+                                  'optax_continue'])
+def test_sevenn_data_and_optax_continue_train(tmp_path, case):
+    """The train options that once raised run: ``save_dataset_path``
+    writes the set, a ``.sevenn_data`` path trains, and a JAX
+    checkpoint's optax state is continued without a reset (an adam state
+    made by JAX's own optimizer over the narrow parameters)."""
+    cfg = global_config(*read_config_yaml(_yaml(tmp_path / 'in.yaml')))
+    if case == 'save_dataset':
+        cfg[K.SAVE_DATASET] = str(tmp_path / 'total')
+        pipeline.train(cfg, str(tmp_path / 'out'), device='cpu')
+        assert len(dataset.load_sevenn_data(
+            str(tmp_path / 'total.sevenn_data'))) == 5
+        return
+    if case == 'load_sevenn_data':
+        art = tmp_path / 'ft.sevenn_data'
+        cli(['graph_build', str(FT), '4.0', '-o', str(art)])
+        cfg[K.LOAD_DATASET] = [str(art)]
+        trainer = pipeline.train(cfg, str(tmp_path / 'out'), device='cpu')
+        assert trainer.spec.num_species == 2
+        assert (tmp_path / 'out' / 'log.csv').exists()
+        return
+    from sevennet_finetuning_tpu.train.checkpoint import (
+        save_checkpoint as j_save)
+
+    narrow = {**NARROW, K.TRAIN_SHIFT_SCALE: True,
+              K.TRAIN_DENOMINATOR: True}
+    params = j_init(j_build(narrow), 1)
+    mask = jax.tree_util.tree_map(lambda _: True, params)
+    with jax.enable_x64(False):
+        tx, _ = j_optim.build_optimizer({K.OPTIMIZER: 'adam'}, mask)
+        state = tx.init(params)
+        grads = jax.tree_util.tree_map(jnp.ones_like, params)
+        _, state = tx.update(grads, state, params)
+    ckpt = tmp_path / 'jax.pth'
+    j_save(str(ckpt), params, narrow, 7, optimizer_state=state,
+           scheduler_state={'epoch': 7, 'lr': 1e-3})
+    cfg[K.CONTINUE] = {K.CHECKPOINT: str(ckpt)}
+    cfg.update({K.TRAIN_SHIFT_SCALE: True, K.TRAIN_DENOMINATOR: True,
+                K.EPOCH: 8})
+    with warnings.catch_warnings():
+        warnings.simplefilter('error', UserWarning)   # state restored
+        trainer = pipeline.train(cfg, str(tmp_path / 'out'), device='cpu')
+    steps = {float(s['step'])
+             for s in trainer.optimizer.state_dict()['state'].values()}
+    assert steps == {1.0 + 2}       # JAX's count 1, two train batches
+    assert 'optimizer state not restored' not in (
+        tmp_path / 'out' / 'log.sevenn').read_text()
 
 
 def test_unported_model_options_raise():
@@ -589,9 +635,24 @@ def test_pretrained_name_needs_its_directory(monkeypatch, tmp_path):
     monkeypatch.setenv('SEVENN_PRETRAINED_DIR', str(tmp_path))
     path = pretrained_name_to_path('7net-0')
     assert path == str(tmp_path / 'checkpoint_sevennet_0.pth')
-    # the port reads the deploy npz but not a torch archive
+    # the release checkpoint loads (here a reference training .pth of
+    # narrow weights), as the JAX package's load_checkpoint reads it
+    from sevennet_finetuning_tpu.train.checkpoint import (
+        load_checkpoint as j_load_checkpoint)
+    from sevennet_finetuning_tpu_torch.compat.state_dict_import import (
+        state_dict_from_params)
     from sevennet_finetuning_tpu_torch.train.checkpoint import (
         load_checkpoint)
 
-    with pytest.raises(NotImplementedError, match=r'A\.10'):
-        load_checkpoint(path)
+    params = init_params(build_model_spec(NARROW), 3)
+    sd = state_dict_from_params(build_model_spec(NARROW), params)
+    torch.save({'model_state_dict': {k: torch.from_numpy(v)
+                                     for k, v in sd.items()},
+                'config': NARROW, 'epoch': 9}, path)
+    blob, want = load_checkpoint(path), j_load_checkpoint(path)
+    assert blob['epoch'] == want['epoch'] == 9
+    assert blob['config'] == want['config']
+    for g, names in params.items():
+        for n, v in names.items():
+            assert np.array_equal(blob['model_state_dict'][g][n], v)
+            assert np.array_equal(want['model_state_dict'][g][n], v)

@@ -20,9 +20,9 @@
   narrow model's forces are ~2e-3 eV/A and its stress ~2e-3 kbar,
   float32 residues of cancelling terms; errors.txt within its printed
   digits);
-- what stays unported raises ``NotImplementedError`` with its ROADMAP
-  item (a reference torch ``.pth``, ``from_deployed_torchscript``, the
-  ASE adapter).
+- a reference torch ``.pth`` through ``load_checkpoint``,
+  ``Calculator.from_checkpoint``, ``main get_model -ts`` and the ASE
+  adapter (``tests/test_torch_compat.py`` holds them against JAX).
 
 The JAX side runs under ``jax.enable_x64(False)`` where it computes.
 """
@@ -376,28 +376,84 @@ def test_inference_runs_on_cuda_unless_asked(narrow_ckpt, tmp_path,
              str(tmp_path / 'out')])
 
 
-# --- what stays unported -----------------------------------------------------
+# --- reference artifacts through the serving entry points ---------------------
 
-def test_unported_serving_options_raise(narrow_ckpt, tmp_path):
-    import zipfile
+def test_serving_entry_points_take_reference_artifacts(narrow_ckpt, tmp_path,
+                                                       monkeypatch):
+    """A reference training ``.pth`` of the narrow checkpoint's weights
+    through ``load_checkpoint`` and ``Calculator.from_checkpoint`` (the
+    pickle checkpoint's results, bit for bit), ``main get_model -ts``
+    (a TorchScript giving the calculator's energy within 1e-6 and forces
+    within 1e-5 of max) and ``SevenNetASECalculator`` from a path (a stub
+    ``ase`` module)."""
+    import sys
+    import types
 
+    from sevennet_finetuning_tpu_torch import keys as K
     from sevennet_finetuning_tpu_torch.calculator import (
         Calculator, SevenNetASECalculator)
+    from sevennet_finetuning_tpu_torch.compat.state_dict_import import (
+        state_dict_from_params)
+    from sevennet_finetuning_tpu_torch.data.readers import read_extxyz
     from sevennet_finetuning_tpu_torch.main import main as cli
+    from sevennet_finetuning_tpu_torch.model.build import build_model_spec
+    from sevennet_finetuning_tpu_torch.model.graph import structure_to_graph
     from sevennet_finetuning_tpu_torch.train.checkpoint import (
         load_checkpoint)
 
+    path, params = narrow_ckpt
+    cfg = _narrow_config()
+    sd = state_dict_from_params(build_model_spec(cfg), params)
     pth = tmp_path / 'reference.pth'
-    with zipfile.ZipFile(pth, 'w') as zf:
-        zf.writestr('archive/data.pkl', b'')
-    with pytest.raises(NotImplementedError, match=r'A\.10'):
-        load_checkpoint(str(pth))
-    with pytest.raises(NotImplementedError, match=r'A\.10'):
-        Calculator.from_checkpoint(str(pth), device='cpu')
-    with pytest.raises(NotImplementedError, match=r'A\.10'):
-        Calculator.from_deployed_torchscript(str(pth), device='cpu')
-    with pytest.raises(NotImplementedError, match=r'A\.10'):
-        cli(['get_model', str(narrow_ckpt[0]), '-ts', '-o',
-             str(tmp_path / 'x.sevenn')])
-    with pytest.raises(NotImplementedError, match=r'A\.6'):
-        SevenNetASECalculator(str(narrow_ckpt[0]))
+    torch.save({'model_state_dict': {k: torch.from_numpy(v)
+                                     for k, v in sd.items()},
+                'config': cfg, 'epoch': 3}, str(pth))
+    blob = load_checkpoint(str(pth))
+    _same_tree(blob['model_state_dict'], params)
+    assert blob['epoch'] == 3
+    s = read_extxyz(str(FT))[4]
+    want = Calculator.from_checkpoint(str(path), device='cpu').calculate(s)
+    got = Calculator.from_checkpoint(str(pth), device='cpu').calculate(s)
+    for key in ('energy', 'forces', 'stress', 'energies'):
+        assert np.array_equal(got[key], want[key]), key
+
+    cli(['get_model', str(pth), '-ts', '-o', str(tmp_path / 'x.sevenn')])
+    ts = torch.jit.load(str(tmp_path / 'x.pt'))
+    g = structure_to_graph(s, cfg[K.CUTOFF], cfg[K.TYPE_MAP])
+    pos = torch.tensor(s.pos, dtype=torch.float32, requires_grad=True)
+    out = ts({'x': torch.tensor(g[K.ATOM_TYPE], dtype=torch.long),
+              'pos': pos,
+              'edge_index': torch.tensor(g[K.EDGE_IDX], dtype=torch.long),
+              'pbc_shift': torch.tensor(g[K.CELL_SHIFT]),
+              'cell_lattice_vectors': torch.tensor(s.cell,
+                                                   dtype=torch.float32),
+              'cell_volume': torch.tensor(float(s.volume)),
+              'num_atoms': torch.tensor(len(s))})
+    e = float(out['inferred_total_energy'])
+    assert abs(e - want['energy']) <= 1e-6 * abs(want['energy'])
+    f = out['inferred_force'].detach().numpy()
+    assert np.abs(f - want['forces']).max() <= 1e-5 * np.abs(
+        want['forces']).max()
+
+    class AseBase:
+        def __init__(self, **kwargs):
+            self.results = {}
+
+        def calculate(self, atoms=None, properties=('energy',),
+                      system_changes=None):
+            pass
+
+    mod = types.ModuleType('ase.calculators.calculator')
+    mod.Calculator = AseBase
+    for name, m in (('ase', types.ModuleType('ase')),
+                    ('ase.calculators', types.ModuleType('ase.calculators')),
+                    ('ase.calculators.calculator', mod)):
+        monkeypatch.setitem(sys.modules, name, m)
+    atoms = types.SimpleNamespace(
+        get_chemical_symbols=lambda: list(s.species),
+        get_positions=lambda: s.pos, get_cell=lambda: s.cell,
+        get_pbc=lambda: s.pbc)
+    ase_calc = SevenNetASECalculator(str(pth), device='cpu')
+    ase_calc.calculate(atoms)
+    assert ase_calc.results['energy'] == want['energy']
+    assert np.array_equal(ase_calc.results['forces'], want['forces'])
