@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives ``sevennet_finetuning_tpu_torch`` (never JAX) through twelve
+Drives ``sevennet_finetuning_tpu_torch`` (never JAX) through fourteen
 phases and exits non-zero if any fails:
 
 1. build   -- compile every CUDA source of ``csrc/`` (one nvcc each, in
@@ -187,10 +187,47 @@ phases and exits non-zero if any fails:
               golden's), and from a reset optimizer, which must miss the
               second step's limit.  The phase's launches are asserted
               (agg 135, multi 215, gagg 80, gmulti 80, segment-sum >= 248).
+13. ddp     -- data-parallel training through ``main train -d`` on the
+              pipeline phase's reEWC fine-tune stage (its Fisher
+              artifacts): (a) a world of one rank over NCCL, whose
+              log.csv must equal the pipeline phase's single-process one
+              bit for bit and whose launches that stage's; (b) two gloo
+              ranks sharing the card (``chip_smoke.py --rank ddp``) at
+              batch 2 and memory batch 2 each, rank 0's log.csv against
+              JAX's own 2-shard run, ``golden/pipeline_ft_dp2_jax_cpu.npz``
+              (epoch 1's train metrics within 1e-4, later values within
+              5e-2, each plus the serving floor), and against
+              ``golden/pipeline_ft_jax_cpu.npz`` (later values within 0.5:
+              each rank's loss is its shard's mean), both ranks' final
+              parameters bit-equal,
+              each rank launching the stage's census.  Prints the wall
+              times.
+14. halo    -- halo-parallel inference and MD in two gloo ranks sharing
+              the card (``chip_smoke.py --rank halo``), native neighbor
+              lists: SevenNet-0 (the in-repo checkpoint) on ft900
+              structure 0 replicated 2x2x2 (768 atoms), each rank's
+              forward first with every distinct kernel shape held against
+              its plain version, then counted (agg 10 and multi 10: two
+              edge partitions of five blocks; segment sums) and timed,
+              against the serial Calculator on the card (energy rel 2e-6,
+              forces and stress 1e-4 of max); ``run_device_halo`` on 96
+              atoms from the md golden's start (20 steps, segments of 10)
+              against ``golden/md_hfo2_jax_cpu.npz`` (the md phase's
+              limits, the same steps per segment) in each rank.  Prints
+              ms per MD step and the halo transport's share of it (the
+              host staging of gloo's P2P and the wait for the peer).
 
 Before the last line it prints the card's name and power limit and a
 JSON line with every kernel's numbers; the last line is
 ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --cards N
+
+on a host with N >= 2 cards runs the parallel paths over NCCL, a card a
+rank: the pipeline phase (for its Fisher artifacts), the ddp phase's (b)
+in two ranks (the same checks as over gloo), then the halo phase in two
+ranks and, with four cards, in four (a 2-D brick); its last line is
+``{"ok": true, "cards": N, ...}``.
 
     python3 chip_smoke.py --f64-reference
 
@@ -204,6 +241,7 @@ import contextlib
 import itertools
 import json
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -286,6 +324,8 @@ PATH_KERNELS = {
     'families': ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg',
                  'cg_gmulti'),
     'compat': ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg', 'cg_gmulti'),
+    'ddp': ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg', 'cg_gmulti'),
+    'halo': ('segment_sum', 'cg_agg', 'cg_multi'),
 }
 # the path whose count a kernel's "launches" reports: the train step for
 # the kernels of the sorted convolution, the unsorted pass for cg_quad
@@ -478,6 +518,33 @@ TS_FROZEN_CONFIG = {
     'cutoff_function': {'cutoff_function_name': 'XPLOR', 'cutoff_on': 4.5},
     '_normalize_sph': False, 'self_connection_type': 'nequip',
     'conv_denominator': 1.0, 'shift': 0.0, 'scale': 1.0}
+
+# the ddp phase (data-parallel training; PERF.md section 4): (a) world
+# size 1 over NCCL through ``main train -d``, its log.csv bit for bit the
+# pipeline phase's single-process fine-tune; (b) two gloo ranks sharing
+# the card at batch 2 and memory batch 2 each (the global batches of the
+# golden's batch 4).  Each rank's loss is the mean over its own shard
+# (JAX's data-parallel mean), and ft.extxyz's structures differ in size
+# (12 to 96 atoms), so (b) takes other steps than a batch of 4: rank 0's
+# log.csv is held against JAX's own 2-shard run of the stage at the
+# single-process limits (PIPELINE_*_TOL), and against the single-process
+# golden at DDP_GOLDEN_LATER_TOL after epoch 1's train metrics (the
+# starting parameters, 1e-4): the port's two gloo ranks on the CPU (torch
+# 2.13, ``main train -d --device cpu``) read up to 0.381 of the golden's
+# value there (the valid energy error of epoch 1, 2.3e-5 eV/atom; the
+# memory loss 0.059-0.070, the shard means), where the single-process
+# run reads 0.048
+GOLDEN_PIPELINE_DP = PKG / 'golden/pipeline_ft_dp2_jax_cpu.npz'
+DDP_GOLDEN_LATER_TOL = 0.5
+RANK_TIMEOUT_S = 600
+# the halo phase (halo-parallel inference and MD): two gloo ranks sharing
+# the card over ft900 structure 0 replicated 2x2x2 (768 atoms) against
+# the serial Calculator (the serving limits), each rank's forward
+# launching agg and multi once per edge partition (local and ghost
+# sources) and block; run_device_halo from the md golden's start
+HALO_ENERGY_TOL = 2e-6
+HALO_FORCE_TOL = 1e-4
+HALO_CENSUS = {'cg_agg': 10, 'cg_multi': 10}
 
 def log(*args):
     print(*args, flush=True)
@@ -1599,9 +1666,11 @@ def _stage_floors(path):
             'Stress': 1e-4 * st * TO_KBAR}
 
 
-def check_csv(path, gold, floors):
+def check_csv(path, gold, floors, later_tol=PIPELINE_LATER_TOL):
     """log.csv of the fine-tune stage against the golden file's, value by
-    value (epoch and lr equal; limits of PIPELINE_*_TOL)."""
+    value (epoch and lr equal; epoch 1's train columns within
+    PIPELINE_EPOCH1_TOL, the rest within ``later_tol``).
+    Returns the worst share of its limit."""
     import csv
 
     with open(path) as f:
@@ -1623,7 +1692,7 @@ def check_csv(path, gold, floors):
                                          f'{want}')
                 continue
             tol = (PIPELINE_EPOCH1_TOL if i == 0 and col.startswith('train_')
-                   else PIPELINE_LATER_TOL)
+                   else later_tol)
             floor = next((v for k, v in floors.items()
                           if col.split('_')[1] == k), 0.0)
             limit = tol * abs(want) + floor
@@ -1636,6 +1705,7 @@ def check_csv(path, gold, floors):
     for col, (share, i, got, want, limit) in sorted(worst.items()):
         log(f'  log.csv {col}: worst at row {i}: {got:.9e} vs JAX '
             f'{want:.9e} ({share:.2f} of the limit {limit:.3e})')
+    return max((w[0] for w in worst.values()), default=0.0)
 
 
 def phase_pipeline(tmp):
@@ -3207,6 +3277,412 @@ def phase_compat(pipeline_dir):
         + ', '.join(f'{k} {v:.1f} s' for k, v in times.items()) + ')')
     return counts
 
+def free_port():
+    import socket
+
+    with socket.socket() as so:
+        so.bind(('localhost', 0))
+        return so.getsockname()[1]
+
+
+def rank_env(rank, world, port, local_rank=0):
+    """The environment torchrun gives rank ``rank`` of ``world`` on card
+    ``local_rank``."""
+    return dict(RANK=str(rank), WORLD_SIZE=str(world),
+                LOCAL_RANK=str(local_rank), MASTER_ADDR='localhost',
+                MASTER_PORT=str(port))
+
+
+@contextlib.contextmanager
+def process_group_env(rank, world):
+    """``rank_env`` in this process's environment, restored after."""
+    env = rank_env(rank, world, free_port())
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_ranks(kind, work, world=2, backend='gloo'):
+    """``world`` processes of ``chip_smoke.py --rank kind work backend``
+    in one process group: under gloo sharing card 0, under NCCL a card
+    each; each must exit 0 within RANK_TIMEOUT_S (all are killed
+    otherwise).  Their output goes to ``work/<kind>_rank<r>.log``;
+    returns the wall seconds."""
+    port = free_port()
+    t0 = time.perf_counter()
+    procs, logs = [], []
+    try:
+        for rank in range(world):
+            path = Path(work) / f'{kind}_rank{rank}.log'
+            logs.append(path)
+            with open(path, 'w') as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     '--rank', kind, str(work), backend], cwd=str(ROOT),
+                    env=dict(os.environ, **rank_env(
+                        rank, world, port,
+                        rank if backend == 'nccl' else 0)),
+                    stdout=out, stderr=subprocess.STDOUT))
+        for p in procs:
+            p.wait(timeout=max(1.0, RANK_TIMEOUT_S
+                               - (time.perf_counter() - t0)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, path) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f'{kind} rank {rank} exit {p.returncode}:'
+                                 f'\n{path.read_text()[-4000:]}')
+    return time.perf_counter() - t0
+
+
+def log_rank_checks(kind, work, world):
+    """The ranks' kernel checks, from their logs into this one."""
+    for r in range(world):
+        for line in (work / f'{kind}_rank{r}.log').read_text().splitlines():
+            if 'kernel shapes checked' in line or 'max_abs_err' in line:
+                log(f'  {line.strip()}')
+
+
+def _flat_params(trainer):
+    return {f'{g}/{n}': p.detach().cpu().numpy()
+            for g, names in trainer.params.items() for n, p in names.items()}
+
+
+def phase_ddp(pipeline_dir):
+    """Data-parallel training through ``main train -d`` on the pipeline
+    phase's reEWC fine-tune stage (its Fisher artifacts, SevenNet-0 at
+    full width): (a) a world of one rank over NCCL against the pipeline
+    phase's single-process run (log.csv bit for bit, the same launches);
+    (b) two gloo ranks sharing the card at batch 2 each against the
+    pipeline golden, both ranks' parameters bit-equal at the end, each
+    rank launching the train-step kernels.  Returns the launch counts of
+    (a)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sevennet_finetuning_tpu_torch.main import main as cli
+    from sevennet_finetuning_tpu_torch.ops import _cuda
+    from sevennet_finetuning_tpu_torch.tools.bench_dma import card_line
+
+    t_phase = time.perf_counter()
+    log(f'[ddp] {card_line()}')
+    gold = np.load(GOLDEN_PIPELINE)
+    work = Path(pipeline_dir)
+    ft_yaml = work / 'ft_input.yaml'
+    # (a) world size 1 over NCCL
+    torch.cuda.synchronize()
+    _cuda.LAUNCHES.clear()
+    with process_group_env(0, 1):
+        try:
+            with KernelCapture(FAMILY_KERNELS) as cap:
+                t0 = time.perf_counter()
+                cli(['train', str(ft_yaml), '-w', str(work / 'ddp1_out'),
+                     '-d'])
+                torch.cuda.synchronize()
+                wall_a = time.perf_counter() - t0
+                cap.check('ddp (a) NCCL, 1 rank')
+            backend = dist.get_backend()
+            world = dist.get_world_size()
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    counts = {k: _cuda.LAUNCHES[k] for k in _cuda.KERNELS}
+    if (backend, world) != ('nccl', 1):
+        raise AssertionError(f'ddp (a) ran on {backend} x {world}')
+    same = ((work / 'ddp1_out' / 'log.csv').read_bytes()
+            == (work / 'ft_out' / 'log.csv').read_bytes())
+    log(f'  (a) NCCL, 1 rank: {wall_a:.3f} s wall (the first launch at '
+        f'each kernel shape kept for its check); log.csv bit-equal to the '
+        f'single-process fine-tune: {same}; launches {counts}; '
+        f'max_abs_err {cap.worst}')
+    if not same:
+        raise AssertionError('ddp (a): log.csv differs from the '
+                             'single-process run')
+    if any(counts[k] != v for k, v in FT_STAGE_CENSUS.items()) or any(
+            counts[k] for k in PROBES):
+        raise AssertionError(f'ddp (a) launches {counts}, expected '
+                             f'{FT_STAGE_CENSUS}')
+    # (b) two gloo ranks at batch 2 each (global batch 4)
+    ddp_ranks(work, gold, 'gloo')
+    log(f'[ddp] phase {time.perf_counter() - t_phase:.1f} s')
+    return counts
+
+
+def ddp_ranks(work, gold, backend):
+    """The ddp phase's (b): two ranks of ``main train -d`` over
+    ``backend`` (gloo: sharing the card; NCCL: a card each) at batch 2
+    and memory batch 2 each on the pipeline phase's fine-tune stage in
+    ``work``: both ranks' parameters bit-equal, each rank the stage's
+    census, rank 0's log.csv against JAX's 2-shard run at the
+    single-process limits and against ``gold`` at DDP_GOLDEN_LATER_TOL
+    after epoch 1."""
+    import numpy as np
+    import yaml
+
+    from sevennet_finetuning_tpu_torch.ops import _cuda
+    from sevennet_finetuning_tpu_torch.train.recipe import pipeline_stages
+
+    _, cfg = pipeline_stages(ROOT, str(work / 'fisher_out'))
+    cfg['data'].update(batch_size=2, mem_batch_size=2)
+    (work / 'ft_dp_input.yaml').write_text(yaml.safe_dump(cfg))
+    wall = run_ranks('ddp', work, backend=backend)
+    log_rank_checks('ddp', work, 2)
+    out = work / f'ddp_{backend}_out'
+    ranks = [np.load(work / f'ddp_rank{r}.npz') for r in range(2)]
+    names = [k for k in ranks[0].files if k.startswith('p/')]
+    differ = [k for k in names if not np.array_equal(ranks[0][k],
+                                                     ranks[1][k])]
+    if differ or set(names) != {k for k in ranks[1].files
+                                if k.startswith('p/')}:
+        raise AssertionError(f'ddp {backend}: the ranks end with other '
+                             f'parameters: {differ[:5]}')
+    for r, got in enumerate(ranks):
+        c = {k: int(got[f'count/{k}']) for k in _cuda.KERNELS}
+        log(f'  {backend} rank {r}: launches {c}; '
+            f'{float(got["wall"]):.3f} s wall in main train -d')
+        if any(c[k] != v for k, v in FT_STAGE_CENSUS.items()):
+            raise AssertionError(f'ddp {backend} rank {r} launches {c}, '
+                                 f'expected {FT_STAGE_CENSUS}')
+    floors = _stage_floors(FT)
+    for k, v in _stage_floors(REPLAY).items():
+        floors[k] = max(floors[k], v)
+    log(f'  {backend}: log.csv against JAX\'s 2-shard run of the stage:')
+    share_dp = check_csv(out / 'log.csv', np.load(GOLDEN_PIPELINE_DP),
+                         floors)
+    log(f'  {backend}: log.csv against the single-process golden:')
+    share = check_csv(out / 'log.csv', gold, floors,
+                      later_tol=DDP_GOLDEN_LATER_TOL)
+    logs = sorted(p.name for p in out.iterdir())
+    log(f'  {backend}, 2 ranks: {wall:.3f} s wall (spawn to exit); '
+        f'{len(names)} parameters bit-equal on both ranks; log.csv at '
+        f'{share_dp:.2f} of the limits against JAX\'s 2-shard run (epoch 1 '
+        f'train {PIPELINE_EPOCH1_TOL:g}, later {PIPELINE_LATER_TOL:g}, + '
+        f'the serving floors), at {share:.2f} against the single-process '
+        f'golden (later {DDP_GOLDEN_LATER_TOL:g}); files {logs}')
+    if logs.count('log.csv') != 1:
+        raise AssertionError(f'ddp {backend} wrote {logs}')
+
+
+def rank_ddp(work, backend):
+    """One rank of ``ddp_ranks``: ``main train -d`` over ``backend``
+    (every distinct kernel shape it launches held against its plain
+    version); its parameters, launches and wall time to
+    ``ddp_rank<r>.npz``."""
+    import numpy as np
+    import torch
+
+    from sevennet_finetuning_tpu_torch.main import main as cli
+    from sevennet_finetuning_tpu_torch.ops import _cuda
+
+    rank = int(os.environ['RANK'])
+    _cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with neighbor_builder('ckdtree'), KernelCapture(FAMILY_KERNELS) as cap:
+        trainer = cli(['train', str(work / 'ft_dp_input.yaml'), '-w',
+                       str(work / f'ddp_{backend}_out'), '-d',
+                       '--dist-backend', backend])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cap.check(f'ddp {backend} rank {rank}')
+    log(f'  ddp {backend} rank {rank} max_abs_err {cap.worst}')
+    out = {f'p/{k}': v for k, v in _flat_params(trainer).items()}
+    out.update({f'count/{k}': _cuda.LAUNCHES[k] for k in _cuda.KERNELS})
+    np.savez(work / f'ddp_rank{rank}.npz', wall=wall, **out)
+
+
+def phase_halo(work, world=2, backend='gloo'):
+    """Halo-parallel inference and MD with SevenNet-0 (the in-repo
+    checkpoint) in ``world`` ranks (gloo: sharing the card; NCCL: a card
+    each): the forward over ft900 structure 0 replicated 2x2x2 against
+    the serial Calculator on the card, each rank's launches,
+    ``run_device_halo`` from the md golden's start against its
+    trajectory.  Native neighbor lists, as the md golden's.  Returns rank
+    0's launch counts of one forward."""
+    import numpy as np
+
+    from sevennet_finetuning_tpu_torch.calculator import Calculator
+    from sevennet_finetuning_tpu_torch.data.readers import read_extxyz
+    from sevennet_finetuning_tpu_torch.data.vasp import replicate
+    from sevennet_finetuning_tpu_torch.ops import _cuda
+    from sevennet_finetuning_tpu_torch.parallel.halo import gather_forces
+    from sevennet_finetuning_tpu_torch.tools.bench_dma import card_line
+
+    t_phase = time.perf_counter()
+    log(f'[halo] {card_line()}; {world} ranks over {backend}')
+    work = Path(work)
+    big = replicate(read_extxyz(str(FT900))[0], 2, 2, 2)
+    with neighbor_builder('native'):
+        serial = Calculator.from_checkpoint(str(CKPT), device='cuda'
+                                            ).calculate(big)
+    wall = run_ranks('halo', work, world, backend)
+    log_rank_checks('halo', work, world)
+    ranks = []
+    for r in range(world):
+        with open(work / f'halo_rank{r}.pkl', 'rb') as f:
+            ranks.append(pickle.load(f))
+    plan = ranks[0]['plan']
+    forces = gather_forces(plan, np.concatenate([r['forces']
+                                                 for r in ranks]))
+    for r, got in enumerate(ranks):
+        c = {k: int(got[f'count/{k}']) for k in _cuda.KERNELS}
+        e_rel = abs(float(got['energy']) - serial['energy']) / abs(
+            serial['energy'])
+        s_rel = _max_rel(got['stress'], serial['stress'])
+        log(f'  rank {r}: 768-atom forward energy rel {e_rel:.2e} (limit '
+            f'{HALO_ENERGY_TOL:g}), stress rel {s_rel:.2e}; one forward '
+            f'{float(got["forward_ms"]):.3f} ms wall, launches {c}')
+        if (any(c[k] != v for k, v in HALO_CENSUS.items())
+                or c['segment_sum'] == 0
+                or any(v for k, v in c.items() if k not in
+                       ('segment_sum', 'cg_agg', 'cg_multi'))):
+            raise AssertionError(f'halo rank {r} launches {c}, expected '
+                                 f'{HALO_CENSUS} and segment sums')
+        if not (e_rel <= HALO_ENERGY_TOL and s_rel <= HALO_FORCE_TOL):
+            raise AssertionError(f'halo rank {r}: energy or stress '
+                                 'disagrees with the serial Calculator')
+    f_rel = _max_rel(forces, serial['forces'])
+    log(f'  768 atoms, plan dims {plan.dims}, {plan.n_local} local rows '
+        f'and {plan.buffer_rows} buffer rows a rank: forces of all ranks '
+        f'rel {f_rel:.2e} of max (limit {HALO_FORCE_TOL:g}) against the '
+        'serial Calculator')
+    if f_rel > HALO_FORCE_TOL:
+        raise AssertionError('halo forces disagree with the serial '
+                             'Calculator')
+    gold = np.load(GOLDEN_MD)
+    for r, got in enumerate(ranks):
+        md = got['md']
+        check_md_golden(f'rank {r} 96-atom run_device_halo', md, gold,
+                        'md')
+        log(f'  rank {r}: run_device_halo {MD["n_steps"]} steps on 96 atoms'
+            f' (plan dims {md.dims}): {md.ms_per_step:.3f} ms per step '
+            f'wall, the swaps (the card synced before and after each: the '
+            f'host staging under gloo, the transfer, the wait for the peer)'
+            f' {md.transport_share:.1%} of it')
+    log(f'[halo] phase {time.perf_counter() - t_phase:.1f} s (the ranks '
+        f'{wall:.1f} s, spawn to exit)')
+    return {k: int(ranks[0][f'count/{k}']) for k in _cuda.KERNELS}
+
+
+def rank_halo(work, backend):
+    """One rank of the halo phase: the 768-atom forward (every distinct
+    kernel shape held against its plain version first, then one forward
+    counted and timed) and the md golden's run through
+    ``run_device_halo`` (timed, its swaps timed with the card synced, and
+    every distinct kernel shape held against its plain version);
+    results to ``halo_rank<r>.pkl``."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from sevennet_finetuning_tpu_torch.calculator import Calculator
+    from sevennet_finetuning_tpu_torch.data.readers import read_extxyz
+    from sevennet_finetuning_tpu_torch.data.vasp import replicate
+    from sevennet_finetuning_tpu_torch.md import VelocityVerlet
+    from sevennet_finetuning_tpu_torch.ops import _cuda
+    from sevennet_finetuning_tpu_torch.parallel import data_parallel as dp
+    from sevennet_finetuning_tpu_torch.parallel.halo import (
+        DistTransport, build_halo_plan, make_halo_forward, scatter_positions)
+
+    assert dp.maybe_init_distributed('cuda', backend=backend)
+    rank, world = dp.process_rank(), dp.world_size()
+    calc = Calculator.from_checkpoint(str(CKPT), device='cuda')
+    s0 = read_extxyz(str(FT900))[0]
+    big = replicate(s0, 2, 2, 2)
+    out = {}
+    with neighbor_builder('native'):
+        plan = build_halo_plan(big, calc.spec.cutoff,
+                               dict(calc.spec.type_map), world)
+        fwd = make_halo_forward(calc.model, plan)
+        assert isinstance(fwd.transport, DistTransport)
+        pos = torch.as_tensor(scatter_positions(
+            plan, big.pos.astype(np.float32))[[rank]], device=fwd.device)
+        with KernelCapture() as cap:
+            fwd(pos)
+            cap.check(f'halo rank {rank} forward')
+        torch.cuda.synchronize()
+        _cuda.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        e, f, st = fwd(pos)
+        torch.cuda.synchronize()
+        out['forward_ms'] = (time.perf_counter() - t0) * 1e3
+        out.update({f'count/{k}': _cuda.LAUNCHES[k] for k in _cuda.KERNELS})
+        out.update(energy=float(e), forces=f.cpu().numpy(),
+                   stress=st.cpu().numpy(), plan=plan)
+        DistTransport.timed = True
+        vv = VelocityVerlet(s0, calculator=calc, dt_fs=MD['dt'],
+                            skin=MD['skin'], halo=dict(n_dev=world))
+        vv.set_temperature(MD['T'], seed=MD['seed'])
+        with KernelCapture() as cap:
+            t0 = time.perf_counter()
+            vv.run_device_halo(MD['n_steps'], seg_steps=MD['seg_steps'])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            cap.check(f'halo rank {rank} run_device_halo')
+    dims = build_halo_plan(s0, calc.spec.cutoff + MD['skin'],
+                           dict(calc.spec.type_map), world).dims
+    out['md'] = types.SimpleNamespace(
+        result=vv.result, s=vv.s, vel=vv.vel, dims=dims,
+        ms_per_step=wall * 1e3 / MD['n_steps'],
+        transport_share=vv.result.transport_seconds / wall)
+    with open(work / f'halo_rank{rank}.pkl', 'wb') as f:
+        pickle.dump(out, f)
+
+
+def rank_worker(kind, work, backend):
+    """``chip_smoke.py --rank ddp|halo <dir> gloo|nccl``: one rank of a
+    phase's process group (the phase starts them)."""
+    sys.path.insert(0, str(ROOT))
+    {'ddp': rank_ddp, 'halo': rank_halo}[kind](Path(work), backend)
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def multi_card(n_cards):
+    """``chip_smoke.py --cards N``: the parallel paths over NCCL, a card a
+    rank, on N >= 2 cards of one host: the ddp phase's (b) in two ranks
+    (after the pipeline phase, which makes its Fisher artifacts), then
+    the halo phase in two ranks and, with four cards, in four."""
+    import numpy as np
+    import torch
+
+    from sevennet_finetuning_tpu_torch.tools.bench_dma import card_line
+
+    if n_cards < 2 or torch.cuda.device_count() < n_cards:
+        print(f'chip_smoke: --cards {n_cards} needs that many cards, have '
+              f'{torch.cuda.device_count()}', file=sys.stderr)
+        return 2
+    log(f'[cards] {torch.cuda.device_count()} x '
+        f'{torch.cuda.get_device_name(0)}')
+    phase_build()
+    with tempfile.TemporaryDirectory() as work:
+        with neighbor_builder('ckdtree'):
+            phase_pipeline(work)
+            t0 = time.perf_counter()
+            ddp_ranks(Path(work), np.load(GOLDEN_PIPELINE), 'nccl')
+            log(f'[cards] ddp over NCCL {time.perf_counter() - t0:.1f} s')
+        for world in (2, 4)[:n_cards // 2]:
+            phase_halo(work, world, 'nccl')
+    print(card_line(), flush=True)
+    print(json.dumps({'ok': True, 'cards': n_cards,
+                      'kind': torch.cuda.get_device_name(0)}), flush=True)
+    return 0
+
+
 def _rel_l2(got, want):
     import numpy as np
 
@@ -3311,6 +3787,11 @@ def main():
     if not PKG.is_dir():
         print(f'chip_smoke: {PKG} is missing', file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ['--rank']:
+        return rank_worker(*sys.argv[2:5])
+    if sys.argv[1:2] == ['--cards']:
+        sys.path.insert(0, str(ROOT))
+        return multi_card(int(sys.argv[2]))
     sys.path.insert(0, str(ROOT))
     from sevennet_finetuning_tpu_torch.calculator import Calculator
     from sevennet_finetuning_tpu_torch.tools.bench_dma import card_line
@@ -3340,10 +3821,12 @@ def main():
             del calc
             path_counts = {'serve': serve_counts, 'train': phase_train(),
                            'pipeline': phase_pipeline(work.name),
+                           'ddp': phase_ddp(work.name),
                            'unsorted': phase_unsorted(batch),
                            'probes': probe_counts,
                            'families': phase_families(rows)}
         path_counts['md'] = phase_md()
+        path_counts['halo'] = phase_halo(work.name)
         with neighbor_builder('ckdtree'):
             path_counts['compat'] = phase_compat(Path(work.name))
     finally:

@@ -19,7 +19,10 @@ its own copies of the host-side code and never imports JAX.
 - ``train``     : trainer (train / eval steps, rehearsal, Fisher), loss,
                   optimizers and LR controllers, metrics, checkpoints
 - ``pipeline``  : dataset, statistics, continue / fine-tune, epoch loop
-- ``main``      : the command line (``train``, ``preset``)
+- ``parallel``  : data-parallel training and halo-parallel inference and
+                  MD over ``torch.distributed``
+- ``main``      : the command line (``train`` with ``-d``, ``preset``,
+                  ``get_model``, ``inference``, ``graph_build``)
 - ``logger``    : log.sevenn and log.csv
 - ``calculator``: single-point energy / forces / stress
 - ``tools``     : the measurement probes

@@ -9,8 +9,10 @@ D3 dispersion (``ops/d3.py``) on the same device.  ``from_checkpoint``
 reads pickle checkpoints of either package, reference torch ``.pth``
 files and the npz deploy artifact; ``from_deployed_torchscript`` imports
 the weights of a reference frozen TorchScript (``compat/
-torchscript_import``).  ``SevenNetASECalculator`` adapts the calculator
-to ``ase`` (imported lazily: only usable where ase is installed).
+torchscript_import``).  ``get_potential_energy`` / ``get_forces`` /
+``get_stress`` are JAX's ASE-like getters over ``calculate``.
+``SevenNetASECalculator`` adapts the calculator to ``ase`` (imported
+lazily: only usable where ase is installed).
 """
 
 from __future__ import annotations
@@ -146,6 +148,16 @@ class Calculator:
             float(s.volume),
         )
         return float(e), f.cpu().numpy(), st.cpu().numpy()
+
+    # ASE-like conveniences
+    def get_potential_energy(self, s: Structure) -> float:
+        return self.calculate(s)['energy']
+
+    def get_forces(self, s: Structure) -> np.ndarray:
+        return self.calculate(s)['forces']
+
+    def get_stress(self, s: Structure) -> np.ndarray:
+        return self.calculate(s)['stress']
 
 
 class SevenNetASECalculator:

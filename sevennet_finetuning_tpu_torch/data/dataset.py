@@ -6,8 +6,8 @@ padded batches (capacities computed once per dataset).  The shuffle draws
 from ``np.random.default_rng(seed)`` exactly as the JAX package's loader
 does, so both packages visit the same batches from the same seed.  With
 ``data_weights`` (label -> per-term weight) each batch carries the
-per-graph weights of the loss terms.  The sharded (data-parallel)
-branches come with the DDP slice (ROADMAP A.8).
+per-graph weights of the loss terms.  With ``n_shards > 1`` (data
+parallelism) each rank collates its own shard of every global batch.
 
 Statistics follow the reference:
 - per-atom energy mean / std (shift candidates)
@@ -271,14 +271,23 @@ def sevenn_data_structures(path: str) -> Optional[List[Structure]]:
 
 
 class Loader:
-    """Iterable over statically padded batches, for one device.
+    """Iterable over statically padded batches.
 
     Capacities are fixed at construction (max batch totals + headroom,
     bucketed) so every batch of an epoch has the same shapes.
     ``cache=True`` collates every batch once and replays them across
-    epochs: membership is fixed (size-balanced packing), only batch
-    ORDER reshuffles (``epoch_order``); the Trainer puts such batches on
-    the device once.
+    epochs: membership is fixed (size-balanced packing, single-shard
+    only), only batch ORDER reshuffles (``epoch_order``); the Trainer
+    puts such batches on the device once.
+
+    Data parallelism (the reference's DistributedSampler split,
+    reference: sevenn/scripts/train.py:22-44): with ``n_shards > 1``
+    every global step takes ``batch_size * n_shards`` structures of one
+    shuffled order that every rank draws alike, the tail padded by
+    cycling from the front so every shard takes the same number of
+    steps; this loader collates only shard ``shard_offset`` of each step
+    (one process per card: ``shard_offset = rank``).  The capacities are
+    global, so every rank's batches share one shape.
     """
 
     def __init__(
@@ -292,6 +301,8 @@ class Loader:
         n_graph: Optional[int] = None,
         cache: bool = False,
         data_weights: Optional[Dict[str, Dict[str, float]]] = None,
+        n_shards: int = 1,
+        shard_offset: int = 0,
     ):
         self.graphs = dataset.graphs
         self.batch_size = batch_size
@@ -300,12 +311,14 @@ class Loader:
         self.data_weights = data_weights
         self.cache = cache
         self._cached: Optional[List[Dict]] = None
+        self.n_shards = int(n_shards)
+        self.shard_offset = int(shard_offset)
 
         # size-balanced packing: with fixed membership (cache=True) the
         # batches equalize per-batch edge totals (greedy first-fit
         # decreasing), so the padded capacity shrinks toward the mean
         self._balanced_order: Optional[np.ndarray] = None
-        if cache and len(self.graphs) > batch_size:
+        if cache and self.n_shards == 1 and len(self.graphs) > batch_size:
             self._balanced_order = self._balance_membership()
 
         if n_node is None or n_edge is None:
@@ -366,7 +379,7 @@ class Loader:
         return int(v.sum() + (self.batch_size - len(v)) * v[0])
 
     def __len__(self):
-        return math.ceil(len(self.graphs) / self.batch_size)
+        return math.ceil(len(self.graphs) / (self.batch_size * self.n_shards))
 
     def __iter__(self) -> Iterator[Dict]:
         if self.cache:
@@ -397,13 +410,35 @@ class Loader:
             order = np.arange(len(self.graphs))
             if self.shuffle:
                 self.rng.shuffle(order)
+        if self.n_shards > 1:
+            yield from self._iter_sharded(order)
+            return
         for i in range(0, len(order), self.batch_size):
-            chunk = [self.graphs[j] for j in order[i:i + self.batch_size]]
-            batch = collate(chunk, n_node=self.n_node, n_edge=self.n_edge,
-                            n_graph=self.n_graph)
-            if self.data_weights is not None:
-                batch[K.DATA_WEIGHT] = self._weights_for(chunk)
-            yield batch
+            yield self._collate(order[i:i + self.batch_size])
+
+    def _collate(self, ids) -> Dict:
+        chunk = [self.graphs[j] for j in ids]
+        batch = collate(chunk, n_node=self.n_node, n_edge=self.n_edge,
+                        n_graph=self.n_graph)
+        if self.data_weights is not None:
+            batch[K.DATA_WEIGHT] = self._weights_for(chunk)
+        return batch
+
+    def _iter_sharded(self, order: np.ndarray) -> Iterator[Dict]:
+        if len(order) == 0:
+            return
+        per_step = self.batch_size * self.n_shards
+        n_steps = max(1, math.ceil(len(order) / per_step))
+        # pad by cycling so every shard gets a full batch each step
+        # (DistributedSampler semantics)
+        order = np.resize(order, n_steps * per_step)
+        for s in range(n_steps):
+            lo = s * per_step + self.shard_offset * self.batch_size
+            yield self._collate(order[lo:lo + self.batch_size])
+
+    @property
+    def is_sharded(self) -> bool:
+        return self.n_shards > 1
 
     def _weights_for(self, chunk) -> Dict[str, np.ndarray]:
         """Per-graph weights of the energy, force and stress terms from

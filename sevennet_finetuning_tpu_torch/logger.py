@@ -3,8 +3,8 @@
 A copy of ``sevennet_finetuning_tpu/logger.py``, the counterpart of the
 reference's singleton logger (reference: sevenn/sevenn_logger.py:25-339):
 config dump, dataset statistics, per-epoch train/valid(/memory) tables,
-named wall-clock timers, CSV rows.  One process writes (rank 0) until
-the data-parallel slice.
+named wall-clock timers, CSV rows.  Under data parallelism only rank 0
+writes (``rank``).
 """
 
 from __future__ import annotations

@@ -16,8 +16,14 @@ artifact, which both packages read, and with ``--torchscript`` also the
 reference's TorchScript deploy format (``deployed_serial.pt``, or with
 ``-p`` the ``deployed_parallel_{i}.pt`` segment chain) that LAMMPS
 ``pair_e3gnn`` loads.  ``graph_build`` writes a ``.sevenn_data``
-artifact.  Data-parallel training (``-d``) is not ported yet and raises
-``NotImplementedError`` with its ROADMAP item (A.8).
+artifact.  ``train -d`` trains data-parallel, one process per card, as
+the reference launches it::
+
+    torchrun --nproc_per_node N -m sevennet_finetuning_tpu_torch.main \
+        train input.yaml -d
+
+(NCCL on cards; gloo with ``--device cpu``, or where ``--dist-backend
+gloo`` names it).
 """
 
 from __future__ import annotations
@@ -32,11 +38,13 @@ def cmd_train(args):
     from .config import global_config, read_config_yaml
     from .pipeline import train
 
-    if getattr(args, 'distributed', False):
-        raise NotImplementedError(
-            'data-parallel training (-d) is not ported yet: ROADMAP A.8')
     model, tr, data = read_config_yaml(args.input)
     cfg = global_config(model, tr, data)
+    if args.distributed:
+        from .parallel.data_parallel import maybe_init_distributed
+
+        maybe_init_distributed(args.device or 'cuda', args.dist_backend)
+        cfg[K.IS_DDP] = True
     if args.calc_fisher:
         # Fisher mode: no rehearsal, batch 1, and no EWC term (the Fisher
         # artifacts are being produced, not consumed)
@@ -176,7 +184,11 @@ def main(argv=None):
     t.add_argument('input', help='input.yaml')
     t.add_argument('-w', '--working-dir', default='.')
     t.add_argument('-d', '--distributed', action='store_true',
-                   help='data-parallel training (not ported yet)')
+                   help='data-parallel training over the torchrun '
+                        'process group')
+    t.add_argument('--dist-backend', default=None, choices=('nccl', 'gloo'),
+                   help='process-group backend (default: nccl on cuda, '
+                        'gloo on the CPU)')
     t.add_argument('-fs', '--calc-fisher', action='store_true',
                    help='estimate Fisher information then exit')
     t.add_argument('--device', default=None,

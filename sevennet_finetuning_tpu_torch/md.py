@@ -26,8 +26,15 @@ Two execution modes:
   calculator built with ``d3=``) adds ``ops.d3.d3_energy`` on its own
   skin-padded edge list.
 
-The multi-device halo path (``halo=``, ``run_device_halo``) is not
-ported (ROADMAP A.8).
+With ``halo=dict(n_dev=D)`` the forces come from the spatially
+decomposed halo forward (``parallel.halo``) over D ranks: all D
+partitions in this process, or one per process of a ``torch.distributed``
+group of D ranks (``torchrun --nproc_per_node D``; every rank holds the
+whole structure and builds the same plan).  ``run`` then gathers every
+rank's forces each step; ``run_device_halo`` is the device loop over the
+partitions (``parallel.halo.halo_md_segment``), rebuilding the plan at a
+skin trip.  D3 dispersion is serial-only, as in JAX (the reference's D3
+pair style is single-GPU).
 """
 
 from __future__ import annotations
@@ -64,6 +71,16 @@ EDGE_QUANTUM = 512
 D3_QUANTUM = 4096
 
 
+def _all_ranks(fwd, t: torch.Tensor) -> np.ndarray:
+    """[R, n_local, c] rows of the ranks ``fwd`` holds -> every rank's
+    [D, n_local, c] on the host (all-gathered across processes)."""
+    if fwd.distributed:
+        from .parallel import data_parallel as dp
+
+        return torch.cat(dp.all_gather(t)).cpu().numpy()
+    return t.cpu().numpy()
+
+
 def masses_of(species: List[str]) -> np.ndarray:
     return np.array([ATOMIC_MASSES.get(sp, 50.0) for sp in species])
 
@@ -76,16 +93,13 @@ class MDResult:
     # steps taken by each run_device segment (port-only record; the JAX
     # package logs them as 'segment:' lines)
     segments: List[int] = field(default_factory=list)
+    # seconds run_device_halo spent in the halo swaps, counted while
+    # parallel.halo.DistTransport.timed is set (port-only)
+    transport_seconds: float = 0.0
 
     @property
     def total(self) -> List[float]:
         return [e + k for e, k in zip(self.energies, self.kinetic)]
-
-
-def _halo_not_ported():
-    return NotImplementedError(
-        'halo-parallel MD (halo=, run_device_halo) is not ported yet: '
-        'ROADMAP A.8')
 
 
 class VelocityVerlet:
@@ -97,10 +111,16 @@ class VelocityVerlet:
         halo: Optional[Dict] = None,
         skin: float = 0.5,
     ):
-        """``calculator``: the port's ``Calculator``; ``halo`` (the JAX
-        package's multi-device spatial decomposition) is not ported."""
-        if halo is not None:
-            raise _halo_not_ported()
+        """``calculator``: the port's ``Calculator`` (its model and device
+        serve the halo path too); ``halo=dict(n_dev=D)`` switches the
+        force evaluation to the D-rank spatial decomposition (JAX's
+        ``halo`` dict names the spec, parameters and mesh; here the
+        calculator carries the first two and the process group, if any,
+        takes the mesh's place)."""
+        if halo is not None and (calculator is None
+                                 or calculator.d3 is not None):
+            raise ValueError('halo MD needs a Calculator without D3 '
+                             '(D3 is serial-only)')
         self.s = Structure(
             species=list(structure.species),
             pos=np.array(structure.pos, float),
@@ -112,9 +132,13 @@ class VelocityVerlet:
         self.masses = masses_of(self.s.species)
         self.vel = np.zeros_like(self.s.pos)
         self.skin = skin
+        self.halo_cfg = halo
+        self._halo_fwd = None
+        self._pos_at_build = None
         self.result = MDResult()
         self._cap_edge = 0
         self._cap_d3 = 0
+        self._hcaps: Dict = {}
 
     def set_temperature(self, T: float, seed: int = 0):
         rng = np.random.default_rng(seed)
@@ -125,11 +149,32 @@ class VelocityVerlet:
         self.vel -= self.vel.mean(axis=0)
 
     def _forces_energy(self):
-        out = self.calc.calculate(self.s)
-        return out['forces'], out['energy']
+        if self.halo_cfg is None:
+            out = self.calc.calculate(self.s)
+            return out['forces'], out['energy']
+        return self._halo_forces_energy()
 
     def _halo_forces_energy(self):
-        raise _halo_not_ported()
+        """Forces and energy from the halo forward, the plan rebuilt at
+        cutoff + skin once an atom moved more than skin/2 since its
+        build; every rank's forces gathered into global order."""
+        from .parallel.halo import (build_halo_plan, gather_forces,
+                                    make_halo_forward, scatter_positions)
+
+        spec = self.calc.spec
+        rebuild = self._halo_fwd is None or (
+            np.abs(self.s.pos - self._pos_at_build).max() > self.skin / 2
+        )
+        if rebuild:
+            plan = build_halo_plan(self.s, spec.cutoff + self.skin,
+                                   dict(spec.type_map),
+                                   self.halo_cfg['n_dev'])
+            self._halo_fwd = make_halo_forward(self.calc.model, plan)
+            self._pos_at_build = self.s.pos.copy()
+        fwd = self._halo_fwd
+        pos = scatter_positions(fwd.plan, self.s.pos.astype(np.float32))
+        e, f, _ = fwd(torch.as_tensor(pos[fwd.ranks], device=fwd.device))
+        return (gather_forces(fwd.plan, _all_ranks(fwd, f)), float(e))
 
     def kinetic_energy(self) -> float:
         v2 = np.sum(self.vel ** 2, axis=1)
@@ -307,7 +352,137 @@ class VelocityVerlet:
 
     def run_device_halo(self, n_steps: int, seg_steps: int = 50,
                         logger=None) -> MDResult:
-        raise _halo_not_ported()
+        """NVE over the halo decomposition with the state on the device
+        (JAX ``run_device_halo``): segments of up to ``seg_steps``
+        velocity-Verlet steps in plan layout
+        (``parallel.halo.halo_md_segment``), each ending early once the
+        global largest displacement since the segment's plan passes
+        skin/2; the host then rebuilds the plan from every rank's
+        positions.  Per segment the energies are summed over processes
+        and the state gathered once.
+
+        Capacity hysteresis: plan capacities only grow (cap_hints floors
+        with 15% headroom), so the padded shapes -- and the kernels'
+        launch plans -- stay the same across a trajectory's rebuilds."""
+        if self.halo_cfg is None:
+            raise ValueError('run_device_halo needs halo=dict(...)')
+        from .parallel import data_parallel as dp
+        from .parallel.halo import (build_halo_plan, halo_md_segment,
+                                    make_halo_forward)
+
+        spec = self.calc.spec
+        n_dev = self.halo_cfg['n_dev']
+        skin = float(self.skin)
+        n = len(self.s.pos)
+        dt = float(self.dt)
+
+        def qpad(x, q=8):
+            return max(q, int(np.ceil(x / q)) * q)
+
+        def build_plan():
+            plan = build_halo_plan(
+                self.s, spec.cutoff + skin, dict(spec.type_map), n_dev,
+                cap_hints=self._hcaps or None,
+            )
+            got = dict(
+                n_local=plan.n_local, n_edge=plan.n_edge,
+                loc=plan.edge_loc['idx'].shape[2],
+                gh=plan.edge_gh['idx'].shape[2],
+                stage=[st.cap for st in plan.stages],
+            )
+            grown = False
+            for k in ('n_local', 'n_edge', 'loc', 'gh'):
+                if got[k] > self._hcaps.get(k, 0):
+                    self._hcaps[k] = qpad(int(got[k] * 1.15))
+                    grown = True
+            old_st = self._hcaps.get('stage', [])
+            new_st = []
+            for i, c in enumerate(got['stage']):
+                prev = old_st[i] if i < len(old_st) else 0
+                if c > prev:
+                    new_st.append(qpad(int(c * 1.15)))
+                    grown = True
+                else:
+                    new_st.append(prev)
+            self._hcaps['stage'] = new_st
+            if grown:
+                # bake the headroom into the padded shapes so the next
+                # thermal creep is absorbed without a new shape
+                plan = build_halo_plan(
+                    self.s, spec.cutoff + skin, dict(spec.type_map),
+                    n_dev, cap_hints=self._hcaps,
+                )
+            return make_halo_forward(self.calc.model, plan)
+
+        def to_dev(arr, fill=0.0):
+            """[n, ...] global -> [R, n_local, ...] of the held ranks."""
+            plan = fwd.plan
+            out = np.full((len(fwd.ranks), plan.n_local) + arr.shape[1:],
+                          fill, np.float32)
+            for k, d in enumerate(fwd.ranks):
+                ids = plan.owner_perm[d]
+                valid = ids >= 0
+                out[k, valid] = arr[ids[valid]]
+            return torch.as_tensor(out, device=fwd.device)
+
+        def from_dev(t):
+            """Every rank's [R, n_local, c] rows -> [n, c] global."""
+            plan = fwd.plan
+            a = _all_ranks(fwd, t).reshape(plan.n_dev * plan.n_local, -1)
+            perm = np.asarray(plan.owner_perm).reshape(-1)
+            out = np.zeros((n, a.shape[1]), a.dtype)
+            valid = perm >= 0
+            out[perm[valid]] = a[valid]
+            return out
+
+        fwd = build_plan()
+        f_glob = None
+        remaining = n_steps
+        dof = 3 * n - 3
+        with torch.no_grad():
+            while remaining > 0:
+                pos = to_dev(self.s.pos)
+                vel = to_dev(self.vel)
+                m = to_dev(self.masses[:, None], fill=1.0)[..., 0]
+                # the previous segment's last forces, carried through the
+                # global layout (atoms may have changed bricks): exact
+                # under the fresh skin-padded edge list
+                f = (fwd.energy_forces(pos)[1] if f_glob is None
+                     else to_dev(f_glob))
+                pos, vel, f, done, e_buf, ke_buf = halo_md_segment(
+                    fwd, pos, vel, m, f, dt, skin,
+                    min(seg_steps, remaining), seg_steps)
+                # the segment's one sum over processes and one host copy
+                energies = torch.cat([e_buf, ke_buf])
+                if fwd.distributed:
+                    dp.all_reduce_(energies)
+                energies = energies.cpu().numpy()
+                e_np = energies[:seg_steps][:done]
+                ke_np = energies[seg_steps:][:done]
+                self.result.energies.extend(float(x) for x in e_np)
+                self.result.kinetic.extend(float(x) for x in ke_np)
+                self.result.temperatures.extend(
+                    float(2 * k / (dof * KB_EV)) for k in ke_np)
+                self.result.segments.append(done)
+                if logger is not None and done:
+                    logger.writeline(
+                        f'halo segment: {done:4d} steps  '
+                        f'E_pot {e_np[-1]:14.6f}  E_kin {ke_np[-1]:10.6f}'
+                    )
+                if done == 0:
+                    raise RuntimeError(
+                        'halo MD segment made no progress (skin trip at '
+                        'step 0 after a fresh rebuild should be impossible)'
+                    )
+                remaining -= done
+                self.result.transport_seconds += fwd.transport.seconds
+                state = from_dev(torch.cat([pos, vel, f], dim=-1))
+                self.s.pos = state[:, :3].astype(float)
+                self.vel = state[:, 3:6].astype(float)
+                f_glob = state[:, 6:]
+                if remaining > 0:
+                    fwd = build_plan()
+        return self.result
 
     def run(self, n_steps: int, log_every: int = 1,
             logger=None, thermostat: Optional[Dict] = None,

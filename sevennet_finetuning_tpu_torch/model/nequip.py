@@ -31,8 +31,11 @@ symmetric-contraction product basis of ``ops/symmetric_contraction``,
 si3 and the residual), 'gaunt' (the Gaunt FFT convolution of
 ``ops/gaunt`` where both sides carry l > 0, the residual, then the Gaunt
 product basis), 'gaunt_gate' (the Gaunt convolution in a gated block),
-and 'custom' (a ``CustomBlockSpec`` plugin).  The halo exchange and
-remat raise ``NotImplementedError`` naming their ROADMAP items.
+and 'custom' (a ``CustomBlockSpec`` plugin).  The halo-parallel path
+(``run_blocks(exchange_fn=, halo_split=)``, driven by
+``parallel/halo``) runs each convolution once per edge partition: local
+sources from the node features, ghost sources from ``exchange_fn(x)``.
+Per-block remat raises ``NotImplementedError`` naming its ROADMAP item.
 Batches are the padded dicts of ``model.graph`` as tensors
 (``batch_to_torch``).
 """
@@ -121,9 +124,10 @@ class CustomBlockSpec:
     the numpy generator of ``init_params``; ``apply(params, x, ctx) ->
     x_out`` is PyTorch, with ``params`` a dict {name: tensor} and ``ctx``
     holding onehot, emb (radial embedding), edge_attr (SH), edge_src,
-    edge_dst (tensors), n_node and exchange_fn (None: the halo-parallel
-    path is not ported).  A plugin differs between the two packages only
-    in its array library."""
+    edge_dst (tensors), n_node and exchange_fn (None, or local -> local +
+    ghost rows on the halo-parallel path: apply it before gathering
+    edge_src).  A plugin differs between the two packages only in its
+    array library."""
 
     t: int
     irreps_x: Irreps
@@ -592,11 +596,13 @@ def run_blocks(spec: ModelSpec, params, x: torch.Tensor,
     (a port-only argument) is its inverse when the caller has it.
     ``cap(name, value)`` receives the per-stage node features.
 
-    The halo-parallel path (``exchange_fn``, ``halo_split``) and
-    per-block rematerialization (``remat``) are not ported."""
-    if exchange_fn is not None or halo_split is not None:
-        raise NotImplementedError('the halo-parallel path (exchange_fn, '
-                                  'halo_split) is not ported: ROADMAP A.8')
+    ``exchange_fn``, when given, maps local features to the local +
+    ghost rows the sources index (the halo exchange).  ``halo_split``
+    ({'loc': {...}, 'gh': {...}}, each with src, dst, emb, sh, perm and
+    inv) splits the edges by source locality: each convolution runs on
+    the local-source edges from ``x`` and on the ghost-source edges from
+    ``exchange_fn(x)``, and adds the two.  Per-block rematerialization
+    (``remat``) is not ported."""
     if remat:
         raise NotImplementedError('per-block rematerialization is not '
                                   'ported: ROADMAP A.3')
@@ -611,17 +617,24 @@ def run_blocks(spec: ModelSpec, params, x: torch.Tensor,
     for blk in spec.blocks:
         x = _run_one_block(blk, params, x, onehot, emb, edge_attr, edge_src,
                            edge_dst, n_node, cap, src_perm, src_inv,
-                           dst_sort)
+                           dst_sort, exchange_fn, halo_split)
     return x
 
 
+def _halo_parts(halo_split, x, exchange_fn):
+    """(edge partition, its source rows): the local-source edges gather
+    from ``x``, the ghost-source ones from the exchange buffer."""
+    return ((halo_split['loc'], x), (halo_split['gh'], exchange_fn(x)))
+
+
 def _run_one_block(blk, p, x, onehot, emb, edge_attr, edge_src, edge_dst,
-                   n_node, cap, src_perm, src_inv, dst_sort):
+                   n_node, cap, src_perm, src_inv, dst_sort, exchange_fn,
+                   halo_split):
     t = blk.t
     if blk.block_type == 'custom':
         ctx = dict(onehot=onehot, emb=emb, edge_attr=edge_attr,
                    edge_src=edge_src, edge_dst=edge_dst, n_node=n_node,
-                   exchange_fn=None)
+                   exchange_fn=exchange_fn)
         x = blk.apply(dict(p[f'{t}_custom_block'].items()), x, ctx)
         cap(f'{t}_custom_block', x)
         return x
@@ -650,21 +663,48 @@ def _run_one_block(blk, p, x, onehot, emb, edge_attr, edge_src, edge_dst,
     conv_p = p[f'{t}_convolution']
     n_w = len(blk.radial_hs) - 1
     mlp_w = [conv_p[f'weight_nn_w{i}'] for i in range(n_w)]
-    if not cg:
+    # the exchanged rows once per block (a halo exchange communicates);
+    # with halo_split each partition takes its own rows
+    x_all = x if exchange_fn is None or halo_split is not None \
+        else exchange_fn(x)
+    if not cg and halo_split is not None:
+        agg = None
+        ones = torch.ones_like(conv_p['denominator'])
+        for part, x_in in _halo_parts(halo_split, x, exchange_fn):
+            a = apply_gaunt_conv(blk.gaunt_conv, mlp_w, x_in, part['sh'],
+                                 part['emb'], part['src'], part['dst'],
+                                 n_node, ones, sorted_dst=True,
+                                 src_perm=part['perm'], src_inv=part['inv'])
+            agg = a if agg is None else agg + a
+        x = agg / conv_p['denominator']
+    elif not cg:
         # the Gaunt convolution: per-edge products of sample grids, the
         # sorted segment sum by dst (ops/gaunt)
-        x = apply_gaunt_conv(blk.gaunt_conv, mlp_w, x, edge_attr, emb,
+        x = apply_gaunt_conv(blk.gaunt_conv, mlp_w, x_all, edge_attr, emb,
                              edge_src, edge_dst, n_node,
                              conv_p['denominator'],
                              sorted_dst=dst_sort is None, src_perm=src_perm,
                              src_inv=src_inv, dst_sort=dst_sort)
+    elif halo_split is not None:
+        # local-source messages from x, ghost-source messages from the
+        # exchanged rows: the fused convolution once per partition
+        layout = layout_from_spec(blk.conv_tp)
+        agg = None
+        for part, x_in in _halo_parts(halo_split, x, exchange_fn):
+            w_e = mlp_apply(mlp_w, part['emb'], blk.act_radial)
+            x_src = gather_rows(x_in, part['src'], part['perm'], part['inv'])
+            a = conv_aggregate(layout, x_src, part['sh'], w_e, part['dst'],
+                               n_node)
+            agg = a if agg is None else agg + a
+        x = stride_to_e3nn(blk.conv_tp.irreps_out,
+                           agg / conv_p['denominator'])
     else:
         # gather_rows' backward drops padded-edge cotangents; exact because
         # EDGE_MASK zeroes the radial embedding, so padded messages and
         # their gradients are identically zero
         layout = layout_from_spec(blk.conv_tp)
         w_edge = mlp_apply(mlp_w, emb, blk.act_radial)
-        x_src = gather_rows(x, edge_src, src_perm, src_inv)
+        x_src = gather_rows(x_all, edge_src, src_perm, src_inv)
         if dst_sort is None:
             # scatter-fused convolution on dst-sorted edges: the
             # [E, dim_msg] message tensor never exists (ops/fused_conv_agg)

@@ -1,6 +1,6 @@
 """Training / fine-tuning pipeline orchestration.
 
-Port of ``sevennet_finetuning_tpu/pipeline.py`` for one device (the
+Port of ``sevennet_finetuning_tpu/pipeline.py`` (the
 counterpart of the reference's script layer, reference:
 sevenn/scripts/train.py:97-148, processing_dataset.py:146-319,
 processing_continue.py:59-150, processing_epoch.py:10-87, and the
@@ -14,9 +14,14 @@ Datasets may be prebuilt ``.sevenn_data`` artifacts (either package's or
 the reference's), and the ``save_dataset`` family writes them; a
 ``continue`` keeps the optimizer state of the port's own checkpoints and
 of the JAX package's (its optax state, translated by
-``train/optim.optax_state_dict``).  Not ported yet, each raising
-``NotImplementedError`` with its ROADMAP item: data-parallel training
-(A.8) and per-block rematerialization (A.3).
+``train/optim.optax_state_dict``).  ``is_ddp`` (``main train -d``)
+trains data-parallel over the ``torch.distributed`` group the caller
+joined (``parallel.data_parallel.maybe_init_distributed``): every
+loader collates this rank's shard of each global batch, the Trainer
+averages the gradients over ranks, and rank 0 alone writes log.sevenn,
+log.csv, checkpoints and Fisher artifacts.  Per-block rematerialization
+(``remat: True``) is not ported yet and raises ``NotImplementedError``
+with its ROADMAP item (A.3).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from .data.vasp import Structure, read_outcar, read_structure_list
 from .logger import Logger
 from .model.build import build_model_spec
 from .model.nequip import NequIP, init_params, load_jax_params
+from .parallel import data_parallel as dp
 from .train.checkpoint import (
     load_checkpoint,
     load_pytree,
@@ -280,10 +286,7 @@ def setup_species(config: Dict, structures: List[Structure],
     config[K.CHEMICAL_SPECIES] = [z_to_symbol(z) for z in sorted(tm)]
 
 
-def _refuse_unported(config: Dict, calc_fisher: bool):
-    if config.get(K.IS_DDP) and not calc_fisher:
-        raise NotImplementedError(
-            'data-parallel training (is_ddp) is not ported yet: ROADMAP A.8')
+def _refuse_unported(config: Dict):
     if config.get(K.REMAT, 'auto') is True:
         raise NotImplementedError(
             'per-block rematerialization (remat: True) is not ported yet: '
@@ -303,9 +306,10 @@ def train(config: Dict, working_dir: str = '.', device=None) -> Trainer:
     loss_thr = float(
         config.get(K.LOSS_THR, _cont0.get(K.LOSS_THR, -1.0)) or -1.0
     )
-    _refuse_unported(config, calc_fisher)
+    _refuse_unported(config)
     os.makedirs(working_dir, exist_ok=True)
-    logger = Logger(os.path.join(working_dir, 'log.sevenn'), rank=0)
+    logger = Logger(os.path.join(working_dir, 'log.sevenn'),
+                    rank=_process_rank())
     try:
         return _train(config, working_dir, device, logger, calc_fisher,
                       loss_thr)
@@ -318,6 +322,24 @@ def _train(config, working_dir, device, logger: Logger, calc_fisher: bool,
     logger.greeting()
     seed = config.get(K.RANDOM_SEED, 1)
     np.random.seed(seed)
+
+    # -- data-parallel training (the reference's DDP path, reference:
+    # sevenn/main/sevenn.py:39-50): one shard of every global batch per
+    # rank of the process group; never for the Fisher stage
+    shard_kw: Dict = {}
+    is_dp = bool(config.get(K.IS_DDP)) and not calc_fisher
+    if is_dp:
+        if not dp.is_distributed():
+            raise ValueError(
+                'is_ddp needs a torch.distributed process group: launch '
+                'with torchrun (main train -d) or call '
+                'parallel.data_parallel.maybe_init_distributed first')
+        shard_kw = dict(n_shards=dp.world_size(),
+                        shard_offset=dp.process_rank())
+        device = dp.rank_device(device if device is not None else 'cuda')
+        logger.writeline(
+            f'data-parallel training: {dp.world_size()} ranks, backend '
+            f'{torch.distributed.get_backend()}')
 
     # -- continue / fine-tune --------------------------------------------
     cont = config.get(K.CONTINUE, {}) or {}
@@ -443,7 +465,7 @@ def _train(config, working_dir, device, logger: Logger, calc_fisher: bool,
         )
 
     trainer = Trainer(model, config, fisher=fisher, opt_params=opt_params,
-                      device=device)
+                      device=device, data_parallel=is_dp)
     n_par = sum(int(p.numel()) for names in trainer.params.values()
                 for p in names.values())
     logger.writeline(f'# model weights: {n_par}')
@@ -471,10 +493,11 @@ def _train(config, working_dir, device, logger: Logger, calc_fisher: bool,
         fisher_mat, opt_p, count = trainer.compute_fisher_matrix(
             loader, loss_thr
         )
-        save_pytree(os.path.join(working_dir, 'fisher_sevenn.pt'),
-                    fisher_mat)
-        save_pytree(os.path.join(working_dir, 'opt_params_sevenn.pt'),
-                    opt_p)
+        if _process_rank() == 0:
+            save_pytree(os.path.join(working_dir, 'fisher_sevenn.pt'),
+                        fisher_mat)
+            save_pytree(os.path.join(working_dir, 'opt_params_sevenn.pt'),
+                        opt_p)
         logger.writeline(f'fisher from {count} samples saved')
         return trainer
 
@@ -504,10 +527,10 @@ def _train(config, working_dir, device, logger: Logger, calc_fisher: bool,
             'first collate (only batch order reshuffles per epoch); the '
             'reference reshuffles membership every epoch'
         )
-    probes = [Loader(train_set, batch_size, cache=cache),
-              Loader(valid_set, batch_size, cache=cache)]
+    probes = [Loader(train_set, batch_size, cache=cache, **shard_kw),
+              Loader(valid_set, batch_size, cache=cache, **shard_kw)]
     if mem_set is not None:
-        probes.append(Loader(mem_set, mem_batch, cache=cache))
+        probes.append(Loader(mem_set, mem_batch, cache=cache, **shard_kw))
     shape_kw = dict(
         n_node=max(p.n_node for p in probes),
         n_edge=max(p.n_edge for p in probes),
@@ -517,14 +540,14 @@ def _train(config, working_dir, device, logger: Logger, calc_fisher: bool,
     train_loader = Loader(train_set, batch_size,
                           shuffle=config.get(K.TRAIN_SHUFFLE, True),
                           seed=seed, data_weights=data_weights,
-                          cache=cache, **shape_kw)
+                          cache=cache, **shape_kw, **shard_kw)
     valid_loader = Loader(valid_set, batch_size, data_weights=data_weights,
-                          cache=cache, **shape_kw)
+                          cache=cache, **shape_kw, **shard_kw)
 
     mem_loader = None
     if mem_set is not None:
         mem_loader = Loader(mem_set, mem_batch, shuffle=True, seed=seed,
-                            cache=cache, **shape_kw)
+                            cache=cache, **shape_kw, **shard_kw)
 
     # -- epoch loop -------------------------------------------------------
     # epoch numbering continues from the checkpoint unless reset
@@ -671,7 +694,16 @@ def _override_statistics(params, spec, config: Dict):
     return params
 
 
+def _process_rank() -> int:
+    """Rank for rank-0-only logs and artifacts (0 without a process
+    group; the reference gates the same way on dist.get_rank(),
+    reference: sevenn/sevenn_logger.py:25-40)."""
+    return dp.process_rank()
+
+
 def _save(trainer: Trainer, path: str, config: Dict, epoch: int):
+    if _process_rank() != 0:
+        return  # rank-0-only checkpoint writes
     ckpt = trainer.get_checkpoint_dict()
     save_checkpoint(path, ckpt['model_state_dict'], config, epoch,
                     optimizer_state=ckpt['optimizer_state_dict'],

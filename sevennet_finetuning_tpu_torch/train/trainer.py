@@ -1,7 +1,7 @@
 """Trainer: train / eval steps, Fisher estimation, rehearsal.
 
-Port of ``sevennet_finetuning_tpu/train/trainer.py`` for one device
-(reference: sevenn/train/trainer.py:15-222).  A train step runs the model
+Port of ``sevennet_finetuning_tpu/train/trainer.py`` (reference:
+sevenn/train/trainer.py:15-222).  A train step runs the model
 with its force pass kept in the graph (``apply_model_train``), so the
 loss on forces and stress backpropagates to the parameters through a
 double backward of the convolution -- the CUDA kernels ``cg_gagg`` and
@@ -11,6 +11,17 @@ trainable leaves and the metric accumulators grow on the device.
 JAX's ``lax.scan`` epochs become a Python loop over steps; a
 ``cache=True`` loader's batches are put on the device once and replayed
 in the loader's per-epoch order.  Metrics reach the host once per epoch.
+
+Data-parallel mode (``data_parallel=True``, one process per card in a
+``torch.distributed`` group; the counterpart of JAX's mesh mode,
+``_make_dp_train_step`` / ``_make_dp_eval_step`` / ``_dp_update_acc``):
+each rank steps on its own shard of every global batch; after
+``total.backward()`` the gradients are averaged over ranks
+(``parallel.data_parallel.average_gradients``) before adam steps, so the
+parameters stay equal on every rank; the metric accumulators grow per
+rank and are summed over ranks once per epoch, before ``finalize``.
+The Fisher stage is single-process (the pipeline never runs it under
+data parallelism, as in JAX).
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ import torch
 
 from .. import keys as K
 from .. import resolve_device
+from ..parallel import data_parallel as dp
 from ..model.nequip import (
     NequIP,
     apply_model,
@@ -62,10 +74,16 @@ class Trainer:
     ``model``: a ``NequIP`` (moved to ``device``: cuda unless
     ``device='cpu'``); ``fisher`` / ``opt_params``: the EWC Fisher
     estimate and anchor parameters as nested dicts of numpy arrays with
-    the parameter names (``load_pytree`` of the reference artifacts)."""
+    the parameter names (``load_pytree`` of the reference artifacts);
+    ``data_parallel``: step in the process group's data-parallel mode
+    (rank 0's parameters are broadcast here)."""
 
     def __init__(self, model: NequIP, config: Dict, fisher=None,
-                 opt_params=None, device=None):
+                 opt_params=None, device=None, data_parallel: bool = False):
+        if data_parallel and not dp.is_distributed():
+            raise ValueError('data_parallel needs an initialized '
+                             'torch.distributed process group')
+        self.dp = data_parallel
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.model.requires_grad_(True)
@@ -83,10 +101,15 @@ class Trainer:
             opt_params=_tree_to(opt_params, self.device))
         self.optimizer, self.lr_controller = build_optimizer(
             config, self.params, trainable_mask(self.spec))
+        if self.dp:
+            dp.broadcast_parameters(self.model.parameters())
         # device copies of cache=True loaders' batches, per loader
         self._dev_cache: Dict[int, list] = {}
 
     # -- steps ------------------------------------------------------------
+    def _trainable(self):
+        return [p for g in self.optimizer.param_groups for p in g['params']]
+
     def _clear_grads(self):
         for p in self.model.parameters():
             p.grad = None
@@ -100,6 +123,8 @@ class Trainer:
         out = apply_model_train(self.model, batch)
         total, terms = self.loss_fn(self.params, out)
         total.backward()
+        if self.dp:
+            dp.average_gradients(self._trainable())
         self.optimizer.step()
         with torch.no_grad():
             out = detach_outputs(out)
@@ -140,6 +165,8 @@ class Trainer:
         return self.eval_step(batch, acc)[0]
 
     def _finalize(self, *accs):
+        if self.dp:
+            dp.sum_accumulators(*accs)
         return tuple(finalize(self.metric_specs, a)
                      for a in fetch_accumulators(*accs))
 
@@ -232,6 +259,8 @@ class Trainer:
         if not (isinstance(state, dict) and 'param_groups' in state):
             state = optax_state_dict(self.optimizer, self.params, state)
         self.optimizer.load_state_dict(state)
+        if self.dp:
+            dp.broadcast_optimizer_state(self.optimizer)
 
     def load_state_dicts(self, model_state, optimizer_state=None,
                          scheduler_state=None):

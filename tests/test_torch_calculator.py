@@ -8,7 +8,9 @@ sums taken in another order over ~4,300 edges and five layers).
 ``test_port_imports_no_jax`` serves a structure, runs its graph with the
 edge slots shuffled through ``run_blocks(edges_sorted=False)``, takes
 a reEWC train step continuing the checkpoint's own optax state, runs
-the train CLI, ``main get_model``, MD (both loops), a D3 calculation,
+the train CLI (also data-parallel, ``-d`` in a gloo group of one rank),
+``main get_model``, MD (both loops, and both over a halo decomposition of
+two partitions), a D3 calculation,
 ``main inference`` with D3, a full-width serve of the mace, gaunt and
 gaunt_gate families, a reference ``.pth`` load, the serial and parallel
 TorchScript exports, the TorchScript importer and a read of a
@@ -198,6 +200,23 @@ def test_port_imports_no_jax(tmp_path):
         'md.run_device(3, seg_steps=2)\n'
         'md.run(2)\n'
         'assert np.isfinite(md.result.total).all() and md.result.segments\n'
+        # halo-parallel MD over two partitions and data-parallel training
+        # in a process group (a rank of one, gloo)
+        'hmd = VelocityVerlet(s, calculator=dep, dt_fs=1.0,\n'
+        '                     halo={"n_dev": 2})\n'
+        'hmd.set_temperature(300.0, seed=0)\n'
+        'hmd.run_device_halo(2, seg_steps=2)\n'
+        'hmd.run(1)\n'
+        'assert np.isfinite(hmd.result.total).all()\n'
+        'import os, socket\n'
+        'with socket.socket() as so:\n'
+        '    so.bind(("localhost", 0))\n'
+        '    port = so.getsockname()[1]\n'
+        'os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",\n'
+        '                  MASTER_ADDR="localhost", MASTER_PORT=str(port))\n'
+        'cli(["train", str(tmp / "in.yaml"), "-w", str(tmp / "dp"), "-d",\n'
+        '     "--device", "cpu"])\n'
+        'assert (tmp / "dp" / "log.csv").exists()\n'
         'd3c = Calculator(dep.spec, load_checkpoint(str(tmp / "dep.sevenn"))\n'
         '                 ["model_state_dict"], device="cpu",\n'
         '                 d3={"functional": "pbe", "damping": "zero",\n'

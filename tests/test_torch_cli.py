@@ -15,8 +15,8 @@ give the unweighted run, others another one (the JAX CLI cannot take
 them: its Trainer hands the weight dict to ``jnp.asarray``; the weighted
 loss terms are held against JAX's in ``test_torch_pipeline.py``).
 ``preset``
-prints the port's copies of the presets; the unported subcommands
-(``graph_build``, ``-d``, ``get_model --torchscript``) raise.
+prints the port's copies of the presets (``train -d`` is held against
+single-process training in ``test_torch_parallel.py``).
 """
 
 import argparse
@@ -216,18 +216,6 @@ def test_preset_prints_the_port_copy(capsys):
     assert yaml.safe_load(text)['model']['channel'] == 128
     with pytest.raises(SystemExit, match='available'):
         cli(['preset', 'no-such-preset'])
-
-
-@pytest.mark.parametrize('argv,item', [
-    (['train', 'input.yaml', '-d'], 'A.8'),
-])
-def test_unported_subcommands_raise(argv, item):
-    """What stays unported (get_model, with --torchscript too, inference
-    and graph_build are ported: test_torch_serving.py,
-    test_torch_compat.py and test_torch_sevenn_data.py hold them against
-    the JAX CLI)."""
-    with pytest.raises(NotImplementedError, match=item.replace('.', r'\.')):
-        cli(argv)
 
 
 @pytest.mark.parametrize('sub', ['get_model_torchscript', 'graph_build'])

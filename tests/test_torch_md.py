@@ -297,22 +297,6 @@ def test_fctp_model_run_device_matches_jax():
     _assert_close(jv, pv, 5)
 
 
-def test_halo_md_raises():
-    from sevennet_finetuning_tpu_torch.data.vasp import Structure
-    from sevennet_finetuning_tpu_torch.md import VelocityVerlet
-
-    s = _structure(Structure)
-    with pytest.raises(NotImplementedError, match=r'A\.8'):
-        VelocityVerlet(s, halo={'n_dev': 2})
-    md = VelocityVerlet(s)
-    with pytest.raises(NotImplementedError, match=r'A\.8'):
-        md.run_device_halo(2)
-    with pytest.raises(NotImplementedError, match=r'A\.8'):
-        md._halo_forces_energy()
-    with pytest.raises(ValueError, match='Calculator'):
-        md.run_device(2)
-
-
 def test_golden_file_layout():
     """The golden file holds what chip_smoke.py reads, finite, with the
     steps per segment adding up to each run's length."""

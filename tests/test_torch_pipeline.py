@@ -14,9 +14,10 @@
   by row;
 - every reader of ``_read_file`` (OUTCAR, POSCAR, structure_list, pickled
   and ase-read Atoms) reads synthetic files as JAX's does;
-- each branch that is not ported raises ``NotImplementedError`` naming
-  its ROADMAP item (A.8, A.3); the ``.sevenn_data`` options and a
-  continue of a JAX checkpoint's optax state run.
+- the branch that is not ported (``remat: True``) raises
+  ``NotImplementedError`` naming its ROADMAP item (A.3); the
+  ``.sevenn_data`` options and a continue of a JAX checkpoint's optax
+  state run.
 """
 
 import argparse
@@ -529,7 +530,6 @@ def test_readers_match_jax(tmp_path, monkeypatch, name, fmt):
 
 
 @pytest.mark.parametrize('override,item', [
-    ({K.IS_DDP: True}, 'A.8'),
     ({K.REMAT: True}, 'A.3'),
 ])
 def test_unported_train_options_raise(tmp_path, override, item):

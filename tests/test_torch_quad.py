@@ -944,10 +944,12 @@ def test_run_blocks_refuses_unported_paths(narrow):
     args = (p, x, onehot, torch.from_numpy(emb), torch.from_numpy(edge_attr),
             torch.from_numpy(np.ascontiguousarray(idx[1])),
             torch.from_numpy(np.ascontiguousarray(idx[0])), n_node)
-    with pytest.raises(NotImplementedError, match='A.8'):
-        run_blocks(spec, *args, exchange_fn=lambda v: v)
-    with pytest.raises(NotImplementedError, match='A.8'):
-        run_blocks(spec, *args, halo_split={})
+    # an identity exchange without a halo split is the plain path
+    for edges_sorted in (True, False):
+        assert torch.equal(
+            run_blocks(spec, *args, exchange_fn=lambda v: v,
+                       edges_sorted=edges_sorted),
+            run_blocks(spec, *args, edges_sorted=edges_sorted))
     with pytest.raises(NotImplementedError, match='A.3'):
         run_blocks(spec, *args, remat=True)
     # the MACE and Gaunt families take the unsorted path too, and agree

@@ -9,6 +9,8 @@
   it, ``Calculator.from_deployed`` against JAX's (energy 1e-6 rel,
   forces and stress 1e-4 of max, the serving limits: the narrow random
   model's forces are ~1e-2 eV/A, float32 residues of ~1 eV/A terms);
+  the Calculator's ``get_potential_energy`` / ``get_forces`` /
+  ``get_stress`` against JAX's getters at the same limits;
 - ``replicate``, ``brace_expand``, ``_parse_index``, ``write_extxyz``
   (the same text as JAX's);
 - the native neighbor list: the same edge set as the cKDTree path, and
@@ -188,6 +190,42 @@ def test_from_deployed_matches_jax(narrow_ckpt, tmp_path):
             for k in ('forces', 'stress'):
                 w = np.asarray(want[k])
                 assert np.abs(got[k] - w).max() <= 1e-4 * np.abs(w).max()
+
+
+def test_calculator_getters_match_jax(narrow_ckpt):
+    """``get_potential_energy`` / ``get_forces`` / ``get_stress`` against
+    the JAX Calculator's getters on the narrow model (the serving limits
+    above), and each equal to its ``calculate`` entry."""
+    import jax
+
+    from sevennet_finetuning_tpu.calculator import Calculator as JCalc
+    from sevennet_finetuning_tpu.data.readers import read_extxyz as jread
+    from sevennet_finetuning_tpu_torch.calculator import Calculator
+    from sevennet_finetuning_tpu_torch.data.readers import read_extxyz
+    from sevennet_finetuning_tpu_torch.model.build import build_model_spec
+
+    _, params = narrow_ckpt
+    cfg = _narrow_config()
+    calc = Calculator(build_model_spec(cfg), params, device='cpu')
+    s, js = read_extxyz(str(REPLAY))[1], jread(str(REPLAY))[1]
+    with jax.enable_x64(False):
+        from sevennet_finetuning_tpu.model.build import (
+            build_model_spec as j_build)
+
+        jc = JCalc(j_build(cfg), params)
+        want = (jc.get_potential_energy(js), np.asarray(jc.get_forces(js)),
+                np.asarray(jc.get_stress(js)))
+    got = (calc.get_potential_energy(s), calc.get_forces(s),
+           calc.get_stress(s))
+    assert isinstance(got[0], float)
+    assert abs(got[0] - want[0]) <= 1e-6 * abs(want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert g.shape == w.shape
+        assert np.abs(g - w).max() <= 1e-4 * np.abs(w).max()
+    full = calc.calculate(s)
+    assert got[0] == full['energy']
+    assert np.array_equal(got[1], full['forces'])
+    assert np.array_equal(got[2], full['stress'])
 
 
 # --- data helpers ------------------------------------------------------------
