@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives ``sevennet_finetuning_tpu_torch`` (never JAX) through fourteen
+Drives ``sevennet_finetuning_tpu_torch`` (never JAX) through fifteen
 phases and exits non-zero if any fails:
 
 1. build   -- compile every CUDA source of ``csrc/`` (one nvcc each, in
@@ -73,7 +73,27 @@ phases and exits non-zero if any fails:
               segment-sum 13 times, the segment sums at the shapes of
               ``train_segment_shapes``.  Prints ms per step and per rehearsal
               iteration, edges/s, peak memory and the device busy share;
-8. pipeline -- the port's train CLI (``main.main``, as ``python -m
+8. remat   -- the same reEWC train step with per-block rematerialization
+              (``Trainer.remat``): (a) the first two batch-8 steps of the
+              train phase with remat on and off, each against
+              ``golden/train_ft900_jax_cpu.npz`` at the train phase's
+              limits and against each other (first-step totals within
+              1e-6, the second step's within 1e-5, first-step gradients
+              within 1e-5 relative L2), every remat step launching agg
+              20, multi 20, gagg 5, gmulti 5 and segment-sum 24 times
+              (at ``remat_segment_shapes``) and every kernel shape of
+              the first held against its plain version; (b) one step
+              of 64 96-atom structures of ft900 (~305k edge slots) off
+              and on, against each other; (c) the Trainer's default
+              'auto' under a 1 GiB ``SEVENNET_TPU_ACT_BUDGET_GB``, which
+              must remat batch 8 and give (a)'s numbers; no earlier
+              phase may resolve to remat at the card's default budget.
+              Prints, with the card's name and power limit, each
+              batch's ms a step (wall, profiled device), peak memory and
+              the step's activation bytes beside ``resolve_remat``'s
+              estimate.  It runs in a process of its own
+              (``chip_smoke.py --remat``: ``phase_remat`` says why);
+9. pipeline -- the port's train CLI (``main.main``, as ``python -m
               sevennet_finetuning_tpu_torch.main train`` runs it) on the
               two stages of ``recipe.pipeline_stages`` in a temporary
               directory: the Fisher stage (-fs) on replay.extxyz from the
@@ -90,7 +110,7 @@ phases and exits non-zero if any fails:
               agg 65, multi 115, gagg 50, gmulti 50 and segment-sum
               >= 130 times.  Prints each stage's wall seconds and the
               epochs' times, then profiles each stage once more;
-9. unsorted -- SevenNet-0 at full width and depth on the batch-8 collate
+10. unsorted -- SevenNet-0 at full width and depth on the batch-8 collate
               with every edge slot permuted (numpy seed 0), through the
               public ``run_blocks(edges_sorted=False)``: node features,
               energies, fij = dE/d edge_vec and a create_graph=True
@@ -106,7 +126,7 @@ phases and exits non-zero if any fails:
               forward + fij and one whole pass (the census's: forward, fij
               with create_graph, parameter gradient), each csrc family's
               profiled launches equal to its census.
-10. md     -- molecular dynamics at SevenNet-0's full width, on the native
+11. md     -- molecular dynamics at SevenNet-0's full width, on the native
               neighbor list (the earlier phases keep the cKDTree one their
               goldens were made with): ``main get_model`` deploys the
               checkpoint to the npz artifact, ``Calculator.from_deployed``
@@ -137,7 +157,7 @@ phases and exits non-zero if any fails:
               768 atoms with and without D3, the steps per segment, peak
               memory and, from a profile of a 10-step run, the device busy
               share.
-11. families -- the MACE and Gaunt interaction families at full width,
+12. families -- the MACE and Gaunt interaction families at full width,
               the three configurations of ``golden/families_jax_cpu.npz``
               (the repo's mace interaction at MACE-MP-0 medium's widths,
               l <= 3 filter and 128 channels up to l = 3; gaunt and
@@ -158,7 +178,7 @@ phases and exits non-zero if any fails:
               1,152 and 10,368) are timed beside their bounds.  Prints
               each family's parameter count, ms per request (wall and
               profiled device time), ms per train step and peak memory.
-12. compat  -- checkpoint and deploy interop at SevenNet-0's full width
+13. compat  -- checkpoint and deploy interop at SevenNet-0's full width
               (the card's name and power limit printed first): (1) the
               checkpoint as a reference training .pth (state_dict_from_
               params, the reference's trainer.py layout) through
@@ -187,7 +207,7 @@ phases and exits non-zero if any fails:
               golden's), and from a reset optimizer, which must miss the
               second step's limit.  The phase's launches are asserted
               (agg 135, multi 215, gagg 80, gmulti 80, segment-sum >= 248).
-13. ddp     -- data-parallel training through ``main train -d`` on the
+14. ddp     -- data-parallel training through ``main train -d`` on the
               pipeline phase's reEWC fine-tune stage (its Fisher
               artifacts): (a) a world of one rank over NCCL, whose
               log.csv must equal the pipeline phase's single-process one
@@ -202,7 +222,7 @@ phases and exits non-zero if any fails:
               parameters bit-equal,
               each rank launching the stage's census.  Prints the wall
               times.
-14. halo    -- halo-parallel inference and MD in two gloo ranks sharing
+15. halo    -- halo-parallel inference and MD in two gloo ranks sharing
               the card (``chip_smoke.py --rank halo``), native neighbor
               lists: SevenNet-0 (the in-repo checkpoint) on ft900
               structure 0 replicated 2x2x2 (768 atoms), each rank's
@@ -316,6 +336,7 @@ PROBE_CASE = {'probe_copy_tiled': 'em te=256',
 PATH_KERNELS = {
     'serve': ('segment_sum', 'cg_agg', 'cg_multi'),
     'train': ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg', 'cg_gmulti'),
+    'remat': ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg', 'cg_gmulti'),
     'pipeline': ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg',
                  'cg_gmulti'),
     'unsorted': ('segment_sum', 'cg_quad'),
@@ -342,6 +363,36 @@ KERNEL_FAMILIES = (
 # launches of one reEWC train step (PERF.md explains each count)
 TRAIN_CENSUS = {'cg_agg': 5, 'cg_multi': 10, 'cg_gagg': 5, 'cg_gmulti': 5,
                 'segment_sum': 13, 'cg_quad': 0, **{k: 0 for k in PROBES}}
+# launches of one reEWC train step with per-block remat (the remat phase;
+# PERF.md explains each count).  Each block runs its convolution four
+# times (the forward; the force pass's recompute for its VJP; the outer
+# backward's recompute for the VJP of the block's own cotangent; its
+# recompute for the double backward) and its first-order backward four
+# times (the force pass's VJP; that outer VJP; the double backward's VJP
+# with create_graph; the double backward through the recomputed
+# aggregation); the double backward's gagg and gmulti once, as without
+# remat.  Every VJP of a block scatters its source gather (blocks 1-4 at
+# width 480, block 0 at 128), four times a block
+REMAT_TRAIN_CENSUS = {'cg_agg': 20, 'cg_multi': 20, 'cg_gagg': 5,
+                      'cg_gmulti': 5, 'segment_sum': 24, 'cg_quad': 0,
+                      **{k: 0 for k in PROBES}}
+# the remat phase: two runs of the same steps (remat on and off; 'auto'
+# under REMAT_AUTO_BUDGET_GB, at which batch 8's estimate of 4.6 GiB
+# resolves to remat) run the same kernels on the same values but for the
+# order of float32 sums in the parameter gradient's double backward (the
+# CPU reads 1.6e-15 in float64; the forward and the forces are bit for
+# bit).  So the first step's totals agree to 1e-6 (they read 0) and its
+# gradients to 1e-5 relative L2 (the card read 2.4e-7).  The second
+# step's total follows adam's first update, which moves a leaf element by
+# about +-lr whatever its gradient's size, so elements whose gradient is
+# rounding move either way: the card read 1.18e-6 at batch 8 (the CPU
+# 1.69e-6 on the 12-atom structure), two remat runs 7e-8 apart; 1e-5
+REMAT_TOTAL_TOL = (1e-6, 1e-5)
+REMAT_GRAD_TOL = 1e-5
+REMAT_BUDGET_ENV = 'SEVENNET_TPU_ACT_BUDGET_GB'
+REMAT_AUTO_BUDGET_GB = 1.0
+REMAT_BATCH = 64
+REMAT_TIMED_STEPS = 3
 # launches of one unsorted pass: forward, fij with create_graph=True, and
 # the parameter gradient of a loss on fij (PERF.md explains each count)
 UNSORTED_CENSUS = {'cg_agg': 0, 'cg_multi': 0, 'cg_gagg': 0, 'cg_gmulti': 0,
@@ -630,6 +681,15 @@ def train_segment_shapes(n_edge, n_node, n_graph):
     return {(n_node, 1, n_graph): 1, (n_edge, 480, n_node): 8,
             (n_edge, 3, n_node): 2, (n_edge, 6, n_graph): 1,
             (n_edge, 128, n_node): 1}
+
+
+def remat_segment_shapes(n_edge, n_node, n_graph):
+    """(E, D, n_rows) of each segment_sum launch of one remat train step:
+    the energy, virial and force sums of ``train_segment_shapes``, and
+    the source scatter of each of a block's four VJPs."""
+    return {(n_node, 1, n_graph): 1, (n_edge, 480, n_node): 16,
+            (n_edge, 3, n_node): 2, (n_edge, 6, n_graph): 1,
+            (n_edge, 128, n_node): 4}
 
 
 def phase_build():
@@ -1491,10 +1551,12 @@ def ft900_batches(trainer, gold):
     return loader, memloader, tb, mb
 
 
-def step_census(trainer, batch, acc):
+def step_census(trainer, batch, acc, census=None, shapes_of=None):
     """One train step with the launch counts set to 0 just before it and
-    read just after, and the (E, D, n_rows) of each segment_sum launch;
-    returns (acc, terms, counts, ms)."""
+    read just after, and the (E, D, n_rows) of each segment_sum launch,
+    asserted against ``census`` and ``shapes_of`` (TRAIN_CENSUS and
+    ``train_segment_shapes`` unless given); returns (acc, terms, counts,
+    ms)."""
     from collections import Counter
 
     import torch
@@ -1519,13 +1581,14 @@ def step_census(trainer, batch, acc):
         ms = (time.perf_counter() - t0) * 1e3
     finally:
         scatter.segment_sum_cuda = launch
+    census = TRAIN_CENSUS if census is None else census
+    shapes_of = shapes_of or train_segment_shapes
     counts = {k: _cuda.LAUNCHES[k] for k in _cuda.KERNELS}
-    if counts != TRAIN_CENSUS:
+    if counts != census:
         raise AssertionError(f'train step launches {counts}, expected '
-                             f'{TRAIN_CENSUS}')
-    want = train_segment_shapes(batch[K.EDGE_IDX].shape[1],
-                                batch[K.POS].shape[0],
-                                batch[K.CELL].shape[0])
+                             f'{census}')
+    want = shapes_of(batch[K.EDGE_IDX].shape[1], batch[K.POS].shape[0],
+                     batch[K.CELL].shape[0])
     if shapes != want:
         raise AssertionError(f'train step segment_sum shapes '
                              f'{dict(shapes)}, expected {want}')
@@ -1646,6 +1709,241 @@ def phase_train():
             accs[0], _ = trainer.train_step(b, accs[0])
 
     profile_device('rehearsal iteration', iteration, top=14)
+    return counts
+
+
+def init_acc(trainer):
+    from sevennet_finetuning_tpu_torch.train.metrics import init_accumulators
+
+    return init_accumulators(trainer.metric_specs, trainer.device)
+
+
+def _grad_snapshot(trainer):
+    return {(g, n): p.grad.detach().clone()
+            for g, names in trainer.params.items() for n, p in names.items()}
+
+
+def _grads_rel_l2(got, want):
+    """Relative L2 error of a gradient snapshot over every leaf."""
+    err = sum(float(((got[k].double() - w.double()) ** 2).sum())
+              for k, w in want.items())
+    ref = sum(float((w.double() ** 2).sum()) for w in want.values())
+    return (err / ref) ** 0.5
+
+
+def remat_steps(label, trainer, order, gold, weights, rematted, cap=None):
+    """The train phase's first two batch-8 steps (a train batch, then a
+    memory batch) on ``trainer``, each held against the golden at the
+    train phase's limits and counted (REMAT_TRAIN_CENSUS where the steps
+    are ``rematted``, else TRAIN_CENSUS); with ``cap`` the first step's
+    kernel shapes are held against their plain versions.  Returns
+    (totals, first-step gradients, the last step's launch counts)."""
+    census, shapes_of = ((REMAT_TRAIN_CENSUS, remat_segment_shapes)
+                         if rematted else (None, None))
+    acc = init_acc(trainer)
+    totals, grads, counts = [], None, None
+    for i, b in enumerate(order):
+        with (cap if cap is not None and i == 0
+              else contextlib.nullcontext()):
+            acc, terms, counts, _ = step_census(trainer, b, acc, census,
+                                                shapes_of)
+            if cap is not None and i == 0:
+                cap.check(f'{label} step')
+        if i == 0:
+            check_terms(label, terms, gold, i, weights, STEP0_TOL,
+                        RAW_TERM_TOL)
+            check_grads('ft900', trainer, gold)
+            grads = _grad_snapshot(trainer)
+        else:
+            check_terms(label, terms, gold, i, weights, TRAJ_TOL)
+        totals.append(float(terms['Total']))
+    return totals, grads, counts
+
+
+def remat_agree(label, got, want):
+    """Two runs of the same steps: each step's total within its limit of
+    REMAT_TOTAL_TOL relative, first-step gradients within REMAT_GRAD_TOL
+    relative L2."""
+    import torch
+
+    (tot, grads, _), (tot_w, grads_w, _) = got, want
+    rel = [abs(a - b) / abs(b) for a, b in zip(tot, tot_w)]
+    l2 = _grads_rel_l2(grads, grads_w)
+    bits = tot == tot_w and all(torch.equal(grads[k], g)
+                                for k, g in grads_w.items())
+    log(f'  {label}: totals {tot} against {tot_w}, rel '
+        + ', '.join(f'{r:.2e}' for r in rel)
+        + f' (limits {", ".join(f"{t:g}" for t in REMAT_TOTAL_TOL)}); '
+        f'first-step gradients rel L2 {l2:.2e} (limit {REMAT_GRAD_TOL:g}); '
+        f'bit for bit: {bits}')
+    if (any(r > t for r, t in zip(rel, REMAT_TOTAL_TOL))
+            or l2 > REMAT_GRAD_TOL):
+        raise AssertionError(f'{label}: the runs disagree')
+
+
+def timed_steps(trainer, batch, n):
+    """``n`` train steps on ``batch``, each with the peak memory reset
+    just before it: (median ms, peak bytes, peak bytes above what was
+    allocated when the step began, profiled device ms of one more
+    step)."""
+    import torch
+
+    acc = init_acc(trainer)
+    ms, peak, act = [], 0, 0
+    for _ in range(n):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        acc, _ = trainer.train_step(batch, acc)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        top = torch.cuda.max_memory_allocated()
+        peak, act = max(peak, top), max(act, top - base)
+
+    def step():
+        trainer.train_step(batch, init_acc(trainer))
+
+    _, busy = profile_device(f'train step, remat {trainer.remat}', step)
+    return sorted(ms)[len(ms) // 2], peak, act, busy
+
+
+def _gib(n):
+    return f'{n / 2**30:.3f} GiB'
+
+
+def phase_remat():
+    """The remat phase (``remat_runs``) in a process of its own
+    (``chip_smoke.py --remat <file>``), its output copied into this log.
+    PyTorch's autograd engine runs the ready nodes of a backward in
+    order of their sequence numbers, which count per thread; a remat
+    step builds its recomputed graphs on the engine's device thread and
+    so raises that thread's count past the main thread's, which would
+    reorder the double backward of every later train step here (float32
+    sums in another order: the compat phase's log.csv comparison read
+    3.4e-4 where it reads 0).  Returns the launch counts of one remat
+    step."""
+    with tempfile.TemporaryDirectory() as work:
+        out = Path(work) / 'remat.json'
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), '--remat',
+             str(out)], capture_output=True, text=True,
+            timeout=RANK_TIMEOUT_S)
+        for line in proc.stdout.splitlines():
+            log(line)
+        if proc.returncode != 0:
+            log(proc.stderr[-6000:])
+            raise AssertionError(f'the remat phase exited with '
+                                 f'{proc.returncode}')
+        return json.loads(out.read_text())
+
+
+def remat_runs():
+    """Per-block rematerialization of the reEWC train step at full width:
+    (a) the train phase's first two batch-8 steps with remat on and off,
+    each against the golden, against each other, and counted; the remat
+    step's kernel shapes against their plain versions; (b) batch 64,
+    off and on; (c) the Trainer's default 'auto' under a budget that
+    batch 8 exceeds.  Prints peak memory, the step's activation bytes
+    beside the estimate of ``resolve_remat`` and the step's wall and
+    device time.  Returns the launch counts of one remat step."""
+    import numpy as np
+    import torch
+
+    from sevennet_finetuning_tpu_torch import keys as K
+    from sevennet_finetuning_tpu_torch.data.dataset import (
+        GraphDataset, Loader)
+    from sevennet_finetuning_tpu_torch.data.readers import read_extxyz
+    from sevennet_finetuning_tpu_torch.model.nequip import resolve_remat
+    from sevennet_finetuning_tpu_torch.tools.bench_dma import card_line
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    gold = np.load(GOLDEN_FT900)
+    trainer = new_trainer()
+    spec = trainer.spec
+    weights = {ls.name: ls.weight for ls in trainer.loss_specs}
+    loader, _, tb, mb = ft900_batches(trainer, gold)
+    order = [tb[0], mb[0]]
+    mid = sum(b.conv_tp.irreps_out.dim for b in spec.blocks)
+    s96 = [s for s in read_extxyz(str(FT900)) if len(s) == 96]
+    big = trainer.place_batch(next(iter(Loader(GraphDataset.from_structures(
+        s96[:REMAT_BATCH], spec.cutoff, dict(spec.type_map)),
+        REMAT_BATCH))))
+    del trainer
+    total = torch.cuda.get_device_properties(0).total_memory
+    slots = {8: loader.n_edge, REMAT_BATCH: big[K.EDGE_IDX].shape[1]}
+    log(f'[remat] {card}: default budget 5/8 of {_gib(total)} = '
+        f'{_gib(5 / 8 * total)}, so \'auto\' turns remat on above '
+        f'{int(5 / 8 * total / (12 * mid)):,} edge slots (message irreps '
+        f'{mid:,} a slot); batch 8 {slots[8]:,} slots, batch '
+        f'{REMAT_BATCH} {slots[REMAT_BATCH]:,}')
+    for n in slots.values():
+        if resolve_remat(spec, n, 'auto', 'cuda'):
+            raise AssertionError(f'{n} edge slots resolve to remat at the '
+                                 'default budget')
+
+    # --- (a) batch 8: remat on, then off, the same two steps ---
+    runs, rows = {}, {}
+    for remat in (True, False):
+        trainer = new_trainer()
+        trainer.remat = remat
+        cap = KernelCapture(FAMILY_KERNELS) if remat else None
+        runs[remat] = remat_steps(f'remat {remat}', trainer, order, gold,
+                                  weights, remat, cap)
+        rows[8, remat] = timed_steps(trainer, tb[0], REMAT_TIMED_STEPS)
+        del trainer
+    remat_agree('remat against plain, batch 8', runs[True], runs[False])
+    counts = runs[True][2]
+
+    # --- (c) the Trainer's default 'auto' under a low budget ---
+    os.environ[REMAT_BUDGET_ENV] = str(REMAT_AUTO_BUDGET_GB)
+    try:
+        trainer = new_trainer()
+        if trainer.remat != 'auto' or not resolve_remat(
+                spec, slots[8], trainer.remat, 'cuda'):
+            raise AssertionError('the default config does not resolve to '
+                                 f'remat at {REMAT_AUTO_BUDGET_GB} GiB')
+        auto = remat_steps('remat auto', trainer, order, gold, weights,
+                           True)
+        del trainer
+    finally:
+        os.environ.pop(REMAT_BUDGET_ENV)
+    remat_agree(f"'auto' at {REMAT_AUTO_BUDGET_GB} GiB against remat",
+                auto, runs[True])
+
+    # --- (b) batch 64, off and on: one step each, then one timed ---
+    firsts = {}
+    for remat in (False, True):
+        torch.cuda.empty_cache()
+        trainer = new_trainer()
+        trainer.remat = remat
+        acc = init_acc(trainer)
+        acc, terms, _, _ = step_census(
+            trainer, big, acc, *((REMAT_TRAIN_CENSUS, remat_segment_shapes)
+                                 if remat else ()))
+        firsts[remat] = ([float(terms['Total'])], _grad_snapshot(trainer),
+                         None)
+        if not np.isfinite(firsts[remat][0][0]):
+            raise AssertionError(f'batch {REMAT_BATCH}: total not finite')
+        rows[REMAT_BATCH, remat] = timed_steps(trainer, big, 1)
+        del trainer, acc
+    remat_agree(f'remat against plain, batch {REMAT_BATCH}', firsts[True],
+                firsts[False])
+    torch.cuda.empty_cache()
+
+    for batch, n in slots.items():
+        est = 12 * n * mid
+        for remat in (False, True):
+            ms, peak, act, busy = rows[batch, remat]
+            device = 'not measured' if busy is None else f'{busy:.3f} ms'
+            log(f'[remat] {card} | batch {batch}, {n:,} edge slots, remat '
+                f'{"on" if remat else "off"}: {ms:.3f} ms a step (wall, '
+                f'median), device {device}; peak {_gib(peak)}, the '
+                f'step\'s activations '
+                f'{_gib(act)} (estimate 3 x 4 B x E x {mid:,} = '
+                f'{_gib(est)}, {act / est:.3f} of it)')
+    log(f'[remat] phase {time.perf_counter() - t_phase:.1f} s')
     return counts
 
 
@@ -3789,12 +4087,22 @@ def main():
         return 2
     if sys.argv[1:2] == ['--rank']:
         return rank_worker(*sys.argv[2:5])
+    if sys.argv[1:2] == ['--remat']:
+        sys.path.insert(0, str(ROOT))
+        with neighbor_builder('ckdtree'):
+            counts = remat_runs()
+        Path(sys.argv[2]).write_text(json.dumps(counts))
+        return 0
     if sys.argv[1:2] == ['--cards']:
         sys.path.insert(0, str(ROOT))
         return multi_card(int(sys.argv[2]))
     sys.path.insert(0, str(ROOT))
     from sevennet_finetuning_tpu_torch.calculator import Calculator
     from sevennet_finetuning_tpu_torch.tools.bench_dma import card_line
+
+    # every census assumes the card's default remat budget
+    if os.environ.pop(REMAT_BUDGET_ENV, None) is not None:
+        log(f'chip_smoke: {REMAT_BUDGET_ENV} unset for this run')
 
     card = card_line()
     log(f'[device] {torch.cuda.get_device_name(0)} | {card} | torch '
@@ -3820,6 +4128,7 @@ def main():
             phase_profile(calc, batch)
             del calc
             path_counts = {'serve': serve_counts, 'train': phase_train(),
+                           'remat': phase_remat(),
                            'pipeline': phase_pipeline(work.name),
                            'ddp': phase_ddp(work.name),
                            'unsorted': phase_unsorted(batch),

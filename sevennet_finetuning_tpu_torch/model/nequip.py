@@ -35,13 +35,17 @@ and 'custom' (a ``CustomBlockSpec`` plugin).  The halo-parallel path
 (``run_blocks(exchange_fn=, halo_split=)``, driven by
 ``parallel/halo``) runs each convolution once per edge partition: local
 sources from the node features, ghost sources from ``exchange_fn(x)``.
-Per-block remat raises ``NotImplementedError`` naming its ROADMAP item.
+``run_blocks(remat=True)`` rematerializes each block (``_RematBlock``):
+the double backward of a train step keeps a block's inputs instead of
+its activations and recomputes the block; ``resolve_remat`` decides
+``remat='auto'`` from the batch's edge slots.
 Batches are the padded dicts of ``model.graph`` as tensors
 (``batch_to_torch``).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -51,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import keys as K
+from .. import resolve_device
 from ..irreps import Irreps
 from ..ops.fused_conv import conv_messages, layout_from_spec, stride_to_e3nn
 from ..ops.fused_conv_agg import conv_aggregate
@@ -578,6 +583,167 @@ def compute_edge_vec(data: Dict[str, torch.Tensor]) -> torch.Tensor:
             + torch.einsum('ei,eij->ej', data[K.CELL_SHIFT], cell_of_edge))
 
 
+def _device_bytes(device) -> int:
+    """Total memory of ``device``: the card's, or the host's physical RAM
+    for the CPU."""
+    device = resolve_device(device)
+    if device.type == 'cuda':
+        return torch.cuda.get_device_properties(device).total_memory
+    return os.sysconf('SC_PAGE_SIZE') * os.sysconf('SC_PHYS_PAGES')
+
+
+def resolve_remat(spec: ModelSpec, n_edge: int, remat='auto',
+                  device=None) -> bool:
+    """Resolve ``remat='auto'`` from the batch's edge slots (JAX
+    ``resolve_remat``, the same formula); True and False pass through.
+
+    Rematerializing each block cuts the double backward's activation
+    memory by about the number of blocks and recomputes every block
+    twice more, so 'auto' turns it on only when the estimated live
+    per-edge message residuals exceed the activation budget: 3 float32
+    copies (the fused convolution keeps its operands and outputs) of
+    each block's convolution output irreps per edge slot, summed over
+    the blocks; a block without a CG tensor product (a custom plugin)
+    counts 4 x its input irreps' dim, JAX's Gaunt-grid rule.  A tuple
+    ``('auto', scale)`` scales the estimate.
+
+    The budget is ``SEVENNET_TPU_ACT_BUDGET_GB`` (GiB; the JAX package's
+    variable, so one setting drives both) or, unset, 5/8 of the memory
+    of ``device`` (the card's total memory, the host's physical RAM for
+    the CPU; cuda unless named): the estimate counts the per-edge
+    residuals only, and the other 3/8 is left for what it does not count
+    -- parameters and optimizer state, node-sized tensors, the kernels'
+    workspaces and the allocator's slack."""
+    scale = 1.0
+    if isinstance(remat, tuple):
+        remat, scale = remat
+    if remat != 'auto':
+        return bool(remat)
+    env = os.environ.get('SEVENNET_TPU_ACT_BUDGET_GB')
+    budget = (float(env) * 2.0 ** 30 if env is not None
+              else 5 / 8 * _device_bytes(device))
+    mid = 0
+    for b in spec.blocks:
+        tp = getattr(b, 'conv_tp', None)
+        mid += tp.irreps_out.dim if tp is not None else 4 * b.irreps_x.dim
+    est_bytes = 3.0 * 4.0 * float(n_edge) * float(mid) * scale
+    return est_bytes > budget
+
+
+class _BlockCall:
+    """One interaction block as a function of its differentiable inputs
+    only: ``call(x, emb, edge_attr, *leaves)``, the leaves being the
+    block's own parameter groups (``f'{t}_*'``) flattened in ``keys``'
+    order.  Everything else the block reads is fixed here and must not
+    require grad: a gradient through a closure would be lost."""
+
+    def __init__(self, blk, p, onehot, edge_src, edge_dst, n_node, src_perm,
+                 src_inv, dst_sort):
+        prefix = f'{blk.t}_'
+        self.keys = [(g, n) for g in p if g.startswith(prefix)
+                     for n in p[g]]
+        self.leaves = [p[g][n] for g, n in self.keys]
+        fixed = (onehot, edge_src, edge_dst, src_perm, src_inv,
+                 *(dst_sort or ()))
+        if any(isinstance(t, torch.Tensor) and t.requires_grad
+               for t in fixed):
+            raise ValueError('remat: a tensor the block closes over '
+                             'requires grad, and would get none')
+        self.blk, self.n_node = blk, n_node
+        self.onehot, self.edge_src, self.edge_dst = onehot, edge_src, edge_dst
+        self.src_perm, self.src_inv, self.dst_sort = src_perm, src_inv, dst_sort
+
+    def __call__(self, x, emb, edge_attr, *leaves):
+        p: Dict[str, Dict[str, torch.Tensor]] = {}
+        for (g, n), v in zip(self.keys, leaves):
+            p.setdefault(g, {})[n] = v
+        return _run_one_block(self.blk, p, x, self.onehot, emb, edge_attr,
+                              self.edge_src, self.edge_dst, self.n_node,
+                              _no_cap, self.src_perm, self.src_inv,
+                              self.dst_sort, None, None)
+
+
+def _no_cap(name, val):
+    return None
+
+
+def _block_vjp(call, need, ybar, inputs, create_graph):
+    """Recompute the block from ``inputs`` and return the VJP of ``ybar``
+    with respect to the inputs flagged in ``need`` (zeros where the block
+    does not use one), with those inputs as recomputed leaves."""
+    ins = [t.detach().requires_grad_(m) for t, m in zip(inputs, need)]
+    wrt = [t for t, m in zip(ins, need) if m]
+    grads = torch.autograd.grad(call(*ins), wrt, ybar,
+                                create_graph=create_graph, allow_unused=True)
+    return wrt, [torch.zeros_like(t) if g is None else g
+                 for g, t in zip(grads, wrt)]
+
+
+class _RematBlock(torch.autograd.Function):
+    """A block that keeps only its inputs for the backward (the JAX
+    package's ``jax.checkpoint`` of one block).  Its backward is
+    ``_RematBlockVjp``, a Function too, so the force pass's
+    ``create_graph=True`` backward records one node per block, holding
+    the block's inputs and cotangent, instead of the block's
+    activations."""
+
+    @staticmethod
+    def forward(ctx, call, x, emb, edge_attr, *leaves):
+        ctx.call = call
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, emb, edge_attr, *leaves)
+        return call(x, emb, edge_attr, *leaves)
+
+    @staticmethod
+    def backward(ctx, ybar):
+        need = ctx.needs_input_grad[1:]
+        if ybar is None or not any(need):
+            return (None,) * (1 + len(need))
+        # a create_graph backward (the force pass) takes the VJP with
+        # create_graph, so its values are the plain path's bit for bit
+        grads = _RematBlockVjp.apply(ctx.call, need,
+                                     torch.is_grad_enabled(), ybar,
+                                     *ctx.saved_tensors)
+        grads = iter((grads,) if isinstance(grads, torch.Tensor) else grads)
+        return (None,) + tuple(next(grads) if m else None for m in need)
+
+
+class _RematBlockVjp(torch.autograd.Function):
+    """The VJP of one block, recomputed from its inputs.  The forward
+    runs the block and its VJP without keeping their graph and saves
+    only the cotangent and the inputs; the backward runs both again with
+    ``create_graph=True`` and differentiates once more (a second-order
+    train step's last order: a third raises)."""
+
+    @staticmethod
+    def forward(ctx, call, need, create_graph, ybar, *inputs):
+        ctx.call, ctx.need = call, need
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(ybar, *inputs)
+        with torch.enable_grad():
+            _, grads = _block_vjp(call, need, ybar, inputs, create_graph)
+        return tuple(g.detach() for g in grads)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *gbar):
+        ybar, *inputs = ctx.saved_tensors
+        need_ybar = ctx.needs_input_grad[3]
+        with torch.enable_grad():
+            yb = ybar.detach().requires_grad_(need_ybar)
+            wrt, grads = _block_vjp(ctx.call, ctx.need, yb, inputs, True)
+            pairs = [(g, gb) for g, gb in zip(grads, gbar)
+                     if gb is not None and g.requires_grad]
+            srcs = ([yb] if need_ybar else []) + wrt
+            d = ([None] * len(srcs) if not pairs else torch.autograd.grad(
+                [g for g, _ in pairs], srcs, [gb for _, gb in pairs],
+                allow_unused=True))
+        d = iter(d)
+        d_ybar = next(d) if need_ybar else None
+        return (None, None, None, d_ybar,
+                *(next(d) if m else None for m in ctx.need))
+
+
 def run_blocks(spec: ModelSpec, params, x: torch.Tensor,
                onehot: torch.Tensor, emb: torch.Tensor,
                edge_attr: torch.Tensor, edge_src: torch.Tensor,
@@ -601,23 +767,36 @@ def run_blocks(spec: ModelSpec, params, x: torch.Tensor,
     ({'loc': {...}, 'gh': {...}}, each with src, dst, emb, sh, perm and
     inv) splits the edges by source locality: each convolution runs on
     the local-source edges from ``x`` and on the ghost-source edges from
-    ``exchange_fn(x)``, and adds the two.  Per-block rematerialization
-    (``remat``) is not ported."""
-    if remat:
-        raise NotImplementedError('per-block rematerialization is not '
-                                  'ported: ROADMAP A.3')
+    ``exchange_fn(x)``, and adds the two.
+
+    ``remat=True`` rematerializes each block (``_RematBlock``): the
+    training double backward otherwise keeps every block's per-edge
+    activations live until the parameter gradient; with it a block keeps
+    its inputs and is recomputed in the backward.  It takes no ``cap``,
+    and no halo exchange: a recompute in the backward would repeat the
+    block's swaps, out of the order every rank must keep."""
     if cap is None:
-        def cap(name, val):
-            return None
+        cap = _no_cap
+    elif remat:
+        raise ValueError('intermediate capture requires remat=False')
+    if remat and (exchange_fn is not None or halo_split is not None):
+        raise ValueError('remat with a halo exchange: a block recomputed in '
+                         'the backward would repeat its swaps, out of the '
+                         'order every rank must keep')
     if src_perm is None:
         src_perm, src_inv = sort_perm(edge_src)
     elif src_inv is None:
         src_inv = inverse_perm(src_perm)
     dst_sort = None if edges_sorted else sort_perm(edge_dst)
     for blk in spec.blocks:
-        x = _run_one_block(blk, params, x, onehot, emb, edge_attr, edge_src,
-                           edge_dst, n_node, cap, src_perm, src_inv,
-                           dst_sort, exchange_fn, halo_split)
+        if remat:
+            call = _BlockCall(blk, params, onehot, edge_src, edge_dst,
+                              n_node, src_perm, src_inv, dst_sort)
+            x = _RematBlock.apply(call, x, emb, edge_attr, *call.leaves)
+        else:
+            x = _run_one_block(blk, params, x, onehot, emb, edge_attr,
+                               edge_src, edge_dst, n_node, cap, src_perm,
+                               src_inv, dst_sort, exchange_fn, halo_split)
     return x
 
 
@@ -805,13 +984,18 @@ def energy_network(
     data: Dict[str, torch.Tensor],
     edge_vec: torch.Tensor,
     intermediates: Optional[Dict[str, torch.Tensor]] = None,
+    remat=False,
 ) -> Dict[str, torch.Tensor]:
-    """Edge vectors + graph -> atomic & total energies.
+    """Edge vectors + graph -> atomic & total energies.  ``remat`` may be
+    True, False or 'auto' (``resolve_remat`` at the batch's edge slots
+    and ``edge_vec``'s device).
 
     Pass ``intermediates={}`` to capture per-stage node features (keys
     like '0_convolution', '1_equivariant_gate'...)."""
     spec, p = model.spec, model.params
     out = dict(data)
+    remat = resolve_remat(spec, data[K.EDGE_IDX].shape[1], remat,
+                          edge_vec.device)
 
     def cap(name, val):
         if intermediates is not None:
@@ -833,7 +1017,8 @@ def energy_network(
 
     # --- interaction blocks (collate batches are dst-sorted) ---
     x = run_blocks(spec, p, x, onehot, emb, edge_attr, edge_src, edge_dst,
-                   n_node, cap=cap, edges_sorted=True,
+                   n_node, cap=(cap if intermediates is not None else None),
+                   remat=remat, edges_sorted=True,
                    src_perm=data[K.EDGE_SRC_PERM],
                    src_inv=data[EDGE_SRC_INV_PERM])
     out[K.NODE_FEATURE] = x
@@ -891,14 +1076,15 @@ def _forces_and_stress(out, data, edge_vec, fij):
     return out
 
 
-def apply_model(model: NequIP,
-                data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def apply_model(model: NequIP, data: Dict[str, torch.Tensor],
+                remat=False) -> Dict[str, torch.Tensor]:
     """Full forward for serving: energies + forces + stress via one
     autograd.grad of the total energy over edge vectors (reference:
-    sevenn/nn/force_output.py:158-215); results are detached."""
+    sevenn/nn/force_output.py:158-215); results are detached.  ``remat``:
+    as in ``energy_network``."""
     edge_vec = compute_edge_vec(data).detach().requires_grad_(True)
     with torch.enable_grad():
-        out = energy_network(model, data, edge_vec)
+        out = energy_network(model, data, edge_vec, remat=remat)
         fij, = torch.autograd.grad(out[K.PRED_TOTAL_ENERGY].sum(), edge_vec)
     out = _forces_and_stress(out, data, edge_vec, fij)
     return detach_outputs(out)
@@ -910,15 +1096,16 @@ def detach_outputs(out: Dict) -> Dict:
             for k, v in out.items()}
 
 
-def apply_model_train(model: NequIP,
-                      data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def apply_model_train(model: NequIP, data: Dict[str, torch.Tensor],
+                      remat=False) -> Dict[str, torch.Tensor]:
     """Full forward for training: as ``apply_model``, but the force pass
     keeps its graph (``create_graph=True``) and nothing is detached, so
     a loss on energies, forces and stress backpropagates to the
     parameters through a double backward of the convolution (the JAX
-    package's ``value_and_grad`` over ``apply_model``)."""
+    package's ``value_and_grad`` over ``apply_model``).  ``remat``: as
+    in ``energy_network``."""
     edge_vec = compute_edge_vec(data).detach().requires_grad_(True)
-    out = energy_network(model, data, edge_vec)
+    out = energy_network(model, data, edge_vec, remat=remat)
     fij, = torch.autograd.grad(out[K.PRED_TOTAL_ENERGY].sum(), edge_vec,
                                create_graph=True)
     return _forces_and_stress(out, data, edge_vec, fij)

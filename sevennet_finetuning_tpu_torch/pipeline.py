@@ -19,9 +19,10 @@ trains data-parallel over the ``torch.distributed`` group the caller
 joined (``parallel.data_parallel.maybe_init_distributed``): every
 loader collates this rank's shard of each global batch, the Trainer
 averages the gradients over ranks, and rank 0 alone writes log.sevenn,
-log.csv, checkpoints and Fisher artifacts.  Per-block rematerialization
-(``remat: True``) is not ported yet and raises ``NotImplementedError``
-with its ROADMAP item (A.3).
+log.csv, checkpoints and Fisher artifacts.  ``remat`` ('auto' by
+default, True, False) rematerializes each interaction block in the
+train and Fisher steps (``Trainer``; ``model.nequip.resolve_remat``
+decides 'auto' per batch).
 """
 
 from __future__ import annotations
@@ -286,13 +287,6 @@ def setup_species(config: Dict, structures: List[Structure],
     config[K.CHEMICAL_SPECIES] = [z_to_symbol(z) for z in sorted(tm)]
 
 
-def _refuse_unported(config: Dict):
-    if config.get(K.REMAT, 'auto') is True:
-        raise NotImplementedError(
-            'per-block rematerialization (remat: True) is not ported yet: '
-            'ROADMAP A.3')
-
-
 def train(config: Dict, working_dir: str = '.', device=None) -> Trainer:
     """Full training entry (reference: sevenn/scripts/train.py:97-148), on
     ``device`` (cuda unless the caller asks for another)."""
@@ -306,7 +300,6 @@ def train(config: Dict, working_dir: str = '.', device=None) -> Trainer:
     loss_thr = float(
         config.get(K.LOSS_THR, _cont0.get(K.LOSS_THR, -1.0)) or -1.0
     )
-    _refuse_unported(config)
     os.makedirs(working_dir, exist_ok=True)
     logger = Logger(os.path.join(working_dir, 'log.sevenn'),
                     rank=_process_rank())

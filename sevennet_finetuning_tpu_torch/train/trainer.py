@@ -22,6 +22,16 @@ parameters stay equal on every rank; the metric accumulators grow per
 rank and are summed over ranks once per epoch, before ``finalize``.
 The Fisher stage is single-process (the pipeline never runs it under
 data parallelism, as in JAX).
+
+Per-block rematerialization: ``config['remat']`` ('auto' by default,
+True, False) goes to the train steps and the Fisher steps, never to the
+eval steps, as in JAX; 'auto' is resolved per batch from its edge slots
+(``model.nequip.resolve_remat``).  The rehearsal epoch resolves it at
+scale 1.0, where JAX's uses 2.0: JAX runs the train and memory steps in
+one scan body whose buffers may live across both, the port runs them
+one after the other, each freeing its graph.  That is the one place
+where the two packages' 'auto' may differ (at SevenNet-0's widths,
+between ~41.5k and ~83k edge slots under JAX's default budget).
 """
 
 from __future__ import annotations
@@ -94,6 +104,7 @@ class Trainer:
 
         self.loss_specs = loss_specs_from_config(config)
         self.metric_specs = metric_specs_from_config(config)
+        self.remat = config.get(K.REMAT, 'auto')
         self.loss_fn = build_loss_fn(
             self.loss_specs,
             use_data_weights=config.get(K.LOAD_DATASET_WITH_WEIGHTS, False),
@@ -120,7 +131,7 @@ class Trainer:
         accumulators and the step's loss terms ('Total' and one per
         LossSpec) as detached device scalars."""
         self._clear_grads()
-        out = apply_model_train(self.model, batch)
+        out = apply_model_train(self.model, batch, remat=self.remat)
         total, terms = self.loss_fn(self.params, out)
         total.backward()
         if self.dp:
@@ -213,7 +224,8 @@ class Trainer:
         count = torch.zeros((), device=self.device)
         for batch in loader:
             self._clear_grads()
-            out = apply_model_train(self.model, self.place_batch(batch))
+            out = apply_model_train(self.model, self.place_batch(batch),
+                                    remat=self.remat)
             total, _ = self.loss_fn(self.params, out)
             total.backward()
             with torch.no_grad():

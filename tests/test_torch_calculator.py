@@ -152,6 +152,10 @@ def test_port_imports_no_jax(tmp_path):
         'ds = GraphDataset.from_structures([s], 5.0, dict(model.spec.type_map))\n'
         'm = tr.run_one_epoch(Loader(ds, 1), is_train=True)\n'
         'assert m["TotalLoss_None"] > 0, m\n'
+        # the same step with every block rematerialized
+        'tr.remat = True\n'
+        'mr = tr.run_one_epoch(Loader(ds, 1), is_train=True)\n'
+        'assert 0 < mr["TotalLoss_None"] < float("inf"), mr\n'
         # the measurement probes: their modules and plain versions
         'from sevennet_finetuning_tpu_torch.tools import bench_dma, '
         'hopper_feats\n'
@@ -214,9 +218,16 @@ def test_port_imports_no_jax(tmp_path):
         '    port = so.getsockname()[1]\n'
         'os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",\n'
         '                  MASTER_ADDR="localhost", MASTER_PORT=str(port))\n'
-        'cli(["train", str(tmp / "in.yaml"), "-w", str(tmp / "dp"), "-d",\n'
+        # (with every block rematerialized)
+        '(tmp / "dp.yaml").write_text((tmp / "in.yaml").read_text()\n'
+        '    .replace("per_epoch: 1}", "per_epoch: 1, remat: true}"))\n'
+        'from sevennet_finetuning_tpu_torch.model import nequip\n'
+        'calls, apply = [], nequip._RematBlock.apply\n'
+        'nequip._RematBlock.apply = lambda *a: calls.append(1) or apply(*a)\n'
+        'cli(["train", str(tmp / "dp.yaml"), "-w", str(tmp / "dp"), "-d",\n'
         '     "--device", "cpu"])\n'
-        'assert (tmp / "dp" / "log.csv").exists()\n'
+        'nequip._RematBlock.apply = apply\n'
+        'assert (tmp / "dp" / "log.csv").exists() and calls\n'
         'd3c = Calculator(dep.spec, load_checkpoint(str(tmp / "dep.sevenn"))\n'
         '                 ["model_state_dict"], device="cpu",\n'
         '                 d3={"functional": "pbe", "damping": "zero",\n'

@@ -14,10 +14,9 @@
   by row;
 - every reader of ``_read_file`` (OUTCAR, POSCAR, structure_list, pickled
   and ase-read Atoms) reads synthetic files as JAX's does;
-- the branch that is not ported (``remat: True``) raises
-  ``NotImplementedError`` naming its ROADMAP item (A.3); the
-  ``.sevenn_data`` options and a continue of a JAX checkpoint's optax
-  state run.
+- ``remat: True``, which once raised, trains: its log.csv matches
+  ``remat: False``'s; the ``.sevenn_data`` options and a continue of a
+  JAX checkpoint's optax state run.
 """
 
 import argparse
@@ -526,17 +525,49 @@ def test_readers_match_jax(tmp_path, monkeypatch, name, fmt):
             assert abs(g.energy - s.energy) <= 1e-6
 
 
-# --- what is not ported -----------------------------------------------------
+# --- the options that once raised ------------------------------------------
 
 
 @pytest.mark.parametrize('override,item', [
     ({K.REMAT: True}, 'A.3'),
 ])
 def test_unported_train_options_raise(tmp_path, override, item):
-    cfg = global_config(*read_config_yaml(_yaml(tmp_path / 'in.yaml')))
-    cfg.update(override)
-    with pytest.raises(NotImplementedError, match=item.replace('.', r'\.')):
-        pipeline.train(cfg, str(tmp_path / 'out'), device='cpu')
+    """The option that raised until its ROADMAP item (``item``) was done
+    trains now: per-block remat gives the log.csv of ``remat: False``
+    (the same steps; float32 sums in another order in the double
+    backward), and its train steps run every block rematerialized."""
+    from sevennet_finetuning_tpu_torch.model import nequip
+
+    logs = {}
+    for remat in (True, False):
+        cfg = global_config(*read_config_yaml(_yaml(tmp_path / 'in.yaml')))
+        cfg.update(override if remat else {K.REMAT: False})
+        calls = []
+        apply = nequip._RematBlock.apply
+
+        def counted(*args):
+            calls.append(1)
+            return apply(*args)
+
+        nequip._RematBlock.apply = counted
+        try:
+            trainer = pipeline.train(cfg, str(tmp_path / f'out_{remat}'),
+                                     device='cpu')
+        finally:
+            nequip._RematBlock.apply = apply
+        assert trainer.remat is remat
+        assert bool(calls) is remat
+        with open(tmp_path / f'out_{remat}' / 'log.csv') as f:
+            logs[remat] = list(csv.DictReader(f))
+    assert len(logs[True]) == len(logs[False]) == 1
+    for got, want in zip(logs[True], logs[False]):
+        assert set(got) == set(want)
+        for k, v in want.items():
+            if k in ('epoch', 'lr'):
+                assert got[k] == v, k
+            else:
+                assert abs(float(got[k]) - float(v)) <= (
+                    1e-4 * abs(float(v)) + 1e-7), (k, got[k], v)
 
 
 @pytest.mark.parametrize('case', ['save_dataset', 'load_sevenn_data',

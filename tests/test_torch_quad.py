@@ -950,8 +950,11 @@ def test_run_blocks_refuses_unported_paths(narrow):
             run_blocks(spec, *args, exchange_fn=lambda v: v,
                        edges_sorted=edges_sorted),
             run_blocks(spec, *args, edges_sorted=edges_sorted))
-    with pytest.raises(NotImplementedError, match='A.3'):
-        run_blocks(spec, *args, remat=True)
+    # per-block remat gives the plain path's features, both branches
+    for edges_sorted in (True, False):
+        assert torch.equal(
+            run_blocks(spec, *args, remat=True, edges_sorted=edges_sorted),
+            run_blocks(spec, *args, edges_sorted=edges_sorted))
     # the MACE and Gaunt families take the unsorted path too, and agree
     # with their sorted one on the same graph
     order = np.lexsort((idx[1], idx[0]))
