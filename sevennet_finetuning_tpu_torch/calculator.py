@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from . import keys as K
-from . import resolve_device
+from . import resolve_device, tracing
 from .data.vasp import Structure
 from .model.graph import bucket_capacity, collate, structure_to_graph
 from .model.nequip import (
@@ -95,20 +95,27 @@ class Calculator:
 
     def batch(self, s: Structure) -> Dict[str, torch.Tensor]:
         """One structure as a padded batch on the calculator's device."""
-        g = structure_to_graph(s, self.spec.cutoff, self.type_map)
-        n_node = bucket_capacity(len(s), margin=1.0)
-        n_edge = bucket_capacity(g[K.EDGE_IDX].shape[1])
-        b = collate([g], n_node=n_node, n_edge=n_edge, n_graph=1)
-        return batch_to_torch(b, self.device)
+        with tracing.span('graph.build'):
+            g = structure_to_graph(s, self.spec.cutoff, self.type_map)
+            n_node = bucket_capacity(len(s), margin=1.0)
+            n_edge = bucket_capacity(g[K.EDGE_IDX].shape[1])
+            b = collate([g], n_node=n_node, n_edge=n_edge, n_graph=1)
+            return batch_to_torch(b, self.device)
 
     def calculate(self, s: Structure) -> Dict[str, np.ndarray]:
         """energy (eV), energies (eV/atom), forces (eV/A),
         stress (eV/A^3 Voigt xx yy zz xy yz zx) and stress_kbar."""
-        out = apply_model(self.model, self.batch(s))
         n = len(s)
-        energy = float(out[K.PRED_TOTAL_ENERGY][0])
-        forces = out[K.PRED_FORCE][:n].cpu().numpy()
-        stress = out[K.PRED_STRESS][0].cpu().numpy()
+        with tracing.span('calc.request', unit=True, n_atoms=n) as req:
+            batch = self.batch(s)
+            req.set(edge_capacity=int(batch[K.EDGE_IDX].shape[1]))
+            out = apply_model(self.model, batch)
+            with tracing.span('calc.fetch.wait'):
+                energy = float(out[K.PRED_TOTAL_ENERGY][0])
+                forces = out[K.PRED_FORCE][:n].cpu().numpy()
+                stress = out[K.PRED_STRESS][0].cpu().numpy()
+                energies = out[K.ATOMIC_ENERGY][:n].cpu().numpy()
+                tracing.count('host_syncs', 4)
         if self.d3 is not None:
             e_d3, f_d3, s_d3 = self._d3_terms(s)
             energy += e_d3
@@ -116,7 +123,7 @@ class Calculator:
             stress = stress + s_d3
         return {
             'energy': energy,
-            'energies': out[K.ATOMIC_ENERGY][:n].cpu().numpy(),
+            'energies': energies,
             'forces': forces,
             'stress': stress,
             'stress_kbar': stress * STRESS_COEFF_KBAR,

@@ -45,6 +45,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from . import tracing
 from .data.vasp import Structure
 
 # eV, Angstrom, atomic mass units; 1 eV/A / amu = 9.648533e27 A/s^2
@@ -194,42 +195,48 @@ class VelocityVerlet:
 
         calc = self.calc
         skin = float(self.skin)
-        g = structure_to_graph(self.s, calc.spec.cutoff + skin,
-                               calc.type_map)
-        # headroom + monotone growth: neighbor counts creep between
-        # rebuilds, and one quantum of slack absorbs the next creep
-        need = bucket_capacity(int(g[K.EDGE_IDX].shape[1] * EDGE_HEADROOM),
-                               quantum=EDGE_QUANTUM)
-        if need > self._cap_edge:
-            self._cap_edge = need + (EDGE_QUANTUM if self._cap_edge else 0)
-        b = collate([g], n_node=bucket_capacity(len(self.s), margin=1.0),
-                    n_edge=self._cap_edge, n_graph=1)
-        out = batch_to_torch(b, calc.device)
-        if calc.d3 is not None:
-            from .data.neighborlist import neighbor_list
-            from .ops.d3 import edge_sorts
+        with tracing.span('md.rebuild'):
+            with tracing.span('graph.build'):
+                g = structure_to_graph(self.s, calc.spec.cutoff + skin,
+                                       calc.type_map)
+                # headroom + monotone growth: neighbor counts creep
+                # between rebuilds, and one quantum of slack absorbs the
+                # next creep
+                need = bucket_capacity(
+                    int(g[K.EDGE_IDX].shape[1] * EDGE_HEADROOM),
+                    quantum=EDGE_QUANTUM)
+                if need > self._cap_edge:
+                    self._cap_edge = need + (EDGE_QUANTUM if self._cap_edge
+                                             else 0)
+                b = collate([g],
+                            n_node=bucket_capacity(len(self.s), margin=1.0),
+                            n_edge=self._cap_edge, n_graph=1)
+                out = batch_to_torch(b, calc.device)
+            if calc.d3 is not None:
+                from .data.neighborlist import neighbor_list
+                from .ops.d3 import edge_sorts
 
-            i3, j3, s3, _ = neighbor_list(
-                self.s.pos, self.s.cell, self.s.pbc,
-                calc.d3['cutoff_ang'] + skin)
-            self._cap_d3 = max(
-                self._cap_d3,
-                bucket_capacity(int(len(i3) * EDGE_HEADROOM),
-                                quantum=D3_QUANTUM))
-            cap = self._cap_d3
-            idx3 = np.zeros((2, cap), np.int32)
-            shift3 = np.zeros((cap, 3), np.float32)
-            mask3 = np.zeros(cap, np.float32)
-            idx3[0, :len(i3)] = i3
-            idx3[1, :len(i3)] = j3
-            shift3[:len(i3)] = s3
-            mask3[:len(i3)] = 1.0
-            dev = calc.device
-            out['d3_edge_idx'] = torch.as_tensor(idx3, device=dev)
-            out['d3_shift'] = torch.as_tensor(shift3, device=dev)
-            out['d3_mask'] = torch.as_tensor(mask3, device=dev)
-            out['d3_sorts'] = edge_sorts(out['d3_edge_idx'])
-        return out
+                i3, j3, s3, _ = neighbor_list(
+                    self.s.pos, self.s.cell, self.s.pbc,
+                    calc.d3['cutoff_ang'] + skin)
+                self._cap_d3 = max(
+                    self._cap_d3,
+                    bucket_capacity(int(len(i3) * EDGE_HEADROOM),
+                                    quantum=D3_QUANTUM))
+                cap = self._cap_d3
+                idx3 = np.zeros((2, cap), np.int32)
+                shift3 = np.zeros((cap, 3), np.float32)
+                mask3 = np.zeros(cap, np.float32)
+                idx3[0, :len(i3)] = i3
+                idx3[1, :len(i3)] = j3
+                shift3[:len(i3)] = s3
+                mask3[:len(i3)] = 1.0
+                dev = calc.device
+                out['d3_edge_idx'] = torch.as_tensor(idx3, device=dev)
+                out['d3_shift'] = torch.as_tensor(shift3, device=dev)
+                out['d3_mask'] = torch.as_tensor(mask3, device=dev)
+                out['d3_sorts'] = edge_sorts(out['d3_edge_idx'])
+            return out
 
     def _device_forces(self, batch, pos):
         """(forces [n_node, 3], potential energy []) at ``pos``, both on
@@ -292,62 +299,77 @@ class VelocityVerlet:
         remaining = n_steps
         with torch.no_grad():
             while remaining > 0:
-                n_active = min(seg_steps, remaining)
-                pos0 = batch[K.POS]
-                node_mask = batch[K.NODE_MASK]
-                if f is None:
-                    f = self._device_forces(batch, pos0)[0]
-                e_buf = torch.full((seg_steps,), float('nan'),
-                                   device=dev)
-                ke_buf = torch.full((seg_steps,), float('nan'),
-                                    device=dev)
-                pos = pos0
-                done = 0
-                while done < n_active:
-                    # stop BEFORE stepping once edges may be stale, so
-                    # the host rebuilds and re-runs from this state
-                    disp = torch.max(torch.sum((pos - pos0) ** 2, -1)
-                                     * node_mask)
-                    if not bool(disp <= thr):
-                        break
-                    a = f / m * ACC_UNIT
-                    v1 = vel + 0.5 * dt * a
-                    pos = pos + dt * v1
-                    f, e1 = self._device_forces(batch, pos)
-                    vel = v1 + 0.5 * dt * f / m * ACC_UNIT
-                    e_buf[done] = e1
-                    ke_buf[done] = 0.5 * torch.sum(m * vel * vel) / ACC_UNIT
-                    done += 1
-                # the single fetch per segment: positions and energies
-                packed = torch.cat([pos.reshape(-1), e_buf,
-                                    ke_buf]).cpu().numpy()
-                pos_flat = packed[:3 * n_node]
-                e_np = packed[3 * n_node:3 * n_node + seg_steps][:done]
-                ke_np = packed[3 * n_node + seg_steps:][:done]
-                self.result.energies.extend(float(x) for x in e_np)
-                self.result.kinetic.extend(float(x) for x in ke_np)
-                self.result.temperatures.extend(
-                    float(2 * k / (dof * KB_EV)) for k in ke_np)
-                self.result.segments.append(done)
-                if logger is not None and done:
-                    logger.writeline(
-                        f'segment: {done:4d} steps  '
-                        f'E_pot {e_np[-1]:14.6f}  E_kin {ke_np[-1]:10.6f}'
-                    )
-                if done == 0:
-                    raise RuntimeError(
-                        'MD segment made no progress (skin trip at step 0 '
-                        'after a fresh rebuild should be impossible)'
-                    )
-                remaining -= done
-                self.s.pos = pos_flat.reshape(n_node, 3)[:n].astype(float)
-                if remaining > 0:
-                    # neighbor rebuild (or segment exhausted): fresh edge
-                    # set; the carried force is exact under it (every
-                    # pair within cutoff is in both lists, the envelope
-                    # zeroes the rest)
-                    batch = self._device_batch()
-        self.vel = vel[:n].cpu().numpy().astype(float)
+                with tracing.span('md.segment'):
+                    n_active = min(seg_steps, remaining)
+                    pos0 = batch[K.POS]
+                    node_mask = batch[K.NODE_MASK]
+                    if f is None:
+                        f = self._device_forces(batch, pos0)[0]
+                    e_buf = torch.full((seg_steps,), float('nan'),
+                                       device=dev)
+                    ke_buf = torch.full((seg_steps,), float('nan'),
+                                        device=dev)
+                    pos = pos0
+                    done = 0
+                    while done < n_active:
+                        with tracing.span('md.step', unit=True) as step:
+                            # stop BEFORE stepping once edges may be
+                            # stale, so the host rebuilds and re-runs
+                            # from this state
+                            with tracing.span('md.skin.wait'):
+                                disp = torch.max(
+                                    torch.sum((pos - pos0) ** 2, -1)
+                                    * node_mask)
+                                fresh = bool(disp <= thr)
+                                tracing.count('host_syncs')
+                            if not fresh:
+                                step.set(skin_trip=True)
+                                break
+                            with tracing.span('md.integrate'):
+                                a = f / m * ACC_UNIT
+                                v1 = vel + 0.5 * dt * a
+                                pos = pos + dt * v1
+                            f, e1 = self._device_forces(batch, pos)
+                            with tracing.span('md.integrate'):
+                                vel = v1 + 0.5 * dt * f / m * ACC_UNIT
+                                e_buf[done] = e1
+                                ke_buf[done] = (0.5 * torch.sum(m * vel * vel)
+                                                / ACC_UNIT)
+                        done += 1
+                    # the single fetch per segment: positions and energies
+                    with tracing.span('md.fetch.wait'):
+                        packed = torch.cat([pos.reshape(-1), e_buf,
+                                            ke_buf]).cpu().numpy()
+                        tracing.count('host_syncs')
+                    pos_flat = packed[:3 * n_node]
+                    e_np = packed[3 * n_node:3 * n_node + seg_steps][:done]
+                    ke_np = packed[3 * n_node + seg_steps:][:done]
+                    self.result.energies.extend(float(x) for x in e_np)
+                    self.result.kinetic.extend(float(x) for x in ke_np)
+                    self.result.temperatures.extend(
+                        float(2 * k / (dof * KB_EV)) for k in ke_np)
+                    self.result.segments.append(done)
+                    if logger is not None and done:
+                        logger.writeline(
+                            f'segment: {done:4d} steps  '
+                            f'E_pot {e_np[-1]:14.6f}  E_kin {ke_np[-1]:10.6f}'
+                        )
+                    if done == 0:
+                        raise RuntimeError(
+                            'MD segment made no progress (skin trip at step 0 '
+                            'after a fresh rebuild should be impossible)'
+                        )
+                    remaining -= done
+                    self.s.pos = pos_flat.reshape(n_node, 3)[:n].astype(float)
+                    if remaining > 0:
+                        # neighbor rebuild (or segment exhausted): fresh edge
+                        # set; the carried force is exact under it (every
+                        # pair within cutoff is in both lists, the envelope
+                        # zeroes the rest)
+                        batch = self._device_batch()
+        with tracing.span('md.fetch.wait'):
+            self.vel = vel[:n].cpu().numpy().astype(float)
+            tracing.count('host_syncs')
         return self.result
 
     def run_device_halo(self, n_steps: int, seg_steps: int = 50,

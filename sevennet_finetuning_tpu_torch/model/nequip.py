@@ -55,7 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import keys as K
-from .. import resolve_device
+from .. import resolve_device, tracing
 from ..irreps import Irreps
 from ..ops.fused_conv import conv_messages, layout_from_spec, stride_to_e3nn
 from ..ops.fused_conv_agg import conv_aggregate
@@ -1082,12 +1082,15 @@ def apply_model(model: NequIP, data: Dict[str, torch.Tensor],
     autograd.grad of the total energy over edge vectors (reference:
     sevenn/nn/force_output.py:158-215); results are detached.  ``remat``:
     as in ``energy_network``."""
-    edge_vec = compute_edge_vec(data).detach().requires_grad_(True)
-    with torch.enable_grad():
-        out = energy_network(model, data, edge_vec, remat=remat)
+    with tracing.span('model.forward'):
+        edge_vec = compute_edge_vec(data).detach().requires_grad_(True)
+        with torch.enable_grad():
+            out = energy_network(model, data, edge_vec, remat=remat)
+    with tracing.span('model.grad'), torch.enable_grad():
         fij, = torch.autograd.grad(out[K.PRED_TOTAL_ENERGY].sum(), edge_vec)
-    out = _forces_and_stress(out, data, edge_vec, fij)
-    return detach_outputs(out)
+    with tracing.span('model.forces_stress'):
+        out = _forces_and_stress(out, data, edge_vec, fij)
+        return detach_outputs(out)
 
 
 def detach_outputs(out: Dict) -> Dict:
