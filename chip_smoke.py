@@ -311,6 +311,13 @@ SOURCES = {
         source='sevennet_finetuning_tpu_torch/csrc/cg_quad.cu',
         replaces='sevennet_finetuning_tpu/ops/fused_conv_kernel.py:167'),
 }
+# MD's neighbor rebuild on the card (two entry points, one a pass): it
+# replaces the host core of the rebuild, not a Pallas kernel
+NEIGHBOR_CELLS = 'sevennet_finetuning_tpu_torch/csrc/neighbor_cells.cu'
+NEIGHBOR_CORE = 'sevennet_finetuning_tpu_torch/native/neighborlist.cpp:57'
+NEIGHBOR = ('neighbor_count', 'neighbor_fill')
+SOURCES.update({name: dict(source=NEIGHBOR_CELLS, replaces=NEIGHBOR_CORE)
+                for name in NEIGHBOR})
 PROBE_COPY = 'sevennet_finetuning_tpu_torch/csrc/probe_copy.cu'
 PROBE_FEATS = 'sevennet_finetuning_tpu_torch/csrc/probe_feats.cu'
 SOURCES.update({
@@ -341,7 +348,7 @@ PATH_KERNELS = {
                  'cg_gmulti'),
     'unsorted': ('segment_sum', 'cg_quad'),
     'probes': PROBES,
-    'md': ('segment_sum', 'cg_agg', 'cg_multi'),
+    'md': ('segment_sum', 'cg_agg', 'cg_multi') + NEIGHBOR,
     'families': ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg',
                  'cg_gmulti'),
     'compat': ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg', 'cg_gmulti'),
@@ -353,16 +360,20 @@ PATH_KERNELS = {
 KERNEL_PATH = {name: 'train' for name in SOURCES}
 KERNEL_PATH['cg_quad'] = 'unsorted'
 KERNEL_PATH.update({name: 'probes' for name in PROBES})
+KERNEL_PATH.update({name: 'md' for name in NEIGHBOR})
 # the model kernels' family of a device kernel's name (the first match):
 # the entry point whose launches run it, so the instances of a template
 # add up to one profile row (the profiled paths launch no probe)
 KERNEL_FAMILIES = (
     ('seg_sum_', 'segment_sum'), ('cg_agg_bulk_kernel', 'cg_agg'),
     ('cg_gagg_kernel', 'cg_gagg'), ('cg_gmulti_kernel<1>', 'cg_multi'),
-    ('cg_gmulti_kernel<2>', 'cg_gmulti'), ('cg_quad_kernel', 'cg_quad'))
+    ('cg_gmulti_kernel<2>', 'cg_gmulti'), ('cg_quad_kernel', 'cg_quad'),
+    ('neighbor_cells_count_kernel', 'neighbor_count'),
+    ('neighbor_cells_fill_kernel', 'neighbor_fill'))
 # launches of one reEWC train step (PERF.md explains each count)
 TRAIN_CENSUS = {'cg_agg': 5, 'cg_multi': 10, 'cg_gagg': 5, 'cg_gmulti': 5,
-                'segment_sum': 13, 'cg_quad': 0, **{k: 0 for k in PROBES}}
+                'segment_sum': 13, 'cg_quad': 0,
+                **{k: 0 for k in PROBES + NEIGHBOR}}
 # launches of one reEWC train step with per-block remat (the remat phase;
 # PERF.md explains each count).  Each block runs its convolution four
 # times (the forward; the force pass's recompute for its VJP; the outer
@@ -375,7 +386,7 @@ TRAIN_CENSUS = {'cg_agg': 5, 'cg_multi': 10, 'cg_gagg': 5, 'cg_gmulti': 5,
 # width 480, block 0 at 128), four times a block
 REMAT_TRAIN_CENSUS = {'cg_agg': 20, 'cg_multi': 20, 'cg_gagg': 5,
                       'cg_gmulti': 5, 'segment_sum': 24, 'cg_quad': 0,
-                      **{k: 0 for k in PROBES}}
+                      **{k: 0 for k in PROBES + NEIGHBOR}}
 # the remat phase: two runs of the same steps (remat on and off; 'auto'
 # under REMAT_AUTO_BUDGET_GB, at which batch 8's estimate of 4.6 GiB
 # resolves to remat) run the same kernels on the same values but for the
@@ -396,7 +407,8 @@ REMAT_TIMED_STEPS = 3
 # launches of one unsorted pass: forward, fij with create_graph=True, and
 # the parameter gradient of a loss on fij (PERF.md explains each count)
 UNSORTED_CENSUS = {'cg_agg': 0, 'cg_multi': 0, 'cg_gagg': 0, 'cg_gmulti': 0,
-                   'segment_sum': 20, 'cg_quad': 77, **{k: 0 for k in PROBES}}
+                   'segment_sum': 20, 'cg_quad': 77,
+                   **{k: 0 for k in PROBES + NEIGHBOR}}
 UNSORTED_MODES = {'msg': 19, 'x': 20, 'sh': 19, 'w': 19}
 # unsorted against sorted on the same graph: only the order of float32
 # sums differs (the per-edge messages are summed after a sort by dst, the
@@ -1420,7 +1432,12 @@ def profile_device(label, fn, top=12):
             log(f'  {ms:9.4f} ms {count:5d}x  '
                 + (f'{fam} (csrc family; census {census.get(fam, 0)})'
                    if fam else name[:90]))
-    if profiled != census:
+    # the profiler drops a prefix of a window's device events (on an
+    # H100, 11 to 34 of a 96-atom MD segment's ~12,400, more as a process
+    # takes more profiles), and an MD window opens with a neighbor
+    # rebuild: md_census holds its launches instead
+    if ({k: v for k, v in profiled.items() if k not in NEIGHBOR}
+            != {k: v for k, v in census.items() if k not in NEIGHBOR}):
         raise AssertionError(f'{label}: profiled launches by family '
                              f'{profiled} differ from the census {census}')
     return wall, busy
@@ -2454,22 +2471,26 @@ class KernelCapture:
             self.worst[label] = worst
 
 
-def md_census(label, got, n_evals, d3, per_eval=MD_CENSUS):
-    """The launches of ``n_evals`` force evaluations: agg 5 and multi 5
-    each, at least 8 segment sums each (13 with D3), nothing else
+def md_census(label, got, n_evals, d3, per_eval=MD_CENSUS, builds=0):
+    """The launches of ``n_evals`` force evaluations and ``builds``
+    neighbor rebuilds on the card: agg 5 and multi 5 an evaluation, at
+    least 8 segment sums (13 with D3), the count and the fill pass a
+    rebuild (``run_device`` builds once a segment), nothing else
     (``per_eval``: the counts of one evaluation without D3, segment sums
     as the least)."""
     want = {k: v * n_evals for k, v in per_eval.items()
             if k != 'segment_sum'}
+    want.update({k: builds for k in NEIGHBOR})
     min_seg = (per_eval['segment_sum']
                + (D3_SEGMENT_SUMS if d3 else 0)) * n_evals
     others = {k: v for k, v in got.items()
-              if v and k not in ('cg_agg', 'cg_multi', 'segment_sum')}
+              if v and k not in ('segment_sum', *want)}
     if (any(got.get(k, 0) != v for k, v in want.items())
             or got.get('segment_sum', 0) < min_seg or others):
         raise AssertionError(f'{label}: launches {got}, expected {want} '
                              f'and segment_sum >= {min_seg} over {n_evals} '
-                             'force evaluations, nothing else')
+                             f'force evaluations and {builds} rebuilds, '
+                             'nothing else')
 
 
 def _launch_diff(before):
@@ -2543,6 +2564,116 @@ def timed_md(label, fn, n_steps, results):
         f'over {n_steps} steps, peak memory {peak:.3f} GiB')
 
 
+def _bit_equal(a, b):
+    """Same dtype, shape and bytes."""
+    import torch
+
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).contiguous().view(torch.uint8),
+        b.reshape(-1).contiguous().view(torch.uint8)))
+
+
+def md_rebuild_times(vv, times, rows, n=20):
+    """One rebuild of ``vv``'s structure on the card at its positions,
+    held key by key, bit for bit, against the host rebuild (the native
+    core's edges through ``collate``; AssertionError otherwise), then
+    timed: host ms to a sync (mean of ``n``), profiler device us of each
+    pass's kernels (the count pass's eight, the fill pass's one) and of
+    the packing's torch ops (at least: by ``n``), and each pass's byte
+    bound (count: the
+    positions read and the per-atom counts written; fill: each live
+    edge's i, j and shift written once); the host rebuild's ms beside
+    them.  Appends a case a pass to ``rows['neighbor_count']`` and
+    ``rows['neighbor_fill']``, the host rebuild as their plain version."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sevennet_finetuning_tpu_torch import keys as K
+    from sevennet_finetuning_tpu_torch.tools.bench_dma import device_rows
+
+    n_atoms = len(vv.s)
+    pos = vv._device_pos()
+    card = vv._device_batch(pos)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = vv._host_edges()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    m = int(card[K.EDGE_MASK].sum())
+    slots = card[K.EDGE_IDX].shape[1]
+    differ = sorted(set(card) ^ set(host)) + [
+        k for k in sorted(set(card) & set(host))
+        if not _bit_equal(card[k], host[k])]
+    err = max((float((card[k].double() - host[k].double()).abs().max())
+               for k in set(card) & set(host)
+               if card[k].shape == host[k].shape and card[k].numel()),
+              default=0.0)
+    log(f'  {n_atoms}-atom rebuild: the card batch against the host '
+        f'rebuild, {len(host)} keys, {m} edges in {slots} slots: '
+        f'{"bit-equal" if not differ else f"differs in {differ}"} '
+        f'(max_abs_err {err:.3e})')
+    if differ:
+        raise AssertionError(f'{n_atoms}-atom rebuild: the card batch is '
+                             f'not the host rebuild\'s in {differ}')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        vv._device_batch(pos)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3 / n
+    # the profiler drops a prefix of a window's device events (see
+    # profile_device), now and then all of them: each pass's time is per
+    # pass it recorded, up to 3 takes
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                vv._device_batch(pos)
+            torch.cuda.synchronize()
+        us = {'count': 0.0, 'fill': 0.0, 'pack': 0.0}
+        seen = {'count': 0, 'fill': 0}
+        for key, calls, ms in device_rows(prof):
+            name = key.removeprefix('void ').removeprefix(
+                '(anonymous namespace)::')
+            part = ('count' if name.startswith(
+                        ('nc_', 'neighbor_cells_count_kernel')) else
+                    'fill' if name.startswith('neighbor_cells_fill_kernel')
+                    else 'pack')
+            us[part] += ms * 1e3
+            if name.startswith('neighbor_cells_'):
+                seen[part] += calls
+        if seen['count'] and seen['fill']:
+            break
+    else:
+        raise AssertionError(f'{n_atoms}-atom rebuild: no device time '
+                             'profiled for the neighbor kernels')
+    us['count'] /= seen['count']
+    us['fill'] /= seen['fill']
+    us['pack'] /= n
+    bounds = {'count': bound_ms(16 * n_atoms, 0),
+              'fill': bound_ms(20 * m, 0)}
+    for part in ('count', 'fill'):
+        b_ms, b_by = bounds[part]
+        rows.setdefault(f'neighbor_{part}', []).append(dict(
+            shape=f'{n_atoms} atoms: {m} edges in {slots} slots',
+            max_abs_err=err, bit_equal_to_host=True,
+            ms=us[part] / 1e3, plain_ms=host_ms, library_ms=None,
+            bound_ms=b_ms, bound_by=b_by, device_us=us[part],
+            rebuild_ms=card_ms))
+    bound_us = sum(b for b, _ in bounds.values()) * 1e3
+    kernel_us = us['count'] + us['fill']
+    times[f'{n_atoms} rebuild'] = dict(
+        edges=m, slots=slots, card_ms=round(card_ms, 4),
+        count_us=round(us['count'], 2), fill_us=round(us['fill'], 2),
+        pack_us=round(us['pack'], 2), bound_us=round(bound_us, 3),
+        host_ms=round(host_ms, 3), same_as_host=True)
+    log(f'  [time] {n_atoms}-atom rebuild on the card: {card_ms:.4f} ms to '
+        f'a sync, device {us["count"]:.2f} us count + {us["fill"]:.2f} us '
+        f'fill + {us["pack"]:.2f} us packing ({m} edges; bound '
+        f'{bound_us:.3f} us, {100 * bound_us / kernel_us:.1f}% of the '
+        f'kernels\'); host rebuild {host_ms:.3f} ms')
+
+
 def md_768_d3(big, new_md, calc_d3, cap, times):
     """The 768-atom runs with D3 (~5.7 million D3 pairs): first, untimed,
     the host loop's first force evaluation (``calc_d3.calculate`` at the
@@ -2567,7 +2698,7 @@ def md_768_d3(big, new_md, calc_d3, cap, times):
     cap.check('md 768-atom D3 timed runs')
 
 
-def phase_md():
+def phase_md(rows):
     """Molecular dynamics on the card at SevenNet-0's full width: deploy
     the checkpoint (``main get_model``), serve ft.extxyz from the
     artifact and through ``main inference``, D3 terms, the device and
@@ -2575,12 +2706,13 @@ def phase_md():
     model; every distinct shape at which the phase launches a kernel is
     held against the kernel's plain version (``KernelCapture``).  The
     native neighbor list, as the MD and serving goldens were made.
-    Returns the launch counts of the phase."""
+    The neighbor rebuild's passes at 768 and 6,144 atoms are appended to
+    ``rows``.  Returns the launch counts of the phase."""
     with neighbor_builder('native'), KernelCapture() as cap:
-        return _md_runs(cap)
+        return _md_runs(cap, rows)
 
 
-def _md_runs(cap):
+def _md_runs(cap, rows):
     import csv
     import os
     import tempfile
@@ -2680,7 +2812,7 @@ def _md_runs(cap):
     before = dict(_cuda.LAUNCHES)
     vv.run_device(MD['n_steps'], seg_steps=MD['seg_steps'])
     md_census('96-atom run_device', _launch_diff(before),
-              MD['n_steps'] + 1, False)
+              MD['n_steps'] + 1, False, builds=len(vv.result.segments))
     check_md_golden('96-atom run_device', vv, gold, 'md')
     cap.check('md 96-atom step')
     timed_md('96 run_device', lambda: vv.run_device(
@@ -2698,7 +2830,7 @@ def _md_runs(cap):
     before = dict(_cuda.LAUNCHES)
     vv3.run_device(MD['n_steps_d3'], seg_steps=MD['seg_steps'])
     md_census('96-atom run_device with D3', _launch_diff(before),
-              MD['n_steps_d3'] + 1, True)
+              MD['n_steps_d3'] + 1, True, builds=len(vv3.result.segments))
     check_md_golden('96-atom run_device with D3', vv3, gold, 'md_d3')
     cap.check('md 96-atom D3 step')
     timed_md('96 d3 run_device', lambda: vv3.run_device(
@@ -2761,7 +2893,7 @@ def _md_runs(cap):
     before = dict(_cuda.LAUNCHES)
     vv8.run_device(MD768_STEPS, seg_steps=MD['seg_steps'])
     md_census('768-atom run_device', _launch_diff(before),
-              MD768_STEPS + 1, False)
+              MD768_STEPS + 1, False, builds=len(vv8.result.segments))
     cap.check('md 768-atom step')
     tot = np.array(vv8.result.total)
     drift = abs(tot[-1] - tot[0]) / len(big)
@@ -2782,6 +2914,8 @@ def _md_runs(cap):
     timed_md('768 run', lambda: host8.run(MD_TIMED_RUN_STEPS['768']),
              MD_TIMED_RUN_STEPS['768'], times)
     cap.check('md 768-atom timed runs')
+    for st in (big, replicate(s0, 4, 4, 4)):
+        md_rebuild_times(new_md(st, calc), times, rows)
     md_768_d3(
         big, lambda st, c=calc_d3: new_md(st, c), calc_d3, cap, times)
 
@@ -2805,7 +2939,7 @@ def _md_runs(cap):
     vvf.run_device(FCTP_STEPS, seg_steps=FCTP_STEPS)
     got = _launch_diff(before)
     md_census('FCTP run_device', got, FCTP_STEPS + 1, False,
-              per_eval=FCTP_CENSUS)
+              per_eval=FCTP_CENSUS, builds=len(vvf.result.segments))
     log(f'  FCTP run_device: {FCTP_STEPS} steps, segments '
         f'{vvf.result.segments}, E_tot {vvf.result.total[0]:.6f} -> '
         f'{vvf.result.total[-1]:.6f}, launches {got}')
@@ -4134,7 +4268,7 @@ def main():
                            'unsorted': phase_unsorted(batch),
                            'probes': probe_counts,
                            'families': phase_families(rows)}
-        path_counts['md'] = phase_md()
+        path_counts['md'] = phase_md(rows)
         path_counts['halo'] = phase_halo(work.name)
         with neighbor_builder('ckdtree'):
             path_counts['compat'] = phase_compat(Path(work.name))
@@ -4159,6 +4293,7 @@ def main():
     kernels = []
     for name, cases in {**rows, **probe_rows}.items():
         c = (cases[2] if name == 'segment_sum' else
+             cases[-1] if name in NEIGHBOR else
              next(c for c in cases
                   if c['shape'].startswith(PROBE_CASE.get(name, '')))
              if name in PROBES else

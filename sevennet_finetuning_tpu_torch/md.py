@@ -21,7 +21,10 @@ Two execution modes:
   displacement against (skin/2)^2) and stops before the step that would
   use stale edges, where the JAX ``lax.while_loop`` stops: the steps per
   segment (``MDResult.segments``) are the same.  The host fetches
-  positions and the energy buffers once per segment.  The first force of
+  positions and the energy buffers once per segment.  On a CUDA
+  calculator the rebuild runs on the card (``ops.neighbor``: the host
+  core's cell list as a kernel, from the segment's last device
+  positions), with one read of the edge count.  The first force of
   a segment is the last of the previous one.  D3 dispersion (a
   calculator built with ``d3=``) adds ``ops.d3.d3_energy`` on its own
   skin-padded edge list.
@@ -139,6 +142,9 @@ class VelocityVerlet:
         self.result = MDResult()
         self._cap_edge = 0
         self._cap_d3 = 0
+        # the card rebuild's node keys and cell list
+        self._nodes = None
+        self._cells = None
         self._hcaps: Dict = {}
 
     def set_temperature(self, T: float, seed: int = 0):
@@ -185,40 +191,39 @@ class VelocityVerlet:
         dof = 3 * len(self.s.pos) - 3
         return 2 * self.kinetic_energy() / (dof * KB_EV)
 
-    def _device_batch(self) -> Dict[str, torch.Tensor]:
+    def _device_pos(self) -> torch.Tensor:
+        """``self.s.pos`` on the calculator's device, float32, padded with
+        zeros to the batch's nodes (as ``collate`` pads them)."""
+        from .model.graph import bucket_capacity
+
+        host = np.zeros((bucket_capacity(len(self.s), margin=1.0), 3),
+                        np.float32)
+        host[:len(self.s)] = self.s.pos
+        return torch.as_tensor(host, device=self.calc.device)
+
+    def _device_batch(self, pos: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The current structure as a padded batch on the calculator's
         device, its edges built at cutoff + skin under the capacity rule;
-        with D3, its own skin-padded edge list and that list's sorts."""
-        from . import keys as K
-        from .model.graph import bucket_capacity, collate, structure_to_graph
-        from .model.nequip import batch_to_torch
+        with D3, its own skin-padded edge list and that list's sorts.
 
+        ``pos``: ``self.s.pos`` on the device, padded (``_device_pos``, or
+        a segment's last positions).  On a CUDA calculator the card builds
+        the edges from it; elsewhere the host builds the graph from
+        ``self.s.pos`` and copies it in."""
         calc = self.calc
-        skin = float(self.skin)
         with tracing.span('md.rebuild'):
-            with tracing.span('graph.build'):
-                g = structure_to_graph(self.s, calc.spec.cutoff + skin,
-                                       calc.type_map)
-                # headroom + monotone growth: neighbor counts creep
-                # between rebuilds, and one quantum of slack absorbs the
-                # next creep
-                need = bucket_capacity(
-                    int(g[K.EDGE_IDX].shape[1] * EDGE_HEADROOM),
-                    quantum=EDGE_QUANTUM)
-                if need > self._cap_edge:
-                    self._cap_edge = need + (EDGE_QUANTUM if self._cap_edge
-                                             else 0)
-                b = collate([g],
-                            n_node=bucket_capacity(len(self.s), margin=1.0),
-                            n_edge=self._cap_edge, n_graph=1)
-                out = batch_to_torch(b, calc.device)
+            if calc.device.type == 'cuda':
+                out = self._card_edges(pos)
+            else:
+                out = self._host_edges()
             if calc.d3 is not None:
                 from .data.neighborlist import neighbor_list
+                from .model.graph import bucket_capacity
                 from .ops.d3 import edge_sorts
 
                 i3, j3, s3, _ = neighbor_list(
                     self.s.pos, self.s.cell, self.s.pbc,
-                    calc.d3['cutoff_ang'] + skin)
+                    calc.d3['cutoff_ang'] + float(self.skin))
                 self._cap_d3 = max(
                     self._cap_d3,
                     bucket_capacity(int(len(i3) * EDGE_HEADROOM),
@@ -237,6 +242,89 @@ class VelocityVerlet:
                 out['d3_mask'] = torch.as_tensor(mask3, device=dev)
                 out['d3_sorts'] = edge_sorts(out['d3_edge_idx'])
             return out
+
+    def _grow_edge_capacity(self, n_edge: int) -> bool:
+        """Apply the capacity rule to ``n_edge`` live edges; True where the
+        capacity grew.  Headroom + monotone growth: neighbor counts creep
+        between rebuilds, and one quantum of slack absorbs the next creep."""
+        from .model.graph import bucket_capacity
+
+        need = bucket_capacity(int(n_edge * EDGE_HEADROOM),
+                               quantum=EDGE_QUANTUM)
+        if need <= self._cap_edge:
+            return False
+        self._cap_edge = need + (EDGE_QUANTUM if self._cap_edge else 0)
+        return True
+
+    def _host_edges(self) -> Dict[str, torch.Tensor]:
+        """The host rebuild: the native neighbor list, ``collate`` and the
+        copies of ``batch_to_torch``."""
+        from . import keys as K
+        from .model.graph import bucket_capacity, collate, structure_to_graph
+        from .model.nequip import batch_to_torch
+
+        calc = self.calc
+        with tracing.span('graph.build'):
+            g = structure_to_graph(self.s, calc.spec.cutoff + float(self.skin),
+                                   calc.type_map)
+            self._grow_edge_capacity(g[K.EDGE_IDX].shape[1])
+            b = collate([g], n_node=bucket_capacity(len(self.s), margin=1.0),
+                        n_edge=self._cap_edge, n_graph=1)
+            return batch_to_torch(b, calc.device)
+
+    def _node_keys(self) -> Dict[str, torch.Tensor]:
+        """The batch's node and per-graph keys on the calculator's device
+        (``collate`` of the structure without edges), which no rebuild
+        changes."""
+        from . import keys as K
+        from .model.graph import bucket_capacity, collate, structure_nodes
+        from .model.nequip import EDGE_SRC_INV_PERM, batch_to_torch
+
+        calc = self.calc
+        g = structure_nodes(self.s, calc.type_map)
+        g[K.EDGE_IDX] = np.zeros((2, 0), np.int32)
+        g[K.CELL_SHIFT] = np.zeros((0, 3), np.float32)
+        b = collate([g], n_node=bucket_capacity(len(self.s), margin=1.0),
+                    n_edge=0, n_graph=1)
+        out = batch_to_torch(b, calc.device)
+        for k in (K.POS, K.EDGE_IDX, K.CELL_SHIFT, K.EDGE_MASK,
+                  K.EDGE_SRC_PERM, EDGE_SRC_INV_PERM):
+            del out[k]
+        return out
+
+    def _card_edges(self, pos: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The card rebuild (``ops.neighbor``): the count pass, one read
+        of the edge total, the capacity rule, the fill pass, then the
+        padding and the src sort.  The edge tensors are new each rebuild
+        (the caching allocator's): a batch handed out earlier keeps its
+        edges."""
+        from . import keys as K
+        from .model.nequip import EDGE_SRC_INV_PERM
+        from .ops.neighbor import CellList, pack_edges
+
+        calc = self.calc
+        dev = calc.device
+        if self._nodes is None:
+            self._nodes = self._node_keys()
+            self._cells = CellList(self.s.cell, self.s.pbc,
+                                   calc.spec.cutoff + float(self.skin),
+                                   self.s.pos, dev)
+        n_node = self._nodes[K.NODE_MASK].shape[0]
+        with tracing.span('md.rebuild.wait'):
+            n_edge, reads = self._cells.count(pos)
+            tracing.count('host_syncs', reads)
+        if self._grow_edge_capacity(n_edge):
+            tracing.count('md.rebuild.grow')
+        cap = self._cap_edge
+        idx = torch.empty((2, cap), dtype=torch.int32, device=dev)
+        shift = torch.empty((cap, 3), dtype=torch.float32, device=dev)
+        mask = torch.empty(cap, dtype=torch.float32, device=dev)
+        self._cells.fill(idx, shift)
+        perm, inv = pack_edges(idx, shift, mask, n_edge, n_node)
+        tracing.count('md.rebuild.device')
+        return dict(self._nodes, **{
+            K.POS: pos, K.EDGE_IDX: idx, K.CELL_SHIFT: shift,
+            K.EDGE_MASK: mask, K.EDGE_SRC_PERM: perm, EDGE_SRC_INV_PERM: inv})
 
     def _device_forces(self, batch, pos):
         """(forces [n_node, 3], potential energy []) at ``pos``, both on
@@ -285,7 +373,7 @@ class VelocityVerlet:
         thr = (float(self.skin) / 2) ** 2
         dev = self.calc.device
 
-        batch = self._device_batch()
+        batch = self._device_batch(self._device_pos())
         n_node = batch[K.POS].shape[0]
         masses = np.ones(n_node)
         masses[:n] = self.masses
@@ -366,7 +454,7 @@ class VelocityVerlet:
                         # set; the carried force is exact under it (every
                         # pair within cutoff is in both lists, the envelope
                         # zeroes the rest)
-                        batch = self._device_batch()
+                        batch = self._device_batch(pos)
         with tracing.span('md.fetch.wait'):
             self.vel = vel[:n].cpu().numpy().astype(float)
             tracing.count('host_syncs')

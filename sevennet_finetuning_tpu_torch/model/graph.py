@@ -21,18 +21,12 @@ from ..data.neighborlist import neighbor_list
 from ..data.vasp import Structure
 
 
-def structure_to_graph(
+def structure_nodes(
     s: Structure,
-    cutoff: float,
     type_map: Dict[int, int],
 ) -> Dict[str, np.ndarray]:
-    """One Structure -> unpadded numpy graph with labels.
-
-    Edge convention matches the reference (reference:
-    sevenn/train/dataload.py:36-48): edge_index[0]=i, edge_index[1]=j,
-    edge_vec = pos[j] + shift.cell - pos[i]; messages flow j -> i.
-    """
-    idx_i, idx_j, shift, _ = neighbor_list(s.pos, s.cell, s.pbc, cutoff)
+    """One Structure's node and per-graph keys with labels: the graph of
+    ``structure_to_graph`` without its edges."""
     z = s.atomic_numbers
     try:
         atom_type = np.array([type_map[int(n)] for n in z], dtype=np.int32)
@@ -43,8 +37,6 @@ def structure_to_graph(
         K.POS: s.pos.astype(np.float32),
         K.ATOMIC_NUMBERS: z.astype(np.int32),
         K.ATOM_TYPE: atom_type,
-        K.EDGE_IDX: np.stack([idx_i, idx_j]).astype(np.int32),
-        K.CELL_SHIFT: shift.astype(np.float32),
         K.CELL: s.cell.astype(np.float32).reshape(1, 3, 3),
         K.CELL_VOLUME: np.array([s.volume], dtype=np.float32),
         K.NUM_ATOMS: np.array([len(s)], dtype=np.int32),
@@ -62,6 +54,24 @@ def structure_to_graph(
         g[K.STRESS] = np.full((1, 6), np.nan, dtype=np.float32)
     g[K.INFO] = dict(s.info)
     g[K.USER_LABEL] = s.info.get('label', K.LABEL_NONE)
+    return g
+
+
+def structure_to_graph(
+    s: Structure,
+    cutoff: float,
+    type_map: Dict[int, int],
+) -> Dict[str, np.ndarray]:
+    """One Structure -> unpadded numpy graph with labels.
+
+    Edge convention matches the reference (reference:
+    sevenn/train/dataload.py:36-48): edge_index[0]=i, edge_index[1]=j,
+    edge_vec = pos[j] + shift.cell - pos[i]; messages flow j -> i.
+    """
+    idx_i, idx_j, shift, _ = neighbor_list(s.pos, s.cell, s.pbc, cutoff)
+    g = structure_nodes(s, type_map)
+    g[K.EDGE_IDX] = np.stack([idx_i, idx_j]).astype(np.int32)
+    g[K.CELL_SHIFT] = shift.astype(np.float32)
     return g
 
 

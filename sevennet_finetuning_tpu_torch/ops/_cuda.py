@@ -32,7 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
 SOURCES = ('segment_sum', 'cg_agg', 'cg_gagg', 'cg_gmulti', 'cg_quad',
-           'probe_copy', 'probe_feats')
+           'neighbor_cells', 'probe_copy', 'probe_feats')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -60,6 +60,10 @@ SIGNATURES = {
     # the mode, the legs, the plan; its meta, the launch config and the
     # shared-memory layout are host arrays
     'cg_quad': ('cg_quad_f32', (_I,) + (_P,) * 8 + (_I,) * 5 + (_P,)),
+    # MD's neighbor rebuild (ops/neighbor.py): the work buffers' device
+    # pointers, the geometry and the sizes are host arrays
+    'neighbor_count': ('neighbor_count_f32', (_P,) * 5),
+    'neighbor_fill': ('neighbor_fill_f32', (_P,) * 5 + (_I, _P)),
     # the measurement probes of tools/ (csrc/probe_copy.cu,
     # csrc/probe_feats.cu)
     'probe_copy_tiled': ('probe_copy_tiled_f32',
@@ -76,6 +80,7 @@ SIGNATURES = {
 # a source
 SHARED_SOURCES = {
     'cg_gmulti': ('cg_multi',),
+    'neighbor_cells': ('neighbor_count', 'neighbor_fill'),
     'probe_copy': ('probe_copy_tiled', 'probe_colsum', 'probe_copy_ring'),
     'probe_feats': ('probe_transpose', 'probe_split', 'probe_dot',
                     'probe_window')}

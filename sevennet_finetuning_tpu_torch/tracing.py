@@ -12,7 +12,11 @@ instrumented boundaries (one thread: the caller's):
   unit; ``skin_trip`` on the attempt that stops a segment) with
   ``md.skin.wait``, ``md.integrate`` and the ``model.*`` spans inside,
   ``md.fetch.wait`` (the segment's packed read, and the velocities at the
-  end) and ``md.rebuild`` (``_device_batch``, with ``graph.build``).
+  end) and ``md.rebuild`` (``_device_batch``: ``graph.build`` on the
+  host; on a CUDA calculator ``md.rebuild.wait``, the read of the card
+  build's edge count, and the counters ``md.rebuild.device``, one a
+  rebuild on the card, and ``md.rebuild.grow``, one a growth of its edge
+  capacity, the first included).
 
 Every explicit device-to-host read sits in a span whose name ends in
 ``.wait`` and adds one to the counter ``host_syncs``.
