@@ -34,6 +34,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..irreps import Irreps
 from .mlp import mlp_apply
 from .scatter import aggregate_messages, gather_rows
@@ -335,7 +336,24 @@ def apply_gaunt_conv(
     arguments: ``src_perm`` / ``src_inv`` (collate's EDGE_SRC_PERM and its
     inverse; the stable sort of ``edge_src`` is taken when not given) and,
     for an unsorted ``edge_dst``, ``dst_sort`` (its ``scatter.sort_perm``,
-    taken once per call when not given)."""
+    taken once per call when not given).
+
+    Inside the span ``gaunt.conv`` (``edges``, ``mul``, ``M``); the
+    counter ``gaunt.grid_bytes`` adds the bytes of one per-edge sample
+    grid, E x mul x M^2 elements."""
+    M = 2 * (spec.L_x + spec.L_f) + 1
+    E = edge_src.shape[0]
+    tracing.count('gaunt.grid_bytes', E * spec.mul * M * M
+                  * x_flat.element_size())
+    with tracing.span('gaunt.conv', edges=E, mul=spec.mul, M=M):
+        return _gaunt_conv(spec, weight_nn_params, x_flat, edge_attr, emb,
+                           edge_src, edge_dst, n_node, denominator,
+                           sorted_dst, rfft, src_perm, src_inv, dst_sort)
+
+
+def _gaunt_conv(spec, weight_nn_params, x_flat, edge_attr, emb, edge_src,
+                edge_dst, n_node, denominator, sorted_dst, rfft, src_perm,
+                src_inv, dst_sort):
     L = spec.L_x + spec.L_f
     size = (2 * L + 1, 2 * L + 1)
 
@@ -456,7 +474,14 @@ def apply_gaunt_pb(
     x_flat: torch.Tensor,
 ) -> torch.Tensor:
     """x -> sum_v (weighted x)^(x v), Fourier-accumulated then projected
-    (reference: sevenn/nn/gaunt_product_basis.py:84-129)."""
+    (reference: sevenn/nn/gaunt_product_basis.py:84-129), inside the span
+    ``gaunt.pb`` (``nodes``, ``correlation``)."""
+    with tracing.span('gaunt.pb', nodes=x_flat.shape[0],
+                      correlation=spec.correlation):
+        return _gaunt_pb(spec, params, x_flat)
+
+
+def _gaunt_pb(spec, params, x_flat):
     L_x, L_out = spec.L_x, spec.L_true
     n = 2 * L_out + 1
     size = (n, n)

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..data.neighborlist import neighbor_list
 from ..data.vasp import Structure
 from ..ops.scatter import gather_rows, inverse_perm
@@ -459,6 +460,15 @@ class DistTransport:
                        for st in plan.stages]
 
     def swap(self, stage: int, up: torch.Tensor, down: torch.Tensor):
+        """Inside the span ``halo.swap`` (``stage``, ``rows``); the counter
+        ``halo.swap_bytes`` adds the bytes this rank sends."""
+        tracing.count('halo.swap_bytes', up.numel() * up.element_size()
+                      + down.numel() * down.element_size())
+        with tracing.span('halo.swap', stage=stage,
+                          rows=up.shape[-2] + down.shape[-2]):
+            return self._swap(stage, up, down)
+
+    def _swap(self, stage: int, up: torch.Tensor, down: torch.Tensor):
         device = up.device
         sync = self.timed and device.type == 'cuda'
         if sync:

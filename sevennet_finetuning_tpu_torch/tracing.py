@@ -16,7 +16,14 @@ instrumented boundaries (one thread: the caller's):
   host; on a CUDA calculator ``md.rebuild.wait``, the read of the card
   build's edge count, and the counters ``md.rebuild.device``, one a
   rebuild on the card, and ``md.rebuild.grow``, one a growth of its edge
-  capacity, the first included).
+  capacity, the first included);
+- ``ops/gaunt.py``: ``gaunt.conv`` around ``apply_gaunt_conv`` (``edges``,
+  ``mul``, ``M``) with the counter ``gaunt.grid_bytes``, the bytes of its
+  per-edge sample grids (E x mul x M^2 elements), and ``gaunt.pb`` around
+  ``apply_gaunt_pb`` (``nodes``, ``correlation``);
+- ``parallel/halo.py``: ``halo.swap`` around each ``DistTransport.swap``
+  (``stage``, ``rows``; a backward's reverse swap too, from autograd's
+  thread) with the counter ``halo.swap_bytes``, the bytes the rank sends.
 
 Every explicit device-to-host read sits in a span whose name ends in
 ``.wait`` and adds one to the counter ``host_syncs``.
