@@ -166,18 +166,25 @@ phases and exits non-zero if any fails:
               ft.extxyz against the golden (the serving limits; Gaunt's
               energy within 3e-5, its float32 floor: PERF.md), each
               request launching exactly its census (MACE agg 2, multi 2,
-              segment-sum 5; Gaunt 1 / 1 / 8; Gaunt-gate 2 / 2 / 11); MACE
+              segment-sum 5; Gaunt 3 / 3 / 6; Gaunt-gate 5 / 5 / 8: the
+              Gaunt layers' convolutions on agg and multi through their
+              coupling layouts); MACE
               and Gaunt take three train steps on ft900 structure 0
               against the golden (loss terms, every leaf's first-step
               gradient within 1e-3 of its max|g|), each step launching
               its census (MACE agg 2, multi 4, gagg 2, gmulti 2,
-              segment-sum 7; Gaunt 1 / 2 / 1 / 1 / 13).  Every distinct
+              segment-sum 7; Gaunt 3 / 6 / 3 / 3 / 9).  Every distinct
               shape of segment_sum, cg_agg, cg_multi, cg_gagg and
               cg_gmulti launched is held against its plain version, and
               the new shapes (MACE's l = 3 layouts; segment_sum at D =
               1,152 and 10,368) are timed beside their bounds.  Prints
               each family's parameter count, ms per request (wall and
               profiled device time), ms per train step and peak memory.
+              Then the Gaunt convolution's coupling path against its FFT
+              formulation at the Gaunt cell's 1,152-atom structure
+              (``gaunt_coupling_check``): layer 1's value and cotangents,
+              and the request's energy, forces and stress under the
+              cell's limits.
 13. compat  -- checkpoint and deploy interop at SevenNet-0's full width
               (the card's name and power limit printed first): (1) the
               checkpoint as a reference training .pth (state_dict_from_
@@ -258,6 +265,7 @@ first-step gradients lie from the float64 ones (several minutes of CPU).
 """
 
 import contextlib
+import functools
 import itertools
 import json
 import os
@@ -518,18 +526,23 @@ FCTP_CENSUS = {'cg_agg': 4, 'cg_multi': 4, 'segment_sum': 7}
 GOLDEN_FAMILIES = PKG / 'golden/families_jax_cpu.npz'
 FAMILY_KERNELS = ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg',
                   'cg_gmulti')
+# A Gaunt layer's convolution runs on cg_agg / cg_multi through its
+# coupling layout (ops/gaunt.gaunt_layout), as a CG layer's does: a
+# request launches agg and multi once a layer and segment-sum for the
+# energy, the two force sums, the virial and the src-side scatter of
+# every layer but the first
 FAMILY_SERVE_CENSUS = {
     'mace_mp0_medium_widths': {'cg_agg': 2, 'cg_multi': 2,
                                'segment_sum': 5},
-    'gaunt_sevennet0_widths': {'cg_agg': 1, 'cg_multi': 1,
-                               'segment_sum': 8},
-    'gaunt_gate_sevennet0_widths': {'cg_agg': 2, 'cg_multi': 2,
-                                    'segment_sum': 11}}
+    'gaunt_sevennet0_widths': {'cg_agg': 3, 'cg_multi': 3,
+                               'segment_sum': 6},
+    'gaunt_gate_sevennet0_widths': {'cg_agg': 5, 'cg_multi': 5,
+                                    'segment_sum': 8}}
 FAMILY_TRAIN_CENSUS = {
     'mace_mp0_medium_widths': {'cg_agg': 2, 'cg_multi': 4, 'cg_gagg': 2,
                                'cg_gmulti': 2, 'segment_sum': 7},
-    'gaunt_sevennet0_widths': {'cg_agg': 1, 'cg_multi': 2, 'cg_gagg': 1,
-                               'cg_gmulti': 1, 'segment_sum': 13}}
+    'gaunt_sevennet0_widths': {'cg_agg': 3, 'cg_multi': 6, 'cg_gagg': 3,
+                               'cg_gmulti': 3, 'segment_sum': 9}}
 FAMILY_TERMS = ('Total', 'Energy', 'Force', 'Stress')
 GRAD_TOL.update(dict.fromkeys(FAMILY_TRAIN_CENSUS, 1e-3))
 # the energy limit of a family where the serving limit lies under the
@@ -3063,8 +3076,103 @@ def phase_families(rows):
     # the new shapes' timings (their launches are not the path's)
     family_kernel_rows(rows, calcs['mace_mp0_medium_widths'],
                        calcs['gaunt_sevennet0_widths'], structure)
+    del calcs
+    gaunt_coupling_check()
     log(f'[families] phase {time.perf_counter() - t_phase:.1f} s')
     return counts
+
+
+# the Gaunt cell's configuration and limits (benchmark/), its 1,152-atom
+# structure (the first 96-atom structure of its source file replicated
+# 3 x 2 x 2) and a weight seed of the size the driver draws
+GAUNT_CELL = 'gaunt_mp0_medium_widths.serve_1152'
+GAUNT_CONFIG = ROOT / 'benchmark/configs/gaunt_mp0_medium_widths.json'
+GAUNT_LIMITS = ROOT / f'benchmark/limits/{GAUNT_CELL}.json'
+GAUNT_REPS = (3, 2, 2)
+GAUNT_SEED = 2 ** 33 + 17
+
+
+def gaunt_coupling_check(device='cuda', reps=GAUNT_REPS):
+    """The Gaunt convolution's coupling path (``apply_gaunt_conv``) against
+    its FFT formulation (``gaunt_conv_fft``, the Hermitian variant) on the
+    card in float32, at the Gaunt cell's 1,152-atom structure with its
+    configuration and seeded weights: (1) layer 1's convolution on the
+    inputs it received in a request, value and the cotangents of the
+    features, harmonics and radial embedding under a seeded projection,
+    each max|a - b| / max|b|; (2) the request's energy, forces and stress
+    with each formulation in the model, gaps as the cell's ``correct``
+    computes them, each under the cell's limit.  ``device`` and ``reps``
+    (the replication) serve a rehearsal on the CPU at a small size.
+    Returns the gaps."""
+    import numpy as np
+    import torch
+
+    from benchmark import inputs, program
+    from benchmark.reference import gaunt as ref_gaunt
+    from sevennet_finetuning_tpu_torch.model import nequip
+    from sevennet_finetuning_tpu_torch.ops import gaunt as tg
+
+    cfg = program.model_config(json.loads(GAUNT_CONFIG.read_text()))
+    limits = json.loads(GAUNT_LIMITS.read_text())['limits']
+    calc = program.calculator(
+        cfg, ref_gaunt.init_weights(cfg, GAUNT_SEED, device), device)
+    src = next(s for s in inputs.read_extxyz(FT900)
+               if len(s['numbers']) == 96)
+    struct = inputs.to_program(inputs.replicate(src, reps))
+    seen = []
+
+    def recorded(spec, w, x, sh, emb, *rest, **kw):
+        if not seen:
+            seen.append((spec, [v.detach() for v in w], x.detach(),
+                         sh.detach(), emb.detach(), rest, kw))
+        return tg.apply_gaunt_conv(spec, w, x, sh, emb, *rest, **kw)
+
+    def serve(conv):
+        keep = nequip.apply_gaunt_conv
+        nequip.apply_gaunt_conv = conv
+        try:
+            r = calc.calculate(struct)
+        finally:
+            nequip.apply_gaunt_conv = keep
+        return (float(r['energy']), np.asarray(r['forces'], np.float64),
+                np.asarray(r['stress'], np.float64))
+
+    got = serve(recorded)
+    spec, w, x, sh, emb, rest, kw = seen[0]
+
+    def layer(conv):
+        leaves = [v.clone().requires_grad_(True) for v in (x, sh, emb)]
+        out = conv(spec, w, *leaves, *rest, **kw)
+        gen = torch.Generator(device=out.device).manual_seed(GAUNT_SEED)
+        ct = torch.randn(out.shape, generator=gen, device=out.device)
+        return [out.detach(), *torch.autograd.grad((out * ct).sum(),
+                                                   leaves)]
+
+    names = ('value', 'x cotangent', 'harmonics cotangent',
+             'embedding cotangent')
+    gaps = {}
+    for n, a, b in zip(names, layer(tg.apply_gaunt_conv),
+                       layer(functools.partial(tg.gaunt_conv_fft,
+                                               rfft=True))):
+        gaps[n] = float((a - b).abs().max() / b.abs().max())
+    del seen
+    want = serve(tg.gaunt_conv_fft)
+    (e, f, s), (re, rf, rs) = got, want
+    model = {'energy': abs(e - re) / abs(re),
+             'forces': float(np.abs(f - rf).max() / np.abs(rf).max()),
+             'stress': float(np.abs(s - rs).max() / np.abs(rs).max())}
+    log(f'[gaunt] layer 1 at {len(struct.species)} atoms, {sh.shape[0]} '
+        'edges on ' + str(x.device) + ': coupling path against the FFT '
+        'formulation, max|a - b| / max|b|: '
+        + ', '.join(f'{k} {v:.3e}' for k, v in gaps.items()))
+    log('[gaunt] the request, coupling path against the FFT formulation: '
+        + ', '.join(f'{k} {v:.3e} (limit {limits[k]:.3e})'
+                    for k, v in model.items()))
+    for k, v in model.items():
+        if not v <= limits[k]:
+            raise AssertionError(f'gaunt coupling path: {k} gap {v:.3e} '
+                                 f'over the cell limit {limits[k]:.3e}')
+    return {'layer': gaps, 'request': model}
 
 
 def _family_runs(cap):

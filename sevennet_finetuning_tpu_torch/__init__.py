@@ -13,7 +13,7 @@ its own copies of the host-side code and never imports JAX.
                   gaunt, gaunt_gate and custom interaction families),
                   spec builder, ``init_params``
 - ``ops``       : equivariant primitives (the symmetric contraction and
-                  the Gaunt FFT products among them); ``scatter`` and the
+                  the Gaunt products among them); ``scatter`` and the
                   ``fused_conv_*`` modules wrap the CUDA kernels in
                   ``csrc/`` (plain PyTorch versions run for CPU tensors)
 - ``train``     : trainer (train / eval steps, rehearsal, Fisher), loss,

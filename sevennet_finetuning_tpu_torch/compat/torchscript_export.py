@@ -208,7 +208,7 @@ def _tmods():
             self.sh_off = int(grp.sh_off)
             self.d2 = int(grp.d2)
             self.register_buffer(
-                'ccat', torch.from_numpy(_group_ccat(grp).copy()))
+                'ccat', torch.from_numpy(_group_ccat(grp).astype(np.float32)))
             self.msg_offs = [int(p.msg_off) for p in grp.paths]
             self.d_outs = [int(p.d_out) for p in grp.paths]
             self.w_offs = [int(p.w_off) for p in grp.paths]

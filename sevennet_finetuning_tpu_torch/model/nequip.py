@@ -28,9 +28,9 @@ in the JAX package).
 The block families of the JAX package (``BlockSpec.block_type``):
 'nequip' (CG convolution, gate), 'mace' (CG convolution, then the
 symmetric-contraction product basis of ``ops/symmetric_contraction``,
-si3 and the residual), 'gaunt' (the Gaunt FFT convolution of
-``ops/gaunt`` where both sides carry l > 0, the residual, then the Gaunt
-product basis), 'gaunt_gate' (the Gaunt convolution in a gated block),
+si3 and the residual), 'gaunt' (the Gaunt convolution of ``ops/gaunt``
+where both sides carry l > 0, the residual, then the Gaunt product
+basis), 'gaunt_gate' (the Gaunt convolution in a gated block),
 and 'custom' (a ``CustomBlockSpec`` plugin).  The halo-parallel path
 (``run_blocks(exchange_fn=, halo_split=)``, driven by
 ``parallel/halo``) runs each convolution once per edge partition: local
@@ -857,8 +857,8 @@ def _run_one_block(blk, p, x, onehot, emb, edge_attr, edge_src, edge_dst,
             agg = a if agg is None else agg + a
         x = agg / conv_p['denominator']
     elif not cg:
-        # the Gaunt convolution: per-edge products of sample grids, the
-        # sorted segment sum by dst (ops/gaunt)
+        # the Gaunt convolution: the fused convolution through the Gaunt
+        # product's coupling layout (ops/gaunt)
         x = apply_gaunt_conv(blk.gaunt_conv, mlp_w, x_all, edge_attr, emb,
                              edge_src, edge_dst, n_node,
                              conv_p['denominator'],

@@ -171,9 +171,11 @@ def e3nn_to_stride(irreps: Irreps, arr: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _group_ccat(group: CGGroup) -> np.ndarray:
-    """Dense [d1, d2, K] coefficient block, K = concat of path k axes."""
+    """Dense [d1, d2, K] coefficient block, K = concat of path k axes, in
+    float64: ``cg_modes`` casts it to its legs' dtype (float32 rounds
+    each coefficient once, as the kernels' tables do)."""
     K = sum(p.d_out for p in group.paths)
-    C = np.zeros((group.d1, group.d2, K), np.float32)
+    C = np.zeros((group.d1, group.d2, K), np.float64)
     k0 = 0
     for p in group.paths:
         for (k, i, j, c) in p.nnz:

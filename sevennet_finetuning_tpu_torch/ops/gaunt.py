@@ -13,22 +13,31 @@ evaluated as FFT pointwise products.
   polynomials of bounded degree); Z (Fourier -> SH) is the Moore-Penrose
   pseudo-inverse of Y.  Both are float64 numpy on the host, cached, and
   copied to a device once per (dtype, device).
-- The Hermitian fast path (``use_rfft``) takes its real FFTs with
-  ``torch.fft.rfft2`` / ``irfft2``, which autograd differentiates to any
-  order.  (The JAX module wraps them in a primitive of its own only so
-  that shard_map transposes carry varying axes.)  ``SEVENN_GAUNT_RFFT=0``
-  selects the complex-FFT formulation, the oracle.
-- ``apply_gaunt_conv`` gathers the per-node sample grids by source with
-  ``scatter.gather_rows`` and aggregates the messages by destination
-  with the sorted segment sum (``csrc/segment_sum.cu`` on the card), so
-  both sums, and their backward passes, run in a fixed order.
+- ``apply_gaunt_conv``, the model's path, contracts through the Gaunt
+  product's sparse coupling table (``gaunt_layout``: a ``CGLayout`` of
+  (k, i, j, c) couplings, 21 at (l <= 1) x (l <= 3) -> (l <= 1)) on the
+  port's fused CG convolution (``conv_aggregate``: ``csrc/cg_agg.cu``
+  forward, ``cg_multi`` / ``cg_gagg`` / ``cg_gmulti`` backward, their
+  plain versions on CPU tensors), so no per-edge sample grid exists.
+- ``gaunt_conv_fft`` keeps the FFT formulation: the source of that table
+  and the reference the coupling path is held against.  Its Hermitian
+  fast path takes its real FFTs with ``torch.fft.rfft2`` / ``irfft2``,
+  which autograd differentiates to any order.  (The JAX module wraps
+  them in a primitive of its own only so that shard_map transposes carry
+  varying axes.)  ``SEVENN_GAUNT_RFFT=0`` selects its complex-FFT
+  variant; the switch chooses between those two variants only.  It
+  gathers the per-node sample grids by source with ``scatter.gather_rows``
+  and aggregates the messages by destination with the sorted segment sum
+  (``csrc/segment_sum.cu`` on the card), so both sums, and their backward
+  passes, run in a fixed order.
 """
 
 from __future__ import annotations
 
+import operator
 import os
 from dataclasses import dataclass
-from functools import lru_cache
+from functools import lru_cache, reduce
 from typing import Tuple
 
 import numpy as np
@@ -36,6 +45,9 @@ import torch
 
 from .. import tracing
 from ..irreps import Irreps
+from .fused_conv import (CGGroup, CGLayout, CGPath, conv_messages,
+                         e3nn_to_stride)
+from .fused_conv_agg import conv_aggregate
 from .mlp import mlp_apply
 from .scatter import aggregate_messages, gather_rows
 from .spherical import _recursion_scales
@@ -209,8 +221,9 @@ def _coeffs_from_real_samples(S: torch.Tensor, L: int) -> torch.Tensor:
 
 
 def use_rfft() -> bool:
-    """Hermitian (real-FFT) Gaunt convolution path; SEVENN_GAUNT_RFFT=0
-    selects the complex-FFT formulation (correctness oracle)."""
+    """``gaunt_conv_fft``'s Hermitian (real-FFT) variant;
+    SEVENN_GAUNT_RFFT=0 selects its complex-FFT variant.  The model's
+    path (``apply_gaunt_conv``) takes neither."""
     return os.environ.get('SEVENN_GAUNT_RFFT', '1') != '0'
 
 
@@ -313,6 +326,132 @@ def _gather_src(values: torch.Tensor, edge_src, src_perm, src_inv):
     return torch.view_as_complex(got) if cplx else got
 
 
+# ---------------------------------------------------------------------------
+# the coupling table: the FFT formulation as (k, i, j, c) couplings
+# ---------------------------------------------------------------------------
+
+def _fft_products(spec: GauntConvSpec, x_stride, edge_attr, gather, rfft):
+    """The FFT formulation's per-edge product, before the radial weights:
+    node features ``x_stride`` [N, mul, d_x] (strided), harmonics
+    ``edge_attr`` [E, d_f]; ``gather`` takes a per-node grid [N, ...] to
+    its edges.  Returns [E, mul, d_out]."""
+    L = spec.L_x + spec.L_f
+    size = (2 * L + 1, 2 * L + 1)
+    x_four = to_fourier(x_stride, spec.L_x)            # [N, mul, u, v]
+    filt_four = to_fourier(edge_attr[:, None, :], spec.L_f)  # [E,1,u,v]
+    if rfft:
+        # Hermitian fast path: both operands are coefficient grids of
+        # REAL spherical functions, so the pointwise product happens on
+        # REAL sample grids (two irfft2 + one rfft2 instead of three
+        # complex FFTs, and a real-valued product)
+        s_x = _real_samples(x_four, spec.L_x, L)
+        s_f = _real_samples(filt_four, spec.L_f, L)
+        conv = _coeffs_from_real_samples(gather(s_x) * s_f, L)
+    else:
+        x_fft = torch.fft.fft2(x_four, s=size)
+        filt_fft = torch.fft.fft2(filt_four, s=size)
+        conv = torch.fft.ifft2(gather(x_fft) * filt_fft)
+    return to_spherical(conv, L, spec.L_out)           # [E, mul, d_out]
+
+
+@lru_cache(maxsize=None)
+def _coupling(spec: GauntConvSpec):
+    """(the ``CGLayout`` of ``gaunt_layout``, the output irrep of each of
+    its paths in path order)."""
+    x = torch.eye((spec.L_x + 1) ** 2, dtype=torch.float64)[:, None, :]
+    f = torch.eye((spec.L_f + 1) ** 2, dtype=torch.float64)
+    # unit features against unit harmonics: T[i, j, k], every product of
+    # the complex-FFT formulation at once (an "edge" for each (i, j))
+    T = _fft_products(spec, x, f, lambda v: v[:, None],
+                      rfft=False)[:, :, 0].numpy()
+    C = T * _aligned_path_weights(spec).astype(np.float64).sum(0)
+    tol = 1e-12 * np.abs(C).max()
+
+    def comps(irreps):
+        ends = np.cumsum([mi.ir.dim for mi in irreps])
+        return [slice(e - mi.ir.dim, e) for mi, e in zip(irreps, ends)]
+
+    mul = spec.mul
+    groups, outs, msg_off = [], [], 0
+    for mx, sx, cx in zip(spec.irreps_x, spec.irreps_x.slices(),
+                          comps(spec.irreps_x)):
+        for mf, sf, cf in zip(spec.irreps_filter,
+                              spec.irreps_filter.slices(),
+                              comps(spec.irreps_filter)):
+            paths = []
+            for c, (mo, co) in enumerate(zip(spec.irreps_out,
+                                             comps(spec.irreps_out))):
+                blk = C[cx, cf, co]
+                nnz = tuple((k, i, j, float(blk[i, j, k]))
+                            for i in range(mx.ir.dim)
+                            for j in range(mf.ir.dim)
+                            for k in range(mo.ir.dim)
+                            if abs(blk[i, j, k]) > tol)
+                if nnz:
+                    paths.append(CGPath(msg_off=msg_off, d_out=mo.ir.dim,
+                                        w_off=len(outs) * mul, nnz=nnz))
+                    outs.append(c)
+                    msg_off += mo.ir.dim * mul
+            if paths:
+                groups.append(CGGroup(x_off=sx.start, d1=mx.ir.dim, mul=mul,
+                                      sh_off=sf.start, d2=mf.ir.dim,
+                                      paths=tuple(paths)))
+    layout = CGLayout(dim_x=spec.irreps_x.dim, dim_sh=spec.irreps_filter.dim,
+                      dim_w=len(outs) * mul, dim_msg=msg_off,
+                      groups=tuple(groups))
+    return layout, tuple(outs)
+
+
+def gaunt_layout(spec: GauntConvSpec) -> CGLayout:
+    """The Gaunt convolution as a uvu coupling layout (the stride layout
+    of ``ops/fused_conv``): the complex-FFT formulation evaluated in
+    float64 on unit inputs (``fit_gaunt_to_w3j`` included, as that path
+    has it), times ``_aligned_path_weights``, its entries above 1e-12 of
+    the largest kept.  A group per (feature irrep, harmonic irrep), a path
+    per output irrep it reaches, each path its own [mul] weight slice (in
+    path order) and its own [d_out, mul] message chunk; the paths into
+    one output irrep are summed at the nodes."""
+    return _coupling(spec)[0]
+
+
+def _path_mlp(spec: GauntConvSpec, outs, weights):
+    """The radial MLP's weights with the last layer's columns taken per
+    path (``outs``: each path's output irrep): path p's weight of channel
+    u is column (u, outs[p]) of the spec's per-(channel, l_out) output,
+    so the MLP gives the layout's [E, n_path * mul] weights and autograd
+    sums the paths' cotangents back into the shared columns."""
+    *hidden, last = weights
+    per_l = last.reshape(last.shape[0], spec.mul, len(spec.irreps_out))
+    return [*hidden, torch.cat([per_l[:, :, c] for c in outs], dim=1)]
+
+
+def _paths_to_e3nn(spec: GauntConvSpec, outs, agg: torch.Tensor
+                   ) -> torch.Tensor:
+    """Node sums [N, dim_msg] (a [d_out, mul] chunk a path, ``outs`` each
+    path's output irrep) -> flat e3nn features of ``spec.irreps_out``:
+    each output irrep the sum of its paths' chunks, in path order."""
+    n = agg.shape[0]
+    chunks = [[] for _ in spec.irreps_out]
+    off = 0
+    for c in outs:
+        d = spec.irreps_out[c].dim
+        chunks[c].append(agg[:, off:off + d])
+        off += d
+    parts = []
+    for ch, mi in zip(chunks, spec.irreps_out):
+        if not ch:
+            parts.append(agg.new_zeros((n, mi.dim)))
+            continue
+        summed = reduce(operator.add, ch)
+        parts.append(summed.reshape(n, mi.ir.dim, mi.mul).transpose(1, 2)
+                     .reshape(n, mi.dim))
+    return torch.cat(parts, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# the convolution
+# ---------------------------------------------------------------------------
+
 def apply_gaunt_conv(
     spec: GauntConvSpec,
     weight_nn_params,
@@ -329,14 +468,65 @@ def apply_gaunt_conv(
     src_inv=None,
     dst_sort=None,
 ) -> torch.Tensor:
-    """Messages by pointwise product on the sphere; returns flat node
-    features of ``spec.irreps_out``.
+    """Messages by pointwise product on the sphere, contracted through
+    ``gaunt_layout(spec)``; returns flat node features of
+    ``spec.irreps_out``.
 
-    ``rfft``: None resolves from ``use_rfft()``.  The port-only
-    arguments: ``src_perm`` / ``src_inv`` (collate's EDGE_SRC_PERM and its
-    inverse; the stable sort of ``edge_src`` is taken when not given) and,
-    for an unsorted ``edge_dst``, ``dst_sort`` (its ``scatter.sort_perm``,
-    taken once per call when not given).
+    The features go to the stride layout, are gathered by source
+    (``gather_rows``) and meet the harmonics and the per-path radial
+    weights in ``conv_aggregate`` on an ascending ``edge_dst``
+    (``sorted_dst``), else in ``conv_messages`` and the sorted segment sum
+    over dst's stable sort (``aggregate_messages``) -- the CG branch of
+    ``model/nequip.py``.  ``rfft`` is ignored (it chooses between
+    ``gaunt_conv_fft``'s variants).  The port-only arguments: ``src_perm``
+    / ``src_inv`` (collate's EDGE_SRC_PERM and its inverse; the stable
+    sort of ``edge_src`` is taken when not given) and, for an unsorted
+    ``edge_dst``, ``dst_sort`` (its ``scatter.sort_perm``, taken once per
+    call when not given).
+
+    Inside the span ``gaunt.conv`` (``edges``, ``mul``, ``M``: the FFT
+    formulation's grid side); the counter ``gaunt.coupled_edges`` adds
+    the E edges contracted."""
+    M = 2 * (spec.L_x + spec.L_f) + 1
+    E = edge_src.shape[0]
+    tracing.count('gaunt.coupled_edges', E)
+    with tracing.span('gaunt.conv', edges=E, mul=spec.mul, M=M):
+        layout, outs = _coupling(spec)
+        w = mlp_apply(_path_mlp(spec, outs, weight_nn_params), emb,
+                      spec.act_radial)
+        x_src = gather_rows(e3nn_to_stride(spec.irreps_x, x_flat), edge_src,
+                            src_perm, src_inv)
+        if sorted_dst:
+            agg = conv_aggregate(layout, x_src, edge_attr, w, edge_dst,
+                                 n_node)
+        else:
+            perm, inv = (None, None) if dst_sort is None else dst_sort
+            agg = aggregate_messages(
+                conv_messages(layout, x_src, edge_attr, w), edge_dst,
+                n_node, False, perm, inv)
+        return _paths_to_e3nn(spec, outs, agg) / denominator
+
+
+def gaunt_conv_fft(
+    spec: GauntConvSpec,
+    weight_nn_params,
+    x_flat: torch.Tensor,
+    edge_attr: torch.Tensor,
+    emb: torch.Tensor,
+    edge_src: torch.Tensor,
+    edge_dst: torch.Tensor,
+    n_node: int,
+    denominator: torch.Tensor,
+    sorted_dst: bool = False,
+    rfft=None,
+    src_perm=None,
+    src_inv=None,
+    dst_sort=None,
+) -> torch.Tensor:
+    """``apply_gaunt_conv`` by the FFT formulation: per-edge products of
+    torus sample grids, the source of ``gaunt_layout`` and the reference
+    the coupling path is held against.  ``rfft``: its Hermitian variant
+    (True) or the complex one (False); None resolves from ``use_rfft()``.
 
     Inside the span ``gaunt.conv`` (``edges``, ``mul``, ``M``); the
     counter ``gaunt.grid_bytes`` adds the bytes of one per-edge sample
@@ -354,28 +544,11 @@ def apply_gaunt_conv(
 def _gaunt_conv(spec, weight_nn_params, x_flat, edge_attr, emb, edge_src,
                 edge_dst, n_node, denominator, sorted_dst, rfft, src_perm,
                 src_inv, dst_sort):
-    L = spec.L_x + spec.L_f
-    size = (2 * L + 1, 2 * L + 1)
-
     x_stride = flat_to_stride(x_flat, spec.irreps_x)   # [N, mul, d]
-    x_four = to_fourier(x_stride, spec.L_x)            # [N, mul, u, v]
-    filt_four = to_fourier(edge_attr[:, None, :], spec.L_f)  # [E,1,u,v]
-
-    if use_rfft() if rfft is None else rfft:
-        # Hermitian fast path: both operands are coefficient grids of
-        # REAL spherical functions, so the pointwise product happens on
-        # REAL sample grids (two irfft2 + one rfft2 instead of three
-        # complex FFTs, and a real-valued product)
-        s_x = _real_samples(x_four, spec.L_x, L)
-        s_f = _real_samples(filt_four, spec.L_f, L)
-        conv = _coeffs_from_real_samples(
-            _gather_src(s_x, edge_src, src_perm, src_inv) * s_f, L)
-    else:
-        x_fft = torch.fft.fft2(x_four, s=size)
-        filt_fft = torch.fft.fft2(filt_four, s=size)
-        conv = torch.fft.ifft2(
-            _gather_src(x_fft, edge_src, src_perm, src_inv) * filt_fft)
-    msg_stride = to_spherical(conv, L, spec.L_out)     # [E, mul, d_out]
+    msg_stride = _fft_products(
+        spec, x_stride, edge_attr,
+        lambda v: _gather_src(v, edge_src, src_perm, src_inv),
+        use_rfft() if rfft is None else rfft)          # [E, mul, d_out]
 
     w = mlp_apply(weight_nn_params, emb, spec.act_radial)
     w = w.reshape(w.shape[:-1] + (spec.mul, len(spec.irreps_out)))

@@ -18,9 +18,11 @@ instrumented boundaries (one thread: the caller's):
   rebuild on the card, and ``md.rebuild.grow``, one a growth of its edge
   capacity, the first included);
 - ``ops/gaunt.py``: ``gaunt.conv`` around ``apply_gaunt_conv`` (``edges``,
-  ``mul``, ``M``) with the counter ``gaunt.grid_bytes``, the bytes of its
-  per-edge sample grids (E x mul x M^2 elements), and ``gaunt.pb`` around
-  ``apply_gaunt_pb`` (``nodes``, ``correlation``);
+  ``mul``, ``M``) with the counter ``gaunt.coupled_edges``, the edges it
+  contracts through the coupling layout, and around ``gaunt_conv_fft``
+  with the counter ``gaunt.grid_bytes``, the bytes of its per-edge sample
+  grids (E x mul x M^2 elements); ``gaunt.pb`` around ``apply_gaunt_pb``
+  (``nodes``, ``correlation``);
 - ``parallel/halo.py``: ``halo.swap`` around each ``DistTransport.swap``
   (``stage``, ``rows``; a backward's reverse swap too, from autograd's
   thread) with the counter ``halo.swap_bytes``, the bytes the rank sends.

@@ -8,9 +8,11 @@ would make its FFTs complex128):
   for bit; ``to_fourier`` / ``to_spherical``, ``_real_samples`` (an odd
   M through ``irfft2(s=(M, M))``) and ``_coeffs_from_real_samples``
   within 1e-6 of the largest magnitude;
-- ``apply_gaunt_conv`` on the rfft and the complex path: value, and the
-  gradient of a seeded projection with respect to x and edge_attr (1e-5
-  relative); the two paths within 1e-5 of each other in the port;
+- the convolution on each of the port's paths (``apply_gaunt_conv``'s
+  coupling layout, ``gaunt_conv_fft``'s rfft and complex variants)
+  against JAX's FFT formulation: value, and the gradient of a seeded
+  projection with respect to x and edge_attr (1e-5 relative); the two
+  FFT variants within 1e-5 of each other in the port;
 - ``apply_gaunt_pb`` and its gradient (1e-5 relative);
 - ``init_params`` bit for bit for ``gaunt`` and ``gaunt_gate``;
 - energy, forces and stress of the whole model (1e-5 relative) with the
@@ -118,11 +120,15 @@ def _j_conv(case, rfft):
 
 
 def _t_conv(case, rfft, sorted_dst=True):
+    """The port's convolution: ``rfft`` 'coupling' for ``apply_gaunt_conv``,
+    else ``gaunt_conv_fft`` with that ``rfft``."""
     _, t_spec, mlp, x, attr, emb, src, dst, proj = case
     N = x.shape[0]
     xt = torch.tensor(x, requires_grad=True)
     at = torch.tensor(attr, requires_grad=True)
-    out = tg.apply_gaunt_conv(
+    conv = (tg.apply_gaunt_conv if rfft == 'coupling'
+            else tg.gaunt_conv_fft)
+    out = conv(
         t_spec, [torch.tensor(w) for w in mlp], xt, at, torch.tensor(emb),
         torch.tensor(src), torch.tensor(dst), N, torch.tensor(4.0),
         sorted_dst=sorted_dst, rfft=rfft)
@@ -130,12 +136,14 @@ def _t_conv(case, rfft, sorted_dst=True):
     return [a.detach().numpy() for a in (out, xt.grad, at.grad)]
 
 
-@pytest.mark.parametrize('rfft', [True, False])
+@pytest.mark.parametrize('rfft', [True, False, 'coupling'])
 def test_gaunt_conv_matches_jax(rfft):
-    """Value and gradients (x, edge_attr) on one path, both packages; the
-    sentinel edges drop; the unsorted aggregation gives the same."""
+    """Value and gradients (x, edge_attr) on one path of the port (the
+    FFT formulation's variant, or the coupling layout against JAX's rfft
+    variant), both packages; the sentinel edges drop; the unsorted
+    aggregation gives the same."""
     case = _conv_case()
-    want = _j_conv(case, rfft)
+    want = _j_conv(case, True if rfft == 'coupling' else rfft)
     got = _t_conv(case, rfft)
     for g, w, name in zip(got, want, ('out', 'grad x', 'grad edge_attr')):
         _rel_close(g, w, name=name)
@@ -145,8 +153,8 @@ def test_gaunt_conv_matches_jax(rfft):
 
 
 def test_gaunt_conv_rfft_matches_complex():
-    """The Hermitian path against the complex oracle inside the port, and
-    ``SEVENN_GAUNT_RFFT=0`` selects the oracle."""
+    """``gaunt_conv_fft``'s Hermitian variant against its complex one, and
+    ``SEVENN_GAUNT_RFFT=0`` selects the complex one."""
     case = _conv_case(seed=1, mul=2)
     fast, slow = _t_conv(case, True), _t_conv(case, False)
     for g, w in zip(fast, slow):

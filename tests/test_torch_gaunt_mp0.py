@@ -162,6 +162,10 @@ def _conv_case(mul=4, N=5, E=11):
 
 
 def test_gaunt_spans_and_grid_bytes_counter():
+    """The span ``gaunt.conv`` around both formulations with the same
+    attributes; ``gaunt.coupled_edges`` counts E a call of the coupling
+    path, which writes no sample grid, and ``gaunt.grid_bytes`` counts
+    only the FFT formulation's grids."""
     spec, w, x, sh, emb, src, dst, N = _conv_case()
     assert tracing.span('gaunt.conv') is tracing.OFF
     off = tg.apply_gaunt_conv(spec, w, x, sh, emb, src, dst, N,
@@ -172,19 +176,26 @@ def test_gaunt_spans_and_grid_bytes_counter():
                              torch.ones(1), sorted_dst=True)
     tg.apply_gaunt_conv(spec, w, x, sh, emb, src, dst, N, torch.ones(1),
                         sorted_dst=True)
+    M = 2 * (1 + 3) + 1
+    E = src.shape[0]
+    assert tracing.counters()['gaunt.coupled_edges'] == 2 * E
+    assert 'gaunt.grid_bytes' not in tracing.counters()
+    tg.gaunt_conv_fft(spec, w, x, sh, emb, src, dst, N, torch.ones(1),
+                      sorted_dst=True)
     pb = tg.gaunt_pb_spec(spec.irreps_x, Irreps('4x0e'), 3)
     params = {k: torch.ones(s) for k, s in tg.gaunt_pb_shapes(pb).items()}
     tg.apply_gaunt_pb(pb, params, x)
     tracing.disable()
     assert torch.equal(off, on)
-    M = 2 * (1 + 3) + 1
-    E = src.shape[0]
-    assert tracing.counters()['gaunt.grid_bytes'] == 2 * E * 4 * M * M * 4
+    assert tracing.counters()['gaunt.grid_bytes'] == E * 4 * M * M * 4
+    assert tracing.counters()['gaunt.coupled_edges'] == 2 * E
     recs = {r[0]: r[6] for r in tracing.records()}
     assert recs['gaunt.conv'] == {'edges': E, 'mul': 4, 'M': M}
     assert recs['gaunt.pb'] == {'nodes': N, 'correlation': 3}
-    assert [r[0] for r in tracing.records()] == ['gaunt.conv',
+    assert [r[0] for r in tracing.records()] == ['gaunt.conv', 'gaunt.conv',
                                                  'gaunt.conv', 'gaunt.pb']
+    assert all(r[6] == {'edges': E, 'mul': 4, 'M': M}
+               for r in tracing.records()[:3])
 
 
 def test_halo_swap_span_and_bytes_counter(monkeypatch):
