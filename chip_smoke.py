@@ -3111,6 +3111,7 @@ def gaunt_coupling_check(device='cuda', reps=GAUNT_REPS):
     from benchmark.reference import gaunt as ref_gaunt
     from sevennet_finetuning_tpu_torch.model import nequip
     from sevennet_finetuning_tpu_torch.ops import gaunt as tg
+    from sevennet_finetuning_tpu_torch.ops.fused_conv import stride_to_e3nn
 
     cfg = program.model_config(json.loads(GAUNT_CONFIG.read_text()))
     limits = json.loads(GAUNT_LIMITS.read_text())['limits']
@@ -3120,6 +3121,8 @@ def gaunt_coupling_check(device='cuda', reps=GAUNT_REPS):
                if len(s['numbers']) == 96)
     struct = inputs.to_program(inputs.replicate(src, reps))
     seen = []
+    gaunt_of = {id(b.conv): b.gaunt_conv for b in calc.model.spec.blocks
+                if getattr(b, 'gaunt_conv', None) is not None}
 
     def recorded(spec, w, x, sh, emb, *rest, **kw):
         if not seen:
@@ -3128,12 +3131,27 @@ def gaunt_coupling_check(device='cuda', reps=GAUNT_REPS):
         return tg.apply_gaunt_conv(spec, w, x, sh, emb, *rest, **kw)
 
     def serve(conv):
-        keep = nequip.apply_gaunt_conv
-        nequip.apply_gaunt_conv = conv
+        """A request with each Gaunt block's convolution (a serve's one
+        dst-sorted edge partition) through ``conv`` on e3nn features, in
+        the model's seam ``nequip.convolve``."""
+        keep = nequip.convolve
+
+        def convolve(family, mlp_w, parts, n_node, denominator):
+            spec = gaunt_of.get(id(family))
+            if spec is None:
+                return keep(family, mlp_w, parts, n_node, denominator)
+            (rows, e), = parts
+            assert e['dst_sort'] is None
+            return conv(spec, mlp_w, stride_to_e3nn(spec.irreps_x, rows),
+                        e['sh'], e['emb'], e['src'], e['dst'], n_node,
+                        denominator, sorted_dst=True, src_perm=e['perm'],
+                        src_inv=e['inv'])
+
+        nequip.convolve = convolve
         try:
             r = calc.calculate(struct)
         finally:
-            nequip.apply_gaunt_conv = keep
+            nequip.convolve = keep
         return (float(r['energy']), np.asarray(r['forces'], np.float64),
                 np.asarray(r['stress'], np.float64))
 

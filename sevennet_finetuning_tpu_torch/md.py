@@ -35,9 +35,11 @@ partitions in this process, or one per process of a ``torch.distributed``
 group of D ranks (``torchrun --nproc_per_node D``; every rank holds the
 whole structure and builds the same plan).  ``run`` then gathers every
 rank's forces each step; ``run_device_halo`` is the device loop over the
-partitions (``parallel.halo.halo_md_segment``), rebuilding the plan at a
-skin trip.  D3 dispersion is serial-only, as in JAX (the reference's D3
-pair style is single-GPU).
+partitions, rebuilding the plan at a skin trip.  Both device loops run
+their steps through one velocity-Verlet segment (``vv_segment``) and
+record them through one helper (``VelocityVerlet._record_segment``).  D3
+dispersion is serial-only, as in JAX (the reference's D3 pair style is
+single-GPU).
 """
 
 from __future__ import annotations
@@ -83,6 +85,55 @@ def _all_ranks(fwd, t: torch.Tensor) -> np.ndarray:
 
         return torch.cat(dp.all_gather(t)).cpu().numpy()
     return t.cpu().numpy()
+
+
+def _held(fwd, arr: np.ndarray, fill: float = 0.0) -> torch.Tensor:
+    """[n, ...] global -> [R, n_local, ...] of ``fwd``'s ranks, on its
+    device."""
+    from .parallel.halo import scatter_positions
+
+    return torch.as_tensor(scatter_positions(fwd.plan, arr, fill, fwd.ranks),
+                           device=fwd.device)
+
+
+def vv_segment(forces, pos, vel, m, f, node_mask, dt: float, thr: float,
+               n_active: int, n_seg: int, reduce=None):
+    """Up to ``n_active`` (<= ``n_seg``) velocity-Verlet steps on the
+    device in the caller's layout (masses [..., 1]; padded rows: mass 1,
+    zero velocity and force); ``forces(pos)`` -> (forces, energy).  Stops
+    before a step once the largest squared displacement of the
+    ``node_mask`` rows since the start, through ``reduce`` (over
+    processes), passes ``thr``: one host read a step.  Returns (pos, vel,
+    f, done, energies [n_seg], kinetic energies [n_seg])."""
+    e_buf = torch.full((n_seg,), float('nan'), device=pos.device)
+    ke_buf = torch.full((n_seg,), float('nan'), device=pos.device)
+    pos0 = pos
+    done = 0
+    while done < n_active:
+        with tracing.span('md.step', unit=True) as step:
+            # stop BEFORE stepping once edges may be stale, so the host
+            # rebuilds and re-runs from this state
+            with tracing.span('md.skin.wait'):
+                disp = torch.max(torch.sum((pos - pos0) ** 2, -1)
+                                 * node_mask)
+                if reduce is not None:
+                    disp = reduce(disp)
+                fresh = bool(disp <= thr)
+                tracing.count('host_syncs')
+            if not fresh:
+                step.set(skin_trip=True)
+                break
+            with tracing.span('md.integrate'):
+                a = f / m * ACC_UNIT
+                v1 = vel + 0.5 * dt * a
+                pos = pos + dt * v1
+            f, e1 = forces(pos)
+            with tracing.span('md.integrate'):
+                vel = v1 + 0.5 * dt * f / m * ACC_UNIT
+                e_buf[done] = e1
+                ke_buf[done] = 0.5 * torch.sum(m * vel * vel) / ACC_UNIT
+        done += 1
+    return pos, vel, f, done, e_buf, ke_buf
 
 
 def masses_of(species: List[str]) -> np.ndarray:
@@ -166,7 +217,7 @@ class VelocityVerlet:
         cutoff + skin once an atom moved more than skin/2 since its
         build; every rank's forces gathered into global order."""
         from .parallel.halo import (build_halo_plan, gather_forces,
-                                    make_halo_forward, scatter_positions)
+                                    make_halo_forward)
 
         spec = self.calc.spec
         rebuild = self._halo_fwd is None or (
@@ -179,8 +230,7 @@ class VelocityVerlet:
             self._halo_fwd = make_halo_forward(self.calc.model, plan)
             self._pos_at_build = self.s.pos.copy()
         fwd = self._halo_fwd
-        pos = scatter_positions(fwd.plan, self.s.pos.astype(np.float32))
-        e, f, _ = fwd(torch.as_tensor(pos[fwd.ranks], device=fwd.device))
+        e, f, _ = fwd(_held(fwd, self.s.pos))
         return (gather_forces(fwd.plan, _all_ranks(fwd, f)), float(e))
 
     def kinetic_energy(self) -> float:
@@ -369,7 +419,6 @@ class VelocityVerlet:
         from . import keys as K
 
         n = len(self.s.pos)
-        dt = float(self.dt)
         thr = (float(self.skin) / 2) ** 2
         dev = self.calc.device
 
@@ -383,72 +432,27 @@ class VelocityVerlet:
         vel[:n] = self.vel
         vel = torch.as_tensor(vel, device=dev)
         f = None
-        dof = 3 * n - 3
         remaining = n_steps
         with torch.no_grad():
             while remaining > 0:
                 with tracing.span('md.segment'):
-                    n_active = min(seg_steps, remaining)
-                    pos0 = batch[K.POS]
-                    node_mask = batch[K.NODE_MASK]
+                    pos = batch[K.POS]
                     if f is None:
-                        f = self._device_forces(batch, pos0)[0]
-                    e_buf = torch.full((seg_steps,), float('nan'),
-                                       device=dev)
-                    ke_buf = torch.full((seg_steps,), float('nan'),
-                                        device=dev)
-                    pos = pos0
-                    done = 0
-                    while done < n_active:
-                        with tracing.span('md.step', unit=True) as step:
-                            # stop BEFORE stepping once edges may be
-                            # stale, so the host rebuilds and re-runs
-                            # from this state
-                            with tracing.span('md.skin.wait'):
-                                disp = torch.max(
-                                    torch.sum((pos - pos0) ** 2, -1)
-                                    * node_mask)
-                                fresh = bool(disp <= thr)
-                                tracing.count('host_syncs')
-                            if not fresh:
-                                step.set(skin_trip=True)
-                                break
-                            with tracing.span('md.integrate'):
-                                a = f / m * ACC_UNIT
-                                v1 = vel + 0.5 * dt * a
-                                pos = pos + dt * v1
-                            f, e1 = self._device_forces(batch, pos)
-                            with tracing.span('md.integrate'):
-                                vel = v1 + 0.5 * dt * f / m * ACC_UNIT
-                                e_buf[done] = e1
-                                ke_buf[done] = (0.5 * torch.sum(m * vel * vel)
-                                                / ACC_UNIT)
-                        done += 1
+                        f = self._device_forces(batch, pos)[0]
+                    pos, vel, f, done, e_buf, ke_buf = vv_segment(
+                        lambda p: self._device_forces(batch, p), pos, vel,
+                        m, f, batch[K.NODE_MASK], float(self.dt), thr,
+                        min(seg_steps, remaining), seg_steps)
                     # the single fetch per segment: positions and energies
                     with tracing.span('md.fetch.wait'):
                         packed = torch.cat([pos.reshape(-1), e_buf,
                                             ke_buf]).cpu().numpy()
                         tracing.count('host_syncs')
-                    pos_flat = packed[:3 * n_node]
-                    e_np = packed[3 * n_node:3 * n_node + seg_steps][:done]
-                    ke_np = packed[3 * n_node + seg_steps:][:done]
-                    self.result.energies.extend(float(x) for x in e_np)
-                    self.result.kinetic.extend(float(x) for x in ke_np)
-                    self.result.temperatures.extend(
-                        float(2 * k / (dof * KB_EV)) for k in ke_np)
-                    self.result.segments.append(done)
-                    if logger is not None and done:
-                        logger.writeline(
-                            f'segment: {done:4d} steps  '
-                            f'E_pot {e_np[-1]:14.6f}  E_kin {ke_np[-1]:10.6f}'
-                        )
-                    if done == 0:
-                        raise RuntimeError(
-                            'MD segment made no progress (skin trip at step 0 '
-                            'after a fresh rebuild should be impossible)'
-                        )
+                    self._record_segment(packed[3 * n_node:], seg_steps,
+                                         done, logger, '')
                     remaining -= done
-                    self.s.pos = pos_flat.reshape(n_node, 3)[:n].astype(float)
+                    self.s.pos = packed[:3 * n_node].reshape(
+                        n_node, 3)[:n].astype(float)
                     if remaining > 0:
                         # neighbor rebuild (or segment exhausted): fresh edge
                         # set; the carried force is exact under it (every
@@ -460,31 +464,55 @@ class VelocityVerlet:
             tracing.count('host_syncs')
         return self.result
 
+    def _record_segment(self, energies: np.ndarray, n_seg: int, done: int,
+                        logger, prefix: str):
+        """Record a segment of ``done`` steps from its energy buffers (the
+        potential's then the kinetic's, ``n_seg`` each); ``prefix`` opens
+        its log line and the error of a segment without progress."""
+        e_np = energies[:n_seg][:done]
+        ke_np = energies[n_seg:2 * n_seg][:done]
+        dof = 3 * len(self.s.pos) - 3
+        self.result.energies.extend(float(x) for x in e_np)
+        self.result.kinetic.extend(float(x) for x in ke_np)
+        self.result.temperatures.extend(
+            float(2 * k / (dof * KB_EV)) for k in ke_np)
+        self.result.segments.append(done)
+        if logger is not None and done:
+            logger.writeline(
+                f'{prefix}segment: {done:4d} steps  '
+                f'E_pot {e_np[-1]:14.6f}  E_kin {ke_np[-1]:10.6f}'
+            )
+        if done == 0:
+            raise RuntimeError(
+                f'{prefix}MD segment made no progress (skin trip at step 0 '
+                'after a fresh rebuild should be impossible)'
+            )
+
     def run_device_halo(self, n_steps: int, seg_steps: int = 50,
                         logger=None) -> MDResult:
         """NVE over the halo decomposition with the state on the device
         (JAX ``run_device_halo``): segments of up to ``seg_steps``
-        velocity-Verlet steps in plan layout
-        (``parallel.halo.halo_md_segment``), each ending early once the
-        global largest displacement since the segment's plan passes
-        skin/2; the host then rebuilds the plan from every rank's
-        positions.  Per segment the energies are summed over processes
-        and the state gathered once.
+        velocity-Verlet steps in plan layout (``vv_segment``, JAX
+        ``make_halo_md_segment``), each ending early once the global
+        largest displacement since the segment's plan passes skin/2 (one
+        all-reduce MAX a step keeps the processes in step); the host then
+        rebuilds the plan from every rank's positions.  Per segment the
+        energies are summed over processes and the state gathered once.
 
         Capacity hysteresis: plan capacities only grow (cap_hints floors
         with 15% headroom), so the padded shapes -- and the kernels'
         launch plans -- stay the same across a trajectory's rebuilds."""
         if self.halo_cfg is None:
             raise ValueError('run_device_halo needs halo=dict(...)')
+        import torch.distributed as dist
+
         from .parallel import data_parallel as dp
-        from .parallel.halo import (build_halo_plan, halo_md_segment,
+        from .parallel.halo import (build_halo_plan, gather_forces,
                                     make_halo_forward)
 
         spec = self.calc.spec
         n_dev = self.halo_cfg['n_dev']
         skin = float(self.skin)
-        n = len(self.s.pos)
-        dt = float(self.dt)
 
         def qpad(x, q=8):
             return max(q, int(np.ceil(x / q)) * q)
@@ -524,69 +552,43 @@ class VelocityVerlet:
                 )
             return make_halo_forward(self.calc.model, plan)
 
-        def to_dev(arr, fill=0.0):
-            """[n, ...] global -> [R, n_local, ...] of the held ranks."""
-            plan = fwd.plan
-            out = np.full((len(fwd.ranks), plan.n_local) + arr.shape[1:],
-                          fill, np.float32)
-            for k, d in enumerate(fwd.ranks):
-                ids = plan.owner_perm[d]
-                valid = ids >= 0
-                out[k, valid] = arr[ids[valid]]
-            return torch.as_tensor(out, device=fwd.device)
-
-        def from_dev(t):
-            """Every rank's [R, n_local, c] rows -> [n, c] global."""
-            plan = fwd.plan
-            a = _all_ranks(fwd, t).reshape(plan.n_dev * plan.n_local, -1)
-            perm = np.asarray(plan.owner_perm).reshape(-1)
-            out = np.zeros((n, a.shape[1]), a.dtype)
-            valid = perm >= 0
-            out[perm[valid]] = a[valid]
-            return out
-
         fwd = build_plan()
         f_glob = None
         remaining = n_steps
-        dof = 3 * n - 3
+        thr = (skin / 2) ** 2
+
+        def forces(pos):
+            e, f, _ = fwd.energy_forces(pos)
+            return f, e
+
+        def max_over_ranks(disp):
+            return dp.all_reduce_(disp.reshape(1), dist.ReduceOp.MAX)
+
         with torch.no_grad():
             while remaining > 0:
-                pos = to_dev(self.s.pos)
-                vel = to_dev(self.vel)
-                m = to_dev(self.masses[:, None], fill=1.0)[..., 0]
+                pos = _held(fwd, self.s.pos)
+                vel = _held(fwd, self.vel)
+                m = _held(fwd, self.masses[:, None], fill=1.0)
                 # the previous segment's last forces, carried through the
                 # global layout (atoms may have changed bricks): exact
                 # under the fresh skin-padded edge list
                 f = (fwd.energy_forces(pos)[1] if f_glob is None
-                     else to_dev(f_glob))
-                pos, vel, f, done, e_buf, ke_buf = halo_md_segment(
-                    fwd, pos, vel, m, f, dt, skin,
-                    min(seg_steps, remaining), seg_steps)
+                     else _held(fwd, f_glob))
+                pos, vel, f, done, e_buf, ke_buf = vv_segment(
+                    forces, pos, vel, m, f,
+                    fwd.node_mask.reshape(pos.shape[:-1]), float(self.dt),
+                    thr, min(seg_steps, remaining), seg_steps,
+                    max_over_ranks if fwd.distributed else None)
                 # the segment's one sum over processes and one host copy
                 energies = torch.cat([e_buf, ke_buf])
                 if fwd.distributed:
                     dp.all_reduce_(energies)
-                energies = energies.cpu().numpy()
-                e_np = energies[:seg_steps][:done]
-                ke_np = energies[seg_steps:][:done]
-                self.result.energies.extend(float(x) for x in e_np)
-                self.result.kinetic.extend(float(x) for x in ke_np)
-                self.result.temperatures.extend(
-                    float(2 * k / (dof * KB_EV)) for k in ke_np)
-                self.result.segments.append(done)
-                if logger is not None and done:
-                    logger.writeline(
-                        f'halo segment: {done:4d} steps  '
-                        f'E_pot {e_np[-1]:14.6f}  E_kin {ke_np[-1]:10.6f}'
-                    )
-                if done == 0:
-                    raise RuntimeError(
-                        'halo MD segment made no progress (skin trip at '
-                        'step 0 after a fresh rebuild should be impossible)'
-                    )
+                self._record_segment(energies.cpu().numpy(), seg_steps,
+                                     done, logger, 'halo ')
                 remaining -= done
                 self.result.transport_seconds += fwd.transport.seconds
-                state = from_dev(torch.cat([pos, vel, f], dim=-1))
+                state = gather_forces(fwd.plan, _all_ranks(
+                    fwd, torch.cat([pos, vel, f], dim=-1)))
                 self.s.pos = state[:, :3].astype(float)
                 self.vel = state[:, 3:6].astype(float)
                 f_glob = state[:, 6:]

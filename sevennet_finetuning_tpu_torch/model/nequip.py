@@ -15,11 +15,13 @@ Port of ``sevennet_finetuning_tpu/model/nequip.py``:
   differentiated once more for the parameter gradient (training).
 
 ``run_blocks`` runs the interaction blocks with the JAX package's
-signature.  With ``edges_sorted=True`` (``energy_network``; collate
-batches are dst-sorted) each CG convolution is the scatter-fused branch:
-gather by source, then ``conv_aggregate``.  With ``edges_sorted=False``
-(a caller whose graph is not dst-sorted) it is the per-edge branch:
-gather by source, per-edge messages (the ``cg_quad`` kernel), then
+signature.  Every block's convolution is one path
+(``ops/fused_conv_agg.convolve``) over the coupling layout its family
+gives (``BlockSpec.conv``: the CG tensor product's, or the Gaunt
+product's): gather by source, then with ``edges_sorted=True``
+(``energy_network``; collate batches are dst-sorted) the scatter-fused
+``conv_aggregate``, with ``edges_sorted=False`` (a caller whose graph is
+not dst-sorted) per-edge messages (the ``cg_quad`` kernel) and
 ``aggregate_messages`` over a stable device sort of dst.  The
 self-connection is a linear map of x ('linear') or the fully connected
 TP of x with the one-hot species embedding ('nequip', plain PyTorch as
@@ -33,7 +35,7 @@ where both sides carry l > 0, the residual, then the Gaunt product
 basis), 'gaunt_gate' (the Gaunt convolution in a gated block),
 and 'custom' (a ``CustomBlockSpec`` plugin).  The halo-parallel path
 (``run_blocks(exchange_fn=, halo_split=)``, driven by
-``parallel/halo``) runs each convolution once per edge partition: local
+``parallel/halo``) runs each convolution over two edge partitions: local
 sources from the node features, ghost sources from ``exchange_fn(x)``.
 ``run_blocks(remat=True)`` rematerializes each block (``_RematBlock``):
 the double backward of a train step keeps a block's inputs instead of
@@ -45,6 +47,7 @@ Batches are the padded dicts of ``model.graph`` as tensors
 
 from __future__ import annotations
 
+import functools
 import os
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
@@ -57,17 +60,17 @@ from torch import nn
 from .. import keys as K
 from .. import resolve_device, tracing
 from ..irreps import Irreps
-from ..ops.fused_conv import conv_messages, layout_from_spec, stride_to_e3nn
-from ..ops.fused_conv_agg import conv_aggregate
+from ..ops.fused_conv import ConvFamily, cg_family, stride_to_e3nn
+from ..ops.fused_conv_agg import convolve
 from ..ops.gate import GateSpec, apply_gate, gate_spec
-from ..ops.gaunt import (apply_gaunt_conv, apply_gaunt_pb, gaunt_conv_spec,
+from ..ops.gaunt import (apply_gaunt_pb, gaunt_conv_spec, gaunt_family,
                          gaunt_pb_shapes, gaunt_pb_spec, init_gaunt_pb)
 from ..ops.linear import (LinearSpec, apply_linear, init_linear_weights,
                           linear_spec)
 from ..ops.mlp import mlp_apply, mlp_init
 from ..ops.radial import bessel_basis, bessel_init, poly_cutoff, xplor_cutoff
-from ..ops.scatter import (aggregate_messages, gather_rows, inverse_perm,
-                           scatter_rows, segment_sum_sorted, sort_perm)
+from ..ops.scatter import (inverse_perm, scatter_rows, segment_sum_sorted,
+                           sort_perm)
 from ..ops.spherical import spherical_harmonics
 from ..ops.symmetric_contraction import (apply_sym_contraction,
                                          init_sym_contraction,
@@ -116,6 +119,15 @@ class BlockSpec:
     pb_spec: object = None                 # SymContraction / GauntPB spec
     si3: Optional[LinearSpec] = None       # (mace)
     gaunt_conv: object = None              # GauntConvSpec when 'gaunt'
+
+    @functools.cached_property
+    def conv(self) -> ConvFamily:
+        """The block's convolution for ``convolve`` (built once): the
+        Gaunt family's where ``conv_kind`` is 'gaunt', else the CG
+        convolution of ``conv_tp``."""
+        if self.gaunt_conv is not None:
+            return gaunt_family(self.gaunt_conv)
+        return cg_family(self.conv_tp, self.act_radial)
 
 
 @dataclass(frozen=True)
@@ -800,10 +812,16 @@ def run_blocks(spec: ModelSpec, params, x: torch.Tensor,
     return x
 
 
-def _halo_parts(halo_split, x, exchange_fn):
-    """(edge partition, its source rows): the local-source edges gather
-    from ``x``, the ghost-source ones from the exchange buffer."""
-    return ((halo_split['loc'], x), (halo_split['gh'], exchange_fn(x)))
+def _partitions(x, exchange_fn, halo_split, whole):
+    """(source rows, edges) of each edge partition, lazily: the whole edge
+    set from ``x`` (or its exchange buffer), or with ``halo_split`` the
+    local-source edges from ``x``, then the ghost-source ones from the
+    exchange buffer."""
+    if halo_split is None:
+        yield (x if exchange_fn is None else exchange_fn(x)), whole
+    else:
+        yield x, halo_split['loc']
+        yield exchange_fn(x), halo_split['gh']
 
 
 def _run_one_block(blk, p, x, onehot, emb, edge_attr, edge_src, edge_dst,
@@ -830,74 +848,17 @@ def _run_one_block(blk, p, x, onehot, emb, edge_attr, edge_src, edge_dst,
     if sc is not None:
         cap(f'{t}_self_connection_intro', sc)
 
-    cg = blk.conv_kind == 'cg'
     x = apply_linear(blk.si1, _linear_w(p[f'{t}_self_interaction_1']), x,
-                     out_stride=cg)
-    if cg:
-        cap(f'{t}_self_interaction_1',
-            lambda: stride_to_e3nn(blk.irreps_x, x))
-    else:
-        cap(f'{t}_self_interaction_1', x)
+                     out_stride=True)
+    cap(f'{t}_self_interaction_1', lambda: stride_to_e3nn(blk.irreps_x, x))
 
     conv_p = p[f'{t}_convolution']
-    n_w = len(blk.radial_hs) - 1
-    mlp_w = [conv_p[f'weight_nn_w{i}'] for i in range(n_w)]
-    # the exchanged rows once per block (a halo exchange communicates);
-    # with halo_split each partition takes its own rows
-    x_all = x if exchange_fn is None or halo_split is not None \
-        else exchange_fn(x)
-    if not cg and halo_split is not None:
-        agg = None
-        ones = torch.ones_like(conv_p['denominator'])
-        for part, x_in in _halo_parts(halo_split, x, exchange_fn):
-            a = apply_gaunt_conv(blk.gaunt_conv, mlp_w, x_in, part['sh'],
-                                 part['emb'], part['src'], part['dst'],
-                                 n_node, ones, sorted_dst=True,
-                                 src_perm=part['perm'], src_inv=part['inv'])
-            agg = a if agg is None else agg + a
-        x = agg / conv_p['denominator']
-    elif not cg:
-        # the Gaunt convolution: the fused convolution through the Gaunt
-        # product's coupling layout (ops/gaunt)
-        x = apply_gaunt_conv(blk.gaunt_conv, mlp_w, x_all, edge_attr, emb,
-                             edge_src, edge_dst, n_node,
-                             conv_p['denominator'],
-                             sorted_dst=dst_sort is None, src_perm=src_perm,
-                             src_inv=src_inv, dst_sort=dst_sort)
-    elif halo_split is not None:
-        # local-source messages from x, ghost-source messages from the
-        # exchanged rows: the fused convolution once per partition
-        layout = layout_from_spec(blk.conv_tp)
-        agg = None
-        for part, x_in in _halo_parts(halo_split, x, exchange_fn):
-            w_e = mlp_apply(mlp_w, part['emb'], blk.act_radial)
-            x_src = gather_rows(x_in, part['src'], part['perm'], part['inv'])
-            a = conv_aggregate(layout, x_src, part['sh'], w_e, part['dst'],
-                               n_node)
-            agg = a if agg is None else agg + a
-        x = stride_to_e3nn(blk.conv_tp.irreps_out,
-                           agg / conv_p['denominator'])
-    else:
-        # gather_rows' backward drops padded-edge cotangents; exact because
-        # EDGE_MASK zeroes the radial embedding, so padded messages and
-        # their gradients are identically zero
-        layout = layout_from_spec(blk.conv_tp)
-        w_edge = mlp_apply(mlp_w, emb, blk.act_radial)
-        x_src = gather_rows(x_all, edge_src, src_perm, src_inv)
-        if dst_sort is None:
-            # scatter-fused convolution on dst-sorted edges: the
-            # [E, dim_msg] message tensor never exists (ops/fused_conv_agg)
-            x = conv_aggregate(layout, x_src, edge_attr, w_edge, edge_dst,
-                               n_node)
-        else:
-            # unsorted dst: per-edge messages, edge-major (the JAX branch's
-            # mlp_apply_T / conv_messages_T without its two transposes),
-            # then the sorted segment sum over dst's stable sort
-            msg = conv_messages(layout, x_src, edge_attr, w_edge)
-            x = aggregate_messages(msg, edge_dst, n_node, False, *dst_sort)
-        x = x / conv_p['denominator']
-        # back to the e3nn flat layout at the node-sized boundary
-        x = stride_to_e3nn(blk.conv_tp.irreps_out, x)
+    mlp_w = [conv_p[f'weight_nn_w{i}'] for i in range(len(blk.radial_hs) - 1)]
+    whole = dict(src=edge_src, dst=edge_dst, emb=emb, sh=edge_attr,
+                 perm=src_perm, inv=src_inv, dst_sort=dst_sort)
+    x = convolve(blk.conv, mlp_w,
+                 _partitions(x, exchange_fn, halo_split, whole), n_node,
+                 conv_p['denominator'])
     cap(f'{t}_convolution', x)
 
     x = apply_linear(blk.si2, _linear_w(p[f'{t}_self_interaction_2']), x)

@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -139,6 +139,31 @@ def layout_from_spec(spec) -> CGLayout:
         dim_msg=spec.irreps_out.dim,
         groups=tuple(out_groups),
     )
+
+
+@dataclass(frozen=True, eq=False)
+class ConvFamily:
+    """What a block family gives ``fused_conv_agg.convolve``: its coupling
+    ``layout``, ``weights`` (radial MLP weights -> the MLP giving the
+    layout's [E, dim_w]), ``to_e3nn`` (node sums [N, dim_msg] -> e3nn
+    features) and ``span`` ((name, attributes) of its span, or None)."""
+
+    layout: CGLayout
+    act_radial: str
+    weights: Callable
+    to_e3nn: Callable
+    span: Optional[Tuple[str, Dict]] = None
+
+
+def _identity(v):
+    return v
+
+
+def cg_family(spec, act_radial: str) -> ConvFamily:
+    """The CG convolution of a uvu TensorProductSpec: the MLP's weights as
+    they are, the stride layout's permutation to e3nn's."""
+    return ConvFamily(layout_from_spec(spec), act_radial, _identity,
+                      functools.partial(stride_to_e3nn, spec.irreps_out))
 
 
 # ---------------------------------------------------------------------------

@@ -31,10 +31,13 @@ from typing import Dict, Optional
 
 import torch
 
+from .. import tracing
 from . import _cuda
 from .cg_tables import AGG_SMEM_MAX, AggConfig, agg_plan, agg_smem
-from .fused_conv import CGLayout, cg_modes
-from .scatter import gather_zero_oob, segment_sum_plain
+from .fused_conv import CGLayout, ConvFamily, cg_modes, conv_messages
+from .mlp import mlp_apply
+from .scatter import (aggregate_messages, gather_rows, gather_zero_oob,
+                      segment_sum_plain)
 
 _EDGE_JOBS = ('xn', 'shn', 'wn')
 _EMIT = {'xn': 'x', 'shn': 'sh', 'wn': 'w'}
@@ -166,3 +169,38 @@ class CGNodeAgg(torch.autograd.Function):
 def conv_aggregate(layout: CGLayout, x_src, sh, w, dst, n_node: int):
     """Fused convolution: [N, dim_msg] aggregated messages."""
     return CGNodeAgg.apply(x_src, sh, w, dst, layout, n_node)
+
+
+def convolve(conv: ConvFamily, mlp_w, parts, n_node: int, denominator):
+    """A block's convolution -> [N, dim_out] e3nn features.  ``parts``
+    yields each edge partition as (source rows [N_src, dim_x], stride
+    layout; edges: ``src``, ``dst``, ``emb``, ``sh``, the source sort
+    ``perm`` / ``inv``, ``dst_sort``).  Per partition the radial weights,
+    the source gather, ``conv_aggregate`` on ascending dst (``dst_sort``
+    absent or None), else ``conv_messages`` and the sorted segment sum
+    over ``dst_sort`` ((None, None): sorted here), and the family's map to
+    e3nn; then their sum over ``denominator``, in the family's span
+    (``edges``: every partition's)."""
+    name, attrs = conv.span or (None, None)
+    with (tracing.span(name, **attrs) if name else tracing.OFF) as sp:
+        w_mlp = conv.weights(mlp_w)
+        out, n_edge = None, 0
+        for rows, e in parts:
+            # gather_rows' backward drops padded-edge cotangents; exact
+            # because the edge mask zeroes the radial embedding, so padded
+            # messages and their gradients are identically zero
+            w = mlp_apply(w_mlp, e['emb'], conv.act_radial)
+            x_src = gather_rows(rows, e['src'], e['perm'], e['inv'])
+            if e.get('dst_sort') is None:
+                # the [E, dim_msg] message tensor never exists
+                agg = conv_aggregate(conv.layout, x_src, e['sh'], w,
+                                     e['dst'], n_node)
+            else:
+                agg = aggregate_messages(
+                    conv_messages(conv.layout, x_src, e['sh'], w), e['dst'],
+                    n_node, False, *e['dst_sort'])
+            y = conv.to_e3nn(agg)
+            out = y if out is None else out + y
+            n_edge += e['src'].shape[0]
+        sp.set(edges=n_edge)
+        return out / denominator

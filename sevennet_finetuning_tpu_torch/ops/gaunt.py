@@ -13,31 +13,31 @@ evaluated as FFT pointwise products.
   polynomials of bounded degree); Z (Fourier -> SH) is the Moore-Penrose
   pseudo-inverse of Y.  Both are float64 numpy on the host, cached, and
   copied to a device once per (dtype, device).
-- ``apply_gaunt_conv``, the model's path, contracts through the Gaunt
-  product's sparse coupling table (``gaunt_layout``: a ``CGLayout`` of
-  (k, i, j, c) couplings, 21 at (l <= 1) x (l <= 3) -> (l <= 1)) on the
-  port's fused CG convolution (``conv_aggregate``: ``csrc/cg_agg.cu``
+- The model's path contracts through the Gaunt product's sparse
+  coupling table (``gaunt_layout``: a ``CGLayout`` of (k, i, j, c)
+  couplings, 21 at (l <= 1) x (l <= 3) -> (l <= 1)) on the port's one
+  convolution path (``fused_conv_agg.convolve``: ``csrc/cg_agg.cu``
   forward, ``cg_multi`` / ``cg_gagg`` / ``cg_gmulti`` backward, their
   plain versions on CPU tensors), so no per-edge sample grid exists.
+  ``gaunt_family`` is what the Gaunt family gives that path;
+  ``apply_gaunt_conv`` is the path on e3nn features.
 - ``gaunt_conv_fft`` keeps the FFT formulation: the source of that table
   and the reference the coupling path is held against.  Its Hermitian
-  fast path takes its real FFTs with ``torch.fft.rfft2`` / ``irfft2``,
-  which autograd differentiates to any order.  (The JAX module wraps
-  them in a primitive of its own only so that shard_map transposes carry
-  varying axes.)  ``SEVENN_GAUNT_RFFT=0`` selects its complex-FFT
-  variant; the switch chooses between those two variants only.  It
-  gathers the per-node sample grids by source with ``scatter.gather_rows``
-  and aggregates the messages by destination with the sorted segment sum
-  (``csrc/segment_sum.cu`` on the card), so both sums, and their backward
-  passes, run in a fixed order.
+  fast path (``rfft=True``, the default) takes its real FFTs with
+  ``torch.fft.rfft2`` / ``irfft2``, which autograd differentiates to any
+  order.  (The JAX module wraps them in a primitive of its own only so
+  that shard_map transposes carry varying axes.)  ``rfft=False`` is its
+  complex-FFT variant.  It gathers the per-node sample grids by source
+  with ``scatter.gather_rows`` and aggregates the messages by destination
+  with the sorted segment sum (``csrc/segment_sum.cu`` on the card), so
+  both sums, and their backward passes, run in a fixed order.
 """
 
 from __future__ import annotations
 
 import operator
-import os
 from dataclasses import dataclass
-from functools import lru_cache, reduce
+from functools import lru_cache, partial, reduce
 from typing import Tuple
 
 import numpy as np
@@ -45,9 +45,8 @@ import torch
 
 from .. import tracing
 from ..irreps import Irreps
-from .fused_conv import (CGGroup, CGLayout, CGPath, conv_messages,
-                         e3nn_to_stride)
-from .fused_conv_agg import conv_aggregate
+from .fused_conv import CGGroup, CGLayout, CGPath, ConvFamily, e3nn_to_stride
+from .fused_conv_agg import convolve
 from .mlp import mlp_apply
 from .scatter import aggregate_messages, gather_rows
 from .spherical import _recursion_scales
@@ -218,13 +217,6 @@ def _coeffs_from_real_samples(S: torch.Tensor, L: int) -> torch.Tensor:
     right = torch.flip(rows_rev[..., :, 1:L + 1], dims=(-1,)) / (M * M)
     G = torch.cat([left, right], dim=-1)
     return torch.roll(G, (L, L), dims=(-2, -1))
-
-
-def use_rfft() -> bool:
-    """``gaunt_conv_fft``'s Hermitian (real-FFT) variant;
-    SEVENN_GAUNT_RFFT=0 selects its complex-FFT variant.  The model's
-    path (``apply_gaunt_conv``) takes neither."""
-    return os.environ.get('SEVENN_GAUNT_RFFT', '1') != '0'
 
 
 def gaunt_product_grids(a: torch.Tensor, b: torch.Tensor, La: int, Lb: int
@@ -452,6 +444,19 @@ def _paths_to_e3nn(spec: GauntConvSpec, outs, agg: torch.Tensor
 # the convolution
 # ---------------------------------------------------------------------------
 
+@lru_cache(maxsize=None)
+def gaunt_family(spec: GauntConvSpec) -> ConvFamily:
+    """The Gaunt convolution for ``convolve``: ``gaunt_layout``, the radial
+    MLP's last-layer columns taken per path (``_path_mlp``), each output
+    irrep the sum of its paths (``_paths_to_e3nn``), in the span
+    ``gaunt.conv`` (``mul``, ``M``: the FFT formulation's grid side)."""
+    layout, outs = _coupling(spec)
+    M = 2 * (spec.L_x + spec.L_f) + 1
+    return ConvFamily(layout, spec.act_radial, partial(_path_mlp, spec, outs),
+                      partial(_paths_to_e3nn, spec, outs),
+                      ('gaunt.conv', dict(mul=spec.mul, M=M)))
+
+
 def apply_gaunt_conv(
     spec: GauntConvSpec,
     weight_nn_params,
@@ -463,48 +468,26 @@ def apply_gaunt_conv(
     n_node: int,
     denominator: torch.Tensor,
     sorted_dst: bool = False,
-    rfft=None,
     src_perm=None,
     src_inv=None,
     dst_sort=None,
 ) -> torch.Tensor:
     """Messages by pointwise product on the sphere, contracted through
-    ``gaunt_layout(spec)``; returns flat node features of
-    ``spec.irreps_out``.
-
-    The features go to the stride layout, are gathered by source
-    (``gather_rows``) and meet the harmonics and the per-path radial
-    weights in ``conv_aggregate`` on an ascending ``edge_dst``
-    (``sorted_dst``), else in ``conv_messages`` and the sorted segment sum
-    over dst's stable sort (``aggregate_messages``) -- the CG branch of
-    ``model/nequip.py``.  ``rfft`` is ignored (it chooses between
-    ``gaunt_conv_fft``'s variants).  The port-only arguments: ``src_perm``
-    / ``src_inv`` (collate's EDGE_SRC_PERM and its inverse; the stable
-    sort of ``edge_src`` is taken when not given) and, for an unsorted
+    ``gaunt_layout(spec)``: the model's convolution (``convolve`` over
+    ``gaunt_family(spec)``, inside the span ``gaunt.conv`` with ``edges``,
+    ``mul`` and ``M``) on flat e3nn node features; returns flat node
+    features of ``spec.irreps_out``.  ``sorted_dst``: ``edge_dst`` is
+    ascending.  The port-only arguments: ``src_perm`` / ``src_inv``
+    (collate's EDGE_SRC_PERM and its inverse; the stable sort of
+    ``edge_src`` is taken when not given) and, for an unsorted
     ``edge_dst``, ``dst_sort`` (its ``scatter.sort_perm``, taken once per
-    call when not given).
-
-    Inside the span ``gaunt.conv`` (``edges``, ``mul``, ``M``: the FFT
-    formulation's grid side); the counter ``gaunt.coupled_edges`` adds
-    the E edges contracted."""
-    M = 2 * (spec.L_x + spec.L_f) + 1
-    E = edge_src.shape[0]
-    tracing.count('gaunt.coupled_edges', E)
-    with tracing.span('gaunt.conv', edges=E, mul=spec.mul, M=M):
-        layout, outs = _coupling(spec)
-        w = mlp_apply(_path_mlp(spec, outs, weight_nn_params), emb,
-                      spec.act_radial)
-        x_src = gather_rows(e3nn_to_stride(spec.irreps_x, x_flat), edge_src,
-                            src_perm, src_inv)
-        if sorted_dst:
-            agg = conv_aggregate(layout, x_src, edge_attr, w, edge_dst,
-                                 n_node)
-        else:
-            perm, inv = (None, None) if dst_sort is None else dst_sort
-            agg = aggregate_messages(
-                conv_messages(layout, x_src, edge_attr, w), edge_dst,
-                n_node, False, perm, inv)
-        return _paths_to_e3nn(spec, outs, agg) / denominator
+    call when not given)."""
+    edges = dict(src=edge_src, dst=edge_dst, emb=emb, sh=edge_attr,
+                 perm=src_perm, inv=src_inv,
+                 dst_sort=None if sorted_dst else dst_sort or (None, None))
+    return convolve(gaunt_family(spec), weight_nn_params,
+                    [(e3nn_to_stride(spec.irreps_x, x_flat), edges)], n_node,
+                    denominator)
 
 
 def gaunt_conv_fft(
@@ -518,7 +501,7 @@ def gaunt_conv_fft(
     n_node: int,
     denominator: torch.Tensor,
     sorted_dst: bool = False,
-    rfft=None,
+    rfft: bool = True,
     src_perm=None,
     src_inv=None,
     dst_sort=None,
@@ -526,7 +509,7 @@ def gaunt_conv_fft(
     """``apply_gaunt_conv`` by the FFT formulation: per-edge products of
     torus sample grids, the source of ``gaunt_layout`` and the reference
     the coupling path is held against.  ``rfft``: its Hermitian variant
-    (True) or the complex one (False); None resolves from ``use_rfft()``.
+    (True) or the complex one (False).
 
     Inside the span ``gaunt.conv`` (``edges``, ``mul``, ``M``); the
     counter ``gaunt.grid_bytes`` adds the bytes of one per-edge sample
@@ -548,7 +531,7 @@ def _gaunt_conv(spec, weight_nn_params, x_flat, edge_attr, emb, edge_src,
     msg_stride = _fft_products(
         spec, x_stride, edge_attr,
         lambda v: _gather_src(v, edge_src, src_perm, src_inv),
-        use_rfft() if rfft is None else rfft)          # [E, mul, d_out]
+        rfft)                                          # [E, mul, d_out]
 
     w = mlp_apply(weight_nn_params, emb, spec.act_radial)
     w = w.reshape(w.shape[:-1] + (spec.mul, len(spec.irreps_out)))

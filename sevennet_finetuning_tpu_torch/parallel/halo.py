@@ -1,4 +1,5 @@
-"""Spatially decomposed inference and MD with a per-layer halo exchange.
+"""Spatially decomposed inference with a per-layer halo exchange (the
+forces of ``md``'s halo loops).
 
 Port of ``sevennet_finetuning_tpu/parallel/halo.py``, the counterpart of
 the reference's parallel MD execution model (reference:
@@ -11,7 +12,9 @@ before every convolution.
 - The host plan (``build_halo_plan``, ``HaloPlan``, ``StagePlan``,
   ``choose_dims``, ``scatter_positions``, ``gather_forces``) is the JAX
   package's numpy code, kept verbatim over this package's neighbor list:
-  the same structure, cutoff and rank count give the same arrays.
+  the same structure, cutoff and rank count give the same arrays.  The
+  last two also take any trailing width, and the first a fill value
+  and the ranks held.
 - The exchange follows the LAMMPS brick schedule: one staged swap per
   decomposed axis (x, then y including the x ghosts, then z), each a
   +axis and a -axis swap of packed rows, appended to the buffer as
@@ -40,10 +43,6 @@ before every convolution.
   through the exchange's backward; stress comes from a strain ``eps``
   applied to both partitions' edge vectors, its gradient summed over
   processes with the energy (JAX's ``deps`` is the global sum).
-- ``halo_md_segment`` (JAX ``make_halo_md_segment``): up to ``n_seg``
-  velocity-Verlet steps on the device, stopping before a step once the
-  global largest displacement passes skin/2 (one all-reduce MAX a step
-  keeps the ranks in step).
 """
 
 from __future__ import annotations
@@ -702,58 +701,27 @@ def make_halo_forward(model, plan: HaloPlan) -> HaloForward:
     return HaloForward(model, plan)
 
 
-def halo_md_segment(fwd: HaloForward, pos, vel, masses, f, dt: float,
-                    skin: float, n_active: int, n_seg: int):
-    """Up to ``n_active`` (<= ``n_seg``) velocity-Verlet steps of the
-    held ranks' atoms (JAX ``make_halo_md_segment``), positions,
-    velocities, masses and forces in plan layout [R, n_local, ...]
-    (padded rows: mass 1, zero force).  Stops before a step once the
-    global largest squared displacement since the segment's start passes
-    (skin/2)^2 (one host flag a step, as ``md.run_device`` reads).
-    Returns (pos, vel, f, done, local potential energies [n_seg], local
-    kinetic energies [n_seg]); sum the energy buffers over processes."""
-    from ..md import ACC_UNIT
-
-    nmask = fwd.node_mask.reshape(pos.shape[:-1])[..., None]
-    m = masses[..., None]
-    thr = (float(skin) / 2.0) ** 2
-    e_buf = torch.full((n_seg,), float('nan'), device=pos.device)
-    ke_buf = torch.full((n_seg,), float('nan'), device=pos.device)
-    pos0 = pos
-    done = 0
-    while done < n_active:
-        disp = torch.max(torch.sum((pos - pos0) ** 2, -1)
-                         * nmask[..., 0]).reshape(1)
-        if fwd.distributed:
-            dp.all_reduce_(disp, dist.ReduceOp.MAX)
-        if not bool(disp[0] <= thr):
-            break
-        a = f / m * ACC_UNIT
-        v1 = vel + 0.5 * dt * a
-        pos = pos + dt * v1
-        e1, f, _ = fwd.energy_forces(pos)
-        vel = v1 + 0.5 * dt * f / m * ACC_UNIT
-        e_buf[done] = e1
-        ke_buf[done] = 0.5 * torch.sum(m * vel * vel * nmask) / ACC_UNIT
-        done += 1
-    return pos, vel, f, done, e_buf, ke_buf
-
-
 def gather_forces(plan: HaloPlan, forces_sharded) -> np.ndarray:
-    """[D, n_local, 3] device layout -> [n_atoms, 3] global order."""
-    f = np.asarray(forces_sharded).reshape(plan.n_dev * plan.n_local, 3)
+    """[D, n_local, c] device layout of every rank -> [n_atoms, c] global
+    order."""
+    f = np.asarray(forces_sharded).reshape(plan.n_dev * plan.n_local, -1)
     perm = np.asarray(plan.owner_perm).reshape(-1)
-    out = np.zeros((plan.n_atoms, 3), f.dtype)
+    out = np.zeros((plan.n_atoms, f.shape[1]), f.dtype)
     valid = perm >= 0
     out[perm[valid]] = f[valid]
     return out
 
 
-def scatter_positions(plan: HaloPlan, pos: np.ndarray) -> np.ndarray:
-    """[n_atoms, 3] global -> [D, n_local, 3] device layout."""
-    out = np.zeros((plan.n_dev, plan.n_local, 3), np.float32)
-    for d in range(plan.n_dev):
+def scatter_positions(plan: HaloPlan, pos: np.ndarray, fill: float = 0.0,
+                      ranks=None) -> np.ndarray:
+    """[n_atoms, ...] global -> [R, n_local, ...] float32 device layout of
+    ``ranks`` (every rank by default), ``fill`` in the padded rows."""
+    ranks = range(plan.n_dev) if ranks is None else ranks
+    pos = np.asarray(pos)
+    out = np.full((len(ranks), plan.n_local) + pos.shape[1:], fill,
+                  np.float32)
+    for k, d in enumerate(ranks):
         ids = plan.owner_perm[d]
         valid = ids >= 0
-        out[d, valid] = pos[ids[valid]]
+        out[k, valid] = pos[ids[valid]]
     return out

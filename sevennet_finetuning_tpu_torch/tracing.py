@@ -9,7 +9,8 @@ instrumented boundaries (one thread: the caller's):
 - ``apply_model``: ``model.forward``, ``model.grad`` (the force
   backward), ``model.forces_stress`` (the scatters);
 - ``VelocityVerlet.run_device``: ``md.segment`` around ``md.step`` (a
-  unit; ``skin_trip`` on the attempt that stops a segment) with
+  unit; ``skin_trip`` on the attempt that stops a segment; ``vv_segment``,
+  which ``run_device_halo``'s steps run too) with
   ``md.skin.wait``, ``md.integrate`` and the ``model.*`` spans inside,
   ``md.fetch.wait`` (the segment's packed read, and the velocities at the
   end) and ``md.rebuild`` (``_device_batch``: ``graph.build`` on the
@@ -17,12 +18,12 @@ instrumented boundaries (one thread: the caller's):
   build's edge count, and the counters ``md.rebuild.device``, one a
   rebuild on the card, and ``md.rebuild.grow``, one a growth of its edge
   capacity, the first included);
-- ``ops/gaunt.py``: ``gaunt.conv`` around ``apply_gaunt_conv`` (``edges``,
-  ``mul``, ``M``) with the counter ``gaunt.coupled_edges``, the edges it
-  contracts through the coupling layout, and around ``gaunt_conv_fft``
-  with the counter ``gaunt.grid_bytes``, the bytes of its per-edge sample
-  grids (E x mul x M^2 elements); ``gaunt.pb`` around ``apply_gaunt_pb``
-  (``nodes``, ``correlation``);
+- ``ops/gaunt.py``: ``gaunt.conv`` around each Gaunt convolution
+  (``convolve`` over ``gaunt_family``; ``edges``, the edges contracted
+  through the coupling layout, ``mul``, ``M``) and around
+  ``gaunt_conv_fft`` with the counter ``gaunt.grid_bytes``, the bytes of
+  its per-edge sample grids (E x mul x M^2 elements); ``gaunt.pb`` around
+  ``apply_gaunt_pb`` (``nodes``, ``correlation``);
 - ``parallel/halo.py``: ``halo.swap`` around each ``DistTransport.swap``
   (``stage``, ``rows``; a backward's reverse swap too, from autograd's
   thread) with the counter ``halo.swap_bytes``, the bytes the rank sends.

@@ -21,6 +21,8 @@ would make its FFTs complex128):
   the leaf's max|g|).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -127,11 +129,11 @@ def _t_conv(case, rfft, sorted_dst=True):
     xt = torch.tensor(x, requires_grad=True)
     at = torch.tensor(attr, requires_grad=True)
     conv = (tg.apply_gaunt_conv if rfft == 'coupling'
-            else tg.gaunt_conv_fft)
+            else functools.partial(tg.gaunt_conv_fft, rfft=rfft))
     out = conv(
         t_spec, [torch.tensor(w) for w in mlp], xt, at, torch.tensor(emb),
         torch.tensor(src), torch.tensor(dst), N, torch.tensor(4.0),
-        sorted_dst=sorted_dst, rfft=rfft)
+        sorted_dst=sorted_dst)
     (out * torch.tensor(proj)).sum().backward()
     return [a.detach().numpy() for a in (out, xt.grad, at.grad)]
 
@@ -153,18 +155,11 @@ def test_gaunt_conv_matches_jax(rfft):
 
 
 def test_gaunt_conv_rfft_matches_complex():
-    """``gaunt_conv_fft``'s Hermitian variant against its complex one, and
-    ``SEVENN_GAUNT_RFFT=0`` selects the complex one."""
+    """``gaunt_conv_fft``'s Hermitian variant against its complex one."""
     case = _conv_case(seed=1, mul=2)
     fast, slow = _t_conv(case, True), _t_conv(case, False)
     for g, w in zip(fast, slow):
         _rel_close(g, w)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv('SEVENN_GAUNT_RFFT', '0')
-        assert not tg.use_rfft()
-        for g, w in zip(_t_conv(case, None), slow):
-            assert np.array_equal(g, w)
-    assert tg.use_rfft()
 
 
 @pytest.mark.parametrize('irreps,corr', [('3x0e+3x1o+3x2e', 2),
