@@ -50,11 +50,17 @@ phases and exits non-zero if any fails:
               of bytes over 3.35 TB/s and fp32 operations over 67 TFLOP/s
               (H100 SXM data sheet), counted at the live edges;
 4. serve   -- ``Calculator.from_checkpoint`` on the in-repo SevenNet-0
-              checkpoint answers each structure of ft.extxyz; results are
-              held against the committed JAX-CPU golden file (energy rel
-              <= 2e-6, forces and stress max-abs rel <= 1e-4) and every
-              request must launch agg 5, multi 5 and segment-sum >= 8
-              times;
+              checkpoint answers each structure of ft.extxyz, its graph
+              built on the card; results are held against the committed
+              JAX-CPU golden file (energy rel <= 2e-6, forces and stress
+              max-abs rel <= 1e-4) and every request must launch agg 5,
+              multi 5, segment-sum >= 8 times and the card build's
+              neighbor_count and neighbor_fill once each; then each
+              request's card batch (``Calculator.batch``) is held against
+              its host build (``structure_to_graph``, ``collate``,
+              ``batch_to_torch``): the same keys, node keys and padding
+              bit for bit, the same live edges (any order within a
+              destination), and both passes timed into the neighbor rows;
 5. batch   -- ``apply_model`` on one batch-8 collate of ft900.extxyz:
               ms per batch and edges/s;
 6. profile -- torch.profiler over one request and one batch-8 forward:
@@ -127,8 +133,8 @@ phases and exits non-zero if any fails:
               with create_graph, parameter gradient), each csrc family's
               profiled launches equal to its census.
 11. md     -- molecular dynamics at SevenNet-0's full width, on the native
-              neighbor list (the earlier phases keep the cKDTree one their
-              goldens were made with): ``main get_model`` deploys the
+              neighbor list (the earlier phases' host builds keep the
+              cKDTree one their goldens were made with): ``main get_model`` deploys the
               checkpoint to the npz artifact, ``Calculator.from_deployed``
               and ``main inference`` serve ft.extxyz from it (the serving
               golden's limits); ``Calculator(d3=pbe/bj)``'s D3 terms and
@@ -148,7 +154,8 @@ phases and exits non-zero if any fails:
               init_params(spec, 0)) served on the card against the same
               model on the CPU and 5 device-loop steps.  Each force
               evaluation must launch agg 5 (FCTP 4), multi 5 (4) and
-              segment-sum >= 8 (FCTP 7; 5 more with D3); ``segment_sum``,
+              segment-sum >= 8 (FCTP 7; 5 more with D3), each request and
+              each rebuild the count and the fill pass once; ``segment_sum``,
               ``cg_agg`` and ``cg_multi`` are held against their plain
               versions at every distinct shape the phase launches them
               (requests, D3 terms, MD steps at 96 and 768 atoms with and
@@ -168,7 +175,11 @@ phases and exits non-zero if any fails:
               request launching exactly its census (MACE agg 2, multi 2,
               segment-sum 5; Gaunt 3 / 3 / 6; Gaunt-gate 5 / 5 / 8: the
               Gaunt layers' convolutions on agg and multi through their
-              coupling layouts); MACE
+              coupling layouts; each the card build's count and fill
+              once), and MACE's and Gaunt's card batches held against
+              their host builds as the serve phase holds SevenNet-0's,
+              with MACE's at the serving cells' 768 and 1,152 atoms
+              (ft900 structure 0 replicated, 6 A) besides; MACE
               and Gaunt take three train steps on ft900 structure 0
               against the golden (loss terms, every leaf's first-step
               gradient within 1e-3 of its max|g|), each step launching
@@ -213,7 +224,8 @@ phases and exits non-zero if any fails:
               limits; every leaf's first update printed beside the
               golden's), and from a reset optimizer, which must miss the
               second step's limit.  The phase's launches are asserted
-              (agg 135, multi 215, gagg 80, gmulti 80, segment-sum >= 248).
+              (agg 135, multi 215, gagg 80, gmulti 80, segment-sum >= 248,
+              neighbor_count 5 and neighbor_fill 5).
 14. ddp     -- data-parallel training through ``main train -d`` on the
               pipeline phase's reEWC fine-tune stage (its Fisher
               artifacts): (a) a world of one rank over NCCL, whose
@@ -349,7 +361,7 @@ PROBE_CASE = {'probe_copy_tiled': 'em te=256',
               'probe_copy_ring': 'rows=8 slots=4 split=2'}
 # the kernels each path must launch (the others it must not)
 PATH_KERNELS = {
-    'serve': ('segment_sum', 'cg_agg', 'cg_multi'),
+    'serve': ('segment_sum', 'cg_agg', 'cg_multi') + NEIGHBOR,
     'train': ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg', 'cg_gmulti'),
     'remat': ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg', 'cg_gmulti'),
     'pipeline': ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg',
@@ -358,8 +370,9 @@ PATH_KERNELS = {
     'probes': PROBES,
     'md': ('segment_sum', 'cg_agg', 'cg_multi') + NEIGHBOR,
     'families': ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg',
-                 'cg_gmulti'),
-    'compat': ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg', 'cg_gmulti'),
+                 'cg_gmulti') + NEIGHBOR,
+    'compat': ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg', 'cg_gmulti')
+    + NEIGHBOR,
     'ddp': ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg', 'cg_gmulti'),
     'halo': ('segment_sum', 'cg_agg', 'cg_multi'),
 }
@@ -528,16 +541,17 @@ FAMILY_KERNELS = ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg',
                   'cg_gmulti')
 # A Gaunt layer's convolution runs on cg_agg / cg_multi through its
 # coupling layout (ops/gaunt.gaunt_layout), as a CG layer's does: a
-# request launches agg and multi once a layer and segment-sum for the
+# request launches agg and multi once a layer, segment-sum for the
 # energy, the two force sums, the virial and the src-side scatter of
-# every layer but the first
+# every layer but the first, and the card build's count and fill passes
 FAMILY_SERVE_CENSUS = {
-    'mace_mp0_medium_widths': {'cg_agg': 2, 'cg_multi': 2,
-                               'segment_sum': 5},
-    'gaunt_sevennet0_widths': {'cg_agg': 3, 'cg_multi': 3,
-                               'segment_sum': 6},
-    'gaunt_gate_sevennet0_widths': {'cg_agg': 5, 'cg_multi': 5,
-                                    'segment_sum': 8}}
+    name: dict(census, **dict.fromkeys(NEIGHBOR, 1)) for name, census in {
+        'mace_mp0_medium_widths': {'cg_agg': 2, 'cg_multi': 2,
+                                   'segment_sum': 5},
+        'gaunt_sevennet0_widths': {'cg_agg': 3, 'cg_multi': 3,
+                                   'segment_sum': 6},
+        'gaunt_gate_sevennet0_widths': {'cg_agg': 5, 'cg_multi': 5,
+                                        'segment_sum': 8}}.items()}
 FAMILY_TRAIN_CENSUS = {
     'mace_mp0_medium_widths': {'cg_agg': 2, 'cg_multi': 4, 'cg_gagg': 2,
                                'cg_gmulti': 2, 'segment_sum': 7},
@@ -1347,10 +1361,12 @@ def phase_serve(calc, results=None, label='serve'):
                for k in _cuda.KERNELS}
         if (got['cg_agg'] != 5 or got['cg_multi'] != 5
                 or got['segment_sum'] < 8 or got['cg_quad'] != 0
+                or any(got[k] != 1 for k in NEIGHBOR)
                 or any(got[k] for k in PROBES)):
             raise AssertionError(f'request {i}: launches {got}, expected '
                                  'cg_agg 5, cg_multi 5, segment_sum >= 8, '
-                                 'cg_quad 0, no probe')
+                                 'cg_quad 0, neighbor_count 1, '
+                                 'neighbor_fill 1, no probe')
         e_rel = abs(res['energy'] - gold['energy'][i]) / abs(
             gold['energy'][i])
         f_ref = gold[f'forces_{i}']
@@ -2586,52 +2602,85 @@ def _bit_equal(a, b):
         b.reshape(-1).contiguous().view(torch.uint8)))
 
 
-def md_rebuild_times(vv, times, rows, n=20):
-    """One rebuild of ``vv``'s structure on the card at its positions,
-    held key by key, bit for bit, against the host rebuild (the native
-    core's edges through ``collate``; AssertionError otherwise), then
-    timed: host ms to a sync (mean of ``n``), profiler device us of each
-    pass's kernels (the count pass's eight, the fill pass's one) and of
-    the packing's torch ops (at least: by ``n``), and each pass's byte
-    bound (count: the
-    positions read and the per-atom counts written; fill: each live
-    edge's i, j and shift written once); the host rebuild's ms beside
-    them.  Appends a case a pass to ``rows['neighbor_count']`` and
-    ``rows['neighbor_fill']``, the host rebuild as their plain version."""
+def same_build(label, card, host, order_free=False):
+    """A batch built on the card against the host's build of the same
+    structure, key by key: the same keys, every key bit-equal (dtype,
+    shape, bytes).  With ``order_free`` the edges of one destination may
+    come in another order (the card's fill against a host list's), so
+    where the edge keys differ the live edges are held as rows sorted by
+    (destination, source, shift), bit for bit, the padding slots bit for
+    bit, and each source permutation as the sources it sorts and the
+    inverse as its inverse.  AssertionError otherwise; returns (live
+    edges, slots, max_abs_err (0.0), same order)."""
+    import numpy as np
+
+    from sevennet_finetuning_tpu_torch import keys as K
+    from sevennet_finetuning_tpu_torch.model.nequip import EDGE_SRC_INV_PERM
+
+    m = int(card[K.EDGE_MASK].sum())
+    slots = card[K.EDGE_IDX].shape[1]
+    both = set(card) & set(host)
+    differ = sorted(set(card) ^ set(host)) + [
+        k for k in sorted(both) if not _bit_equal(card[k], host[k])]
+    same_order = not differ
+    edge_keys = {K.EDGE_IDX, K.CELL_SHIFT, K.EDGE_SRC_PERM,
+                 EDGE_SRC_INV_PERM}
+    if order_free and differ and set(differ) <= edge_keys and all(
+            card[k].dtype == host[k].dtype and card[k].shape == host[k].shape
+            for k in edge_keys):
+        def rows(b):
+            idx = b[K.EDGE_IDX].cpu().numpy()
+            sh = b[K.CELL_SHIFT].cpu().numpy().view(np.uint32)
+            perm = b[K.EDGE_SRC_PERM].cpu().numpy()
+            inv = b[EDGE_SRC_INV_PERM].cpu().numpy()
+            o = np.lexsort((*sh[:m].T[::-1], idx[1, :m], idx[0, :m]))
+            return ([idx[:, :m][:, o], sh[:m][o], idx[:, m:], sh[m:],
+                     idx[1][perm]], np.array_equal(perm[inv],
+                                                   np.arange(slots)))
+
+        (c, c_inv), (h, h_inv) = rows(card), rows(host)
+        if c_inv and h_inv and all(map(np.array_equal, c, h)):
+            differ = []
+    if same_order:
+        verdict = 'bit-equal'
+    elif not differ:
+        verdict = 'the same edges, in another order within a destination'
+    else:
+        err = max((float((card[k].double() - host[k].double()).abs().max())
+                   for k in differ if k in both
+                   and card[k].shape == host[k].shape and card[k].numel()),
+                  default=None)
+        verdict = f'differs in {differ} (max_abs_err {err})'
+    log(f'  {label}: the card batch against the host build, {len(host)} '
+        f'keys, {m} edges in {slots} slots: {verdict}')
+    if differ:
+        raise AssertionError(f'{label}: the card batch is not the host '
+                             f'build\'s in {differ}')
+    return m, slots, 0.0, same_order
+
+
+def build_rows(label, n_atoms, build, card, host, host_ms, rows, n=20,
+               order_free=False):
+    """``card`` (``build()``'s batch) held against ``host`` (``same_build``),
+    then ``build`` timed: host ms to a sync (mean of ``n``), profiler
+    device us of each pass's kernels (the count pass's eight, the fill
+    pass's one) and of the rest of the build's device work (the packing's
+    torch ops, any copies: by ``n``), and each pass's byte bound (count:
+    the positions read and the per-atom counts written; fill: each live
+    edge's i, j and shift written once); the host build's ``host_ms``
+    beside them.  Appends a case a pass to ``rows['neighbor_count']`` and
+    ``rows['neighbor_fill']``, the host build as their plain version, and
+    returns the timings."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from sevennet_finetuning_tpu_torch import keys as K
     from sevennet_finetuning_tpu_torch.tools.bench_dma import device_rows
 
-    n_atoms = len(vv.s)
-    pos = vv._device_pos()
-    card = vv._device_batch(pos)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    host = vv._host_edges()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    m = int(card[K.EDGE_MASK].sum())
-    slots = card[K.EDGE_IDX].shape[1]
-    differ = sorted(set(card) ^ set(host)) + [
-        k for k in sorted(set(card) & set(host))
-        if not _bit_equal(card[k], host[k])]
-    err = max((float((card[k].double() - host[k].double()).abs().max())
-               for k in set(card) & set(host)
-               if card[k].shape == host[k].shape and card[k].numel()),
-              default=0.0)
-    log(f'  {n_atoms}-atom rebuild: the card batch against the host '
-        f'rebuild, {len(host)} keys, {m} edges in {slots} slots: '
-        f'{"bit-equal" if not differ else f"differs in {differ}"} '
-        f'(max_abs_err {err:.3e})')
-    if differ:
-        raise AssertionError(f'{n_atoms}-atom rebuild: the card batch is '
-                             f'not the host rebuild\'s in {differ}')
+    m, slots, err, same_order = same_build(label, card, host, order_free)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
-        vv._device_batch(pos)
+        build()
     torch.cuda.synchronize()
     card_ms = (time.perf_counter() - t0) * 1e3 / n
     # the profiler drops a prefix of a window's device events (see
@@ -2641,7 +2690,7 @@ def md_rebuild_times(vv, times, rows, n=20):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
-                vv._device_batch(pos)
+                build()
             torch.cuda.synchronize()
         us = {'count': 0.0, 'fill': 0.0, 'pack': 0.0}
         seen = {'count': 0, 'fill': 0}
@@ -2658,8 +2707,8 @@ def md_rebuild_times(vv, times, rows, n=20):
         if seen['count'] and seen['fill']:
             break
     else:
-        raise AssertionError(f'{n_atoms}-atom rebuild: no device time '
-                             'profiled for the neighbor kernels')
+        raise AssertionError(f'{label}: no device time profiled for the '
+                             'neighbor kernels')
     us['count'] /= seen['count']
     us['fill'] /= seen['fill']
     us['pack'] /= n
@@ -2668,23 +2717,77 @@ def md_rebuild_times(vv, times, rows, n=20):
     for part in ('count', 'fill'):
         b_ms, b_by = bounds[part]
         rows.setdefault(f'neighbor_{part}', []).append(dict(
-            shape=f'{n_atoms} atoms: {m} edges in {slots} slots',
-            max_abs_err=err, bit_equal_to_host=True,
+            shape=f'{label}: {n_atoms} atoms, {m} edges in {slots} slots',
+            max_abs_err=err, bit_equal_to_host=same_order,
             ms=us[part] / 1e3, plain_ms=host_ms, library_ms=None,
             bound_ms=b_ms, bound_by=b_by, device_us=us[part],
             rebuild_ms=card_ms))
     bound_us = sum(b for b, _ in bounds.values()) * 1e3
     kernel_us = us['count'] + us['fill']
-    times[f'{n_atoms} rebuild'] = dict(
-        edges=m, slots=slots, card_ms=round(card_ms, 4),
-        count_us=round(us['count'], 2), fill_us=round(us['fill'], 2),
-        pack_us=round(us['pack'], 2), bound_us=round(bound_us, 3),
-        host_ms=round(host_ms, 3), same_as_host=True)
-    log(f'  [time] {n_atoms}-atom rebuild on the card: {card_ms:.4f} ms to '
-        f'a sync, device {us["count"]:.2f} us count + {us["fill"]:.2f} us '
-        f'fill + {us["pack"]:.2f} us packing ({m} edges; bound '
+    log(f'  [time] {label} on the card: {card_ms:.4f} ms to a sync, '
+        f'device {us["count"]:.2f} us count + {us["fill"]:.2f} us fill + '
+        f'{us["pack"]:.2f} us packing and copies ({m} edges; bound '
         f'{bound_us:.3f} us, {100 * bound_us / kernel_us:.1f}% of the '
-        f'kernels\'); host rebuild {host_ms:.3f} ms')
+        f'kernels\'); host build {host_ms:.3f} ms')
+    return dict(edges=m, slots=slots, card_ms=round(card_ms, 4),
+                count_us=round(us['count'], 2), fill_us=round(us['fill'], 2),
+                pack_us=round(us['pack'], 2), bound_us=round(bound_us, 3),
+                host_ms=round(host_ms, 3), same_as_host=same_order)
+
+
+def md_rebuild_times(vv, times, rows, n=20):
+    """One rebuild of ``vv``'s structure on the card at its positions,
+    held key by key, bit for bit, against the host rebuild (the native
+    core's edges through ``collate``), then timed (``build_rows``)."""
+    import torch
+
+    n_atoms = len(vv.s)
+    pos = vv._device_pos()
+    card = vv._device_batch(pos)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = vv._host_edges()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    times[f'{n_atoms} rebuild'] = build_rows(
+        f'{n_atoms}-atom rebuild', n_atoms, lambda: vv._device_batch(pos),
+        card, host, host_ms, rows, n)
+
+
+def host_build(calc, s):
+    """``s`` built as a CPU Calculator builds it (``structure_to_graph``,
+    ``collate``, ``batch_to_torch``), onto the calculator's device."""
+    from sevennet_finetuning_tpu_torch import keys as K
+    from sevennet_finetuning_tpu_torch.model.graph import (
+        bucket_capacity, collate, structure_to_graph)
+    from sevennet_finetuning_tpu_torch.model.nequip import batch_to_torch
+
+    g = structure_to_graph(s, calc.spec.cutoff, calc.type_map)
+    b = collate([g], n_node=bucket_capacity(len(s), margin=1.0),
+                n_edge=bucket_capacity(g[K.EDGE_IDX].shape[1]), n_graph=1)
+    return batch_to_torch(b, calc.device)
+
+
+def serve_build_rows(label, calc, structs, rows, n=20):
+    """Each request's batch as a CUDA ``Calculator`` builds it on the card
+    (``calc.batch``) against the host's build of it (``host_build``; the
+    edges of one destination in any order), timed into ``rows`` as
+    ``build_rows`` does.  Returns the timings by request."""
+    import torch
+
+    out = {}
+    for i, s in enumerate(structs):
+        card = calc.batch(s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = host_build(calc, s)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        out[f'{label} request {i}'] = build_rows(
+            f'{label} request {i} at {calc.spec.cutoff} A', len(s),
+            lambda: calc.batch(s), card, host, host_ms, rows, n,
+            order_free=True)
+    return out
 
 
 def md_768_d3(big, new_md, calc_d3, cap, times):
@@ -2765,7 +2868,7 @@ def _md_runs(cap, rows):
             before = dict(_cuda.LAUNCHES)
             res = calc.calculate(s)
             md_census(f'deployed request {i}', _launch_diff(before), 1,
-                      False)
+                      False, builds=1)
             check_served(f'deployed request {i} ({len(s)} atoms)', res,
                          serve_gold['energy'][i], serve_gold[f'forces_{i}'],
                          serve_gold['stress'][i])
@@ -2808,7 +2911,8 @@ def _md_runs(cap, rows):
                                  'file')
         before = dict(_cuda.LAUNCHES)
         res = calc_d3.calculate(s)
-        md_census(f'd3 request {i}', _launch_diff(before), 1, True)
+        md_census(f'd3 request {i}', _launch_diff(before), 1, True,
+                  builds=1)
         check_served(f'GNN + D3 request {i}', res,
                      gold['total_energy'][i], gold[f'total_forces_{i}'],
                      gold['total_stress'][i])
@@ -2942,7 +3046,7 @@ def _md_runs(cap, rows):
         before = dict(_cuda.LAUNCHES)
         res = fctp.calculate(s)
         md_census(f'FCTP request {i}', _launch_diff(before), 1, False,
-                  per_eval=FCTP_CENSUS)
+                  per_eval=FCTP_CENSUS, builds=1)
         check_served(f'FCTP request {i} against the CPU plain path',
                      res, **{k: v for k, v in fctp_cpu.calculate(
                          s).items() if k in ('energy', 'forces', 'stress')})
@@ -3070,12 +3174,22 @@ def phase_families(rows):
     launched is held against its plain version (``KernelCapture``).  Then
     the families' new kernel shapes are timed into ``rows``.  Returns the
     launch counts of the requests and train steps."""
+    from sevennet_finetuning_tpu_torch.data.readers import read_extxyz
+    from sevennet_finetuning_tpu_torch.data.vasp import replicate
+
     t_phase = time.perf_counter()
     with KernelCapture(FAMILY_KERNELS) as cap:
         counts, calcs, structure = _family_runs(cap)
     # the new shapes' timings (their launches are not the path's)
     family_kernel_rows(rows, calcs['mace_mp0_medium_widths'],
                        calcs['gaunt_sevennet0_widths'], structure)
+    served = read_extxyz(str(FT))
+    for name in ('mace_mp0_medium_widths', 'gaunt_sevennet0_widths'):
+        serve_build_rows(name, calcs[name], served, rows)
+    # the serving cells' largest requests at their 6 A (MACE's cutoff)
+    serve_build_rows('mace_mp0_medium_widths replica', calcs[
+        'mace_mp0_medium_widths'], [replicate(structure, 2, 2, 2),
+                                    replicate(structure, *GAUNT_REPS)], rows)
     del calcs
     gaunt_coupling_check()
     log(f'[families] phase {time.perf_counter() - t_phase:.1f} s')
@@ -3770,13 +3884,15 @@ def compat_continue(blob):
     return dict(total)
 
 
-# launches of the compat phase: five requests (serve census), two
-# fine-tune stages (FT_STAGE_CENSUS), four train steps (two restored, two
-# reset); segment-sum at least that many
-COMPAT_CENSUS = {k: 5 * {'cg_agg': 5, 'cg_multi': 5}.get(k, 0)
+# launches of the compat phase: five requests (serve census: agg 5, multi
+# 5, the card build's count and fill passes), two fine-tune stages
+# (FT_STAGE_CENSUS), four train steps (two restored, two reset);
+# segment-sum at least that many
+COMPAT_CENSUS = {k: 5 * {'cg_agg': 5, 'cg_multi': 5,
+                         **dict.fromkeys(NEIGHBOR, 1)}.get(k, 0)
                  + 2 * FT_STAGE_CENSUS.get(k, 0) + 4 * TRAIN_CENSUS[k]
                  for k in ('cg_agg', 'cg_multi', 'cg_gagg', 'cg_gmulti',
-                           'cg_quad')}
+                           'cg_quad') + NEIGHBOR}
 COMPAT_MIN_SEGMENT_SUMS = 5 * 8 + 2 * 6 * 13 + 4 * 13
 
 
@@ -4358,6 +4474,7 @@ def main():
         return multi_card(int(sys.argv[2]))
     sys.path.insert(0, str(ROOT))
     from sevennet_finetuning_tpu_torch.calculator import Calculator
+    from sevennet_finetuning_tpu_torch.data.readers import read_extxyz
     from sevennet_finetuning_tpu_torch.tools.bench_dma import card_line
 
     # every census assumes the card's default remat budget
@@ -4373,9 +4490,11 @@ def main():
             f64_reference()
         return 0
     probe_rows, probe_counts = phase_probes()
-    # the phases but md build their graphs with the cKDTree neighbor list,
-    # as the port did before it had the native one (the train, pipeline
-    # and continue goldens were made with it); md takes the native list.
+    # the phases but md build their host graphs with the cKDTree neighbor
+    # list, as the port did before it had the native one (the train,
+    # pipeline and continue goldens were made with it); md takes the
+    # native list.  A CUDA Calculator's requests build on the card in
+    # every phase.
     # The pipeline phase's directory lives on for the compat phase
     work = tempfile.TemporaryDirectory()
     try:
@@ -4384,6 +4503,7 @@ def main():
             batch, n_real_edge = batch8(calc)
             rows = phase_kernels(calc, batch, n_real_edge)
             serve_counts = phase_serve(calc)
+            serve_build_rows('serve', calc, read_extxyz(str(FT)), rows)
             phase_batch(calc, batch, n_real_edge)
             phase_profile(calc, batch)
             del calc

@@ -3,9 +3,12 @@
 Port of ``sevennet_finetuning_tpu/calculator.py``: builds a padded graph
 per call (bucketed capacities, as the JAX package does) and runs the
 model on the calculator's device -- ``cuda`` unless the caller passes
-``device='cpu'``.  The model runs with its weights frozen, so autograd
-tracks only the edge vectors the forces come from.  ``d3=`` adds Grimme
-D3 dispersion (``ops/d3.py``) on the same device.  ``from_checkpoint``
+``device='cpu'``.  On a CUDA calculator the card builds the request's
+edges (``ops/neighbor.py``'s cell list, as MD's rebuild does); on the
+CPU the host's neighbor list and ``collate`` build them.  The model runs
+with its weights frozen, so autograd tracks only the edge vectors the
+forces come from.  ``d3=`` adds Grimme D3 dispersion (``ops/d3.py``) on
+the same device, its neighbor list built on the host.  ``from_checkpoint``
 reads pickle checkpoints of either package, reference torch ``.pth``
 files and the npz deploy artifact; ``from_deployed_torchscript`` imports
 the weights of a reference frozen TorchScript (``compat/
@@ -25,16 +28,60 @@ import torch
 from . import keys as K
 from . import resolve_device, tracing
 from .data.vasp import Structure
-from .model.graph import bucket_capacity, collate, structure_to_graph
+from .model.graph import (
+    bucket_capacity,
+    collate,
+    structure_nodes,
+    structure_to_graph,
+)
 from .model.nequip import (
+    EDGE_SRC_INV_PERM,
     ModelSpec,
     NequIP,
     apply_model,
     batch_to_torch,
     load_jax_params,
 )
+from .ops.neighbor import CellList, pack_edges
 
 STRESS_COEFF_KBAR = 1602.1766208
+
+
+def node_batch(s: Structure, type_map: Dict[int, int],
+               device) -> Dict[str, torch.Tensor]:
+    """The node and per-graph keys of ``s``'s padded batch on ``device``
+    (``collate`` of the structure without edges), ``K.POS`` the float32
+    positions padded with zeros to ``bucket_capacity(n, margin=1.0)``."""
+    g = structure_nodes(s, type_map)
+    g[K.EDGE_IDX] = np.zeros((2, 0), np.int32)
+    g[K.CELL_SHIFT] = np.zeros((0, 3), np.float32)
+    b = collate([g], n_node=bucket_capacity(len(s), margin=1.0), n_edge=0,
+                n_graph=1)
+    out = batch_to_torch(b, device)
+    for k in (K.EDGE_IDX, K.CELL_SHIFT, K.EDGE_MASK, K.EDGE_SRC_PERM,
+              EDGE_SRC_INV_PERM):
+        del out[k]
+    return out
+
+
+def with_edges(nodes: Dict[str, torch.Tensor], n_live: int,
+               fill) -> Dict[str, torch.Tensor]:
+    """``nodes`` and the edge keys of ``n_live`` edges grouped by
+    ascending destination: ``fill(edge_idx, shift)`` writes them into
+    slots [0, n_live) of new buffers of ``bucket_capacity(n_live)`` slots
+    (the host path's rule), and ``pack_edges`` pads the rest as
+    ``collate`` does and sorts the sources."""
+    dev = nodes[K.POS].device
+    n_node = nodes[K.NODE_MASK].shape[0]
+    cap = bucket_capacity(n_live)
+    idx = torch.empty((2, cap), dtype=torch.int32, device=dev)
+    shift = torch.empty((cap, 3), dtype=torch.float32, device=dev)
+    mask = torch.empty(cap, dtype=torch.float32, device=dev)
+    fill(idx, shift)
+    perm, inv = pack_edges(idx, shift, mask, n_live, n_node)
+    return dict(nodes, **{K.EDGE_IDX: idx, K.CELL_SHIFT: shift,
+                          K.EDGE_MASK: mask, K.EDGE_SRC_PERM: perm,
+                          EDGE_SRC_INV_PERM: inv})
 
 
 class Calculator:
@@ -94,13 +141,30 @@ class Calculator:
         return cls(spec, params, device=device)
 
     def batch(self, s: Structure) -> Dict[str, torch.Tensor]:
-        """One structure as a padded batch on the calculator's device."""
+        """One structure as a padded batch on the calculator's device: on a
+        CUDA calculator its edges built on the card (``_card_batch``),
+        elsewhere by the host's neighbor list, ``collate`` and the copies
+        of ``batch_to_torch``."""
         with tracing.span('graph.build'):
+            if self.device.type == 'cuda':
+                return self._card_batch(s)
             g = structure_to_graph(s, self.spec.cutoff, self.type_map)
             n_node = bucket_capacity(len(s), margin=1.0)
             n_edge = bucket_capacity(g[K.EDGE_IDX].shape[1])
             b = collate([g], n_node=n_node, n_edge=n_edge, n_graph=1)
             return batch_to_torch(b, self.device)
+
+    def _card_batch(self, s: Structure) -> Dict[str, torch.Tensor]:
+        """The card build: the node keys, a ``CellList`` of the request
+        (dropped on return, before the model runs), its count pass and
+        one read of the edge total, then ``with_edges`` over its fill
+        pass."""
+        nodes = node_batch(s, self.type_map, self.device)
+        cells = CellList(s.cell, s.pbc, self.spec.cutoff, s.pos, self.device)
+        n_live, reads = cells.count(nodes[K.POS])
+        tracing.count('host_syncs', reads)
+        tracing.count('graph.build.device')
+        return with_edges(nodes, n_live, cells.fill)
 
     def calculate(self, s: Structure) -> Dict[str, np.ndarray]:
         """energy (eV), energies (eV/atom), forces (eV/A),

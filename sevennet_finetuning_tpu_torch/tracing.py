@@ -4,7 +4,9 @@ Off by default; ``enable()`` turns recording on for the process.  The
 instrumented boundaries (one thread: the caller's):
 
 - ``Calculator.calculate``: ``calc.request`` (a unit; ``n_atoms``,
-  ``edge_capacity``) around ``graph.build`` (``Calculator.batch``), the
+  ``edge_capacity``) around ``graph.build`` (``Calculator.batch``; on a
+  CUDA calculator the counter ``graph.build.device``, one a request built
+  on the card, and ``host_syncs``, the read of its edge count), the
   ``model.*`` spans and ``calc.fetch.wait`` (the reads of the results);
 - ``apply_model``: ``model.forward``, ``model.grad`` (the force
   backward), ``model.forces_stress`` (the scatters);

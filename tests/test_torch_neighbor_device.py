@@ -1,10 +1,19 @@
-"""MD's neighbor rebuild on the card (``ops/neighbor.py``,
-``csrc/neighbor_cells.cu``) and the packing it shares with the host path.
+"""The neighbor list on the card (``ops/neighbor.py``,
+``csrc/neighbor_cells.cu``), as MD's rebuild and the serving
+``Calculator`` build with it, and the packing they share with the host
+path.
 
-On the CPU (tier 1): ``pack_edges`` and ``VelocityVerlet._node_keys``
-laid over the host core's edge list give, key by key and bit for bit,
-the batch that ``collate`` + ``batch_to_torch`` give for the same list
-(``VelocityVerlet._host_edges``, the host rebuild).
+On the CPU (tier 1), laid over the host core's edge list, key by key and
+bit for bit:
+
+- ``pack_edges`` and ``VelocityVerlet._node_keys`` give the batch that
+  ``collate`` + ``batch_to_torch`` give for the same list
+  (``VelocityVerlet._host_edges``, the host rebuild);
+- the Calculator's card assembly (``calculator.node_batch``, then
+  ``with_edges`` over a fill pass) gives what ``Calculator.batch`` builds
+  on the CPU, on ft900 structure 0 (96 atoms), its 3x2x2 replica (1,152)
+  and a cluster with no periodic axis; and the CPU build counts no
+  ``graph.build.device``.
 
 On the card (marker ``card``; each test skips without CUDA):
 
@@ -23,7 +32,14 @@ On the card (marker ``card``; each test skips without CUDA):
   the same segments, E_pot, E_kin, positions and velocities within
   ``test_torch_md``'s ``run_device`` limits, and ``md.rebuild.device``
   one a segment; the card run also against the JAX package's run in
-  ``golden/md_hfo2_jax_cpu.npz`` at ``chip_smoke.py``'s md-phase limits.
+  ``golden/md_hfo2_jax_cpu.npz`` at ``chip_smoke.py``'s md-phase limits;
+- ``Calculator.calculate`` with the card build against the same request
+  built on the host (``structure_to_graph``, ``collate``,
+  ``batch_to_torch``) and run by ``apply_model``: SevenNet-0 (the in-repo
+  checkpoint) and the benchmark's MACE- and Gaunt-widths configurations
+  (random weights from a seed) at 96 and 1,152 rattled atoms; the same
+  edge set, energy, forces and stress within 1e-6 relative,
+  ``graph.build.device`` one a request, and two requests bit-identical.
 
 This file imports no JAX; ``tests/conftest.py`` does, so on a card
 machine without JAX:
@@ -195,6 +211,70 @@ def test_packing_matches_collate(case):
     _assert_same_batch(got, want)
 
 
+# the Calculator's card build: the serving cells' sizes (96 atoms at
+# SevenNet-0's cutoff; 1,152 at the MACE and Gaunt widths' 6 A) and a
+# cluster with no periodic axis
+CALC_CASES = {
+    'ft900_0': (_ft900_0, CUTOFF),
+    'ft900_0_3x2x2': (lambda: _replica_of(3, 2, 2), 6.0),
+    'cluster': (lambda: _random(40, np.diag([9.0, 9.0, 9.0]),
+                                pbc=(False, False, False), seed=4), 4.5),
+}
+
+
+def _replica_of(*reps):
+    from sevennet_finetuning_tpu_torch.data.vasp import replicate
+
+    return replicate(_ft900_0(), *reps)
+
+
+def _calculator(cutoff, device='cpu'):
+    """A SevenNet-0-shaped Calculator on HfO2 at ``cutoff``."""
+    from sevennet_finetuning_tpu_torch.calculator import Calculator
+    from sevennet_finetuning_tpu_torch.model.build import build_model_spec
+    from sevennet_finetuning_tpu_torch.model.nequip import init_params
+
+    spec = build_model_spec({'_number_of_species': 2,
+                             '_type_map': {8: 0, 72: 1}, 'cutoff': cutoff})
+    return Calculator(spec, init_params(spec, 0), device=device)
+
+
+@pytest.mark.parametrize('case', list(CALC_CASES))
+def test_calculator_card_assembly_matches_host_batch(case):
+    """``Calculator._card_batch``'s assembly -- ``node_batch``, the rule
+    ``bucket_capacity(total)``, a fill pass into buffers of garbage, then
+    ``pack_edges`` -- over the host core's edge list, against what
+    ``Calculator.batch`` builds on the CPU; which counts no card build."""
+    from sevennet_finetuning_tpu_torch import tracing
+    from sevennet_finetuning_tpu_torch.calculator import (node_batch,
+                                                          with_edges)
+
+    make, rc = CALC_CASES[case]
+    s = make()
+    calc = _calculator(rc)
+    tracing.reset()
+    tracing.enable()
+    try:
+        want = calc.batch(s)
+        counts = tracing.counters()
+    finally:
+        tracing.disable()
+        tracing.reset()
+    assert counts['graph.build.device'] == 0
+    i, j, shift = _native(s, rc)
+    m = len(i)
+
+    def fill(idx, sh):
+        idx.fill_(-7)
+        sh.fill_(9.5)
+        idx[0, :m] = torch.as_tensor(i, dtype=torch.int32)
+        idx[1, :m] = torch.as_tensor(j, dtype=torch.int32)
+        sh[:m] = torch.as_tensor(shift, dtype=torch.float32)
+
+    got = with_edges(node_batch(s, calc.type_map, calc.device), m, fill)
+    _assert_same_batch(got, want)
+
+
 # --- the card -----------------------------------------------------------
 
 def _card_build(s, rc, device, cap=None):
@@ -337,3 +417,118 @@ def test_card_run_device_matches_host_rebuild(card):
                                rtol=1e-4, atol=0)
     np.testing.assert_allclose(card_vv.vel, gold['md_vel'], rtol=1e-3,
                                atol=1e-6)
+
+
+# the serving Calculator's card build: SevenNet-0 and the benchmark's two
+# serving configurations, each request at 96 and 1,152 atoms rattled by
+# 0.02 A (the serving traffic's), weights from a large seed
+SERVED = ('sevennet0', 'mace_mp0_medium_widths', 'gaunt_mp0_medium_widths')
+SERVED_SEED = 2 ** 33 + 17
+_served = {}
+
+
+def _served_calculator(name):
+    """The card Calculator of ``name``, made once for the module."""
+    import json
+
+    if name in _served:
+        return _served[name]
+    from benchmark import program
+    from sevennet_finetuning_tpu_torch.calculator import Calculator
+
+    if name == 'sevennet0':
+        calc = Calculator.from_checkpoint(str(CKPT), device='cuda')
+    else:
+        cfg_file = json.loads(
+            (ROOT / 'benchmark' / 'configs' / f'{name}.json').read_text())
+        if name.startswith('gaunt'):
+            from benchmark.reference import gaunt as ref_gaunt
+
+            cfg = program.model_config(cfg_file)
+            params = ref_gaunt.init_weights(cfg, SERVED_SEED, 'cuda')
+        else:
+            cfg, params = program.weights(cfg_file, ROOT, SERVED_SEED,
+                                          'cuda')
+        calc = program.calculator(cfg, params, 'cuda')
+    _served[name] = calc
+    return calc
+
+
+def _rattled(reps, seed):
+    s = _replica_of(*reps)
+    s.pos = s.pos + np.random.default_rng(seed).normal(0.0, 0.02,
+                                                       s.pos.shape)
+    return s
+
+
+def _host_request(calc, s):
+    """``s`` built on the host as the CPU Calculator builds it, then run
+    by ``apply_model``: (batch, (energy, forces, stress))."""
+    from sevennet_finetuning_tpu_torch import keys as K
+    from sevennet_finetuning_tpu_torch.model.graph import (
+        bucket_capacity, collate, structure_to_graph)
+    from sevennet_finetuning_tpu_torch.model.nequip import (apply_model,
+                                                            batch_to_torch)
+
+    g = structure_to_graph(s, calc.spec.cutoff, calc.type_map)
+    b = collate([g], n_node=bucket_capacity(len(s), margin=1.0),
+                n_edge=bucket_capacity(g[K.EDGE_IDX].shape[1]), n_graph=1)
+    batch = batch_to_torch(b, calc.device)
+    out = apply_model(calc.model, batch)
+    return batch, (float(out[K.PRED_TOTAL_ENERGY][0]),
+                   out[K.PRED_FORCE][:len(s)].cpu().numpy(),
+                   out[K.PRED_STRESS][0].cpu().numpy())
+
+
+def _edge_rows(batch):
+    """The live edges of a batch as a set of (i, j, shift) rows."""
+    from sevennet_finetuning_tpu_torch import keys as K
+
+    m = int(batch[K.EDGE_MASK].sum())
+    idx = batch[K.EDGE_IDX][:, :m].cpu().numpy()
+    sh = batch[K.CELL_SHIFT][:m].cpu().numpy()
+    return {(a, c, *r) for a, c, r in zip(idx[0], idx[1], map(tuple, sh))}
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.card
+@pytest.mark.parametrize('reps', [(1, 1, 1), (3, 2, 2)],
+                         ids=['96', '1152'])
+@pytest.mark.parametrize('name', SERVED)
+def test_card_calculator_matches_host_build(name, reps, card,
+                                            record_property):
+    from sevennet_finetuning_tpu_torch import keys as K
+    from sevennet_finetuning_tpu_torch import tracing
+
+    calc = _served_calculator(name)
+    s = _rattled(reps, seed=sum(reps))
+    tracing.reset()
+    tracing.enable()
+    try:
+        first = calc.calculate(s)
+        second = calc.calculate(s)
+        counts = tracing.counters()
+    finally:
+        tracing.disable()
+        tracing.reset()
+    assert counts['graph.build.device'] == 2
+    for k in ('energy', 'forces', 'stress'):
+        assert np.array_equal(first[k], second[k]), k
+    host_batch, (e, f, st) = _host_request(calc, s)
+    card_batch = calc.batch(s)
+    assert _edge_rows(card_batch) == _edge_rows(host_batch)
+    assert card_batch[K.EDGE_IDX].shape == host_batch[K.EDGE_IDX].shape
+    same = all(torch.equal(card_batch[k].cpu(), host_batch[k].cpu())
+               for k in (K.EDGE_IDX, K.CELL_SHIFT, K.EDGE_SRC_PERM))
+    gaps = {'energy': abs(first['energy'] - e) / abs(e),
+            'forces': _rel(first['forces'], f),
+            'stress': _rel(first['stress'], st)}
+    record_property('same_order', same)
+    print(f'\n[calculator] {name} {len(s)} atoms: '
+          f"{int(card_batch[K.EDGE_MASK].sum())} edges, the host's order: "
+          f"{'same' if same else 'differs'}; gaps {gaps}")
+    assert max(gaps.values()) <= 1e-6, gaps
