@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives ``sevennet_finetuning_tpu_torch`` (never JAX) through fifteen
+Drives ``sevennet_finetuning_tpu_torch`` (never JAX) through sixteen
 phases and exits non-zero if any fails:
 
 1. build   -- compile every CUDA source of ``csrc/`` (one nvcc each, in
@@ -255,6 +255,19 @@ phases and exits non-zero if any fails:
               limits, the same steps per segment) in each rank.  Prints
               ms per MD step and the halo transport's share of it (the
               host staging of gloo's P2P and the wait for the peer).
+16. eqv2    -- the 'equiformer_v2' family at the EquiformerV2 cell's
+              published widths (benchmark/configs/equiformer_v2_31m.json,
+              seeded weights) on its 1,152-atom request (ft900 structure
+              0 replicated 3 x 2 x 2; the nearest 20 within 12 A, 23,040
+              live edges in 25,408 slots): one ``Calculator.calculate``
+              with the launch counts zeroed before it must launch
+              so2_rotate 50, so2_rotate_grad 25, s2_act 8, s2_act_bwd 8,
+              the card build's count and fill once each and segment sums;
+              ms a request and peak memory; then each so2 kernel's wrapper
+              on the request's graph and frames against its plain version
+              on the same card tensors (the gathers and batched products,
+              the grid's two GEMMs; within 1e-5 x max|plain|), timed
+              beside it and bounded.
 
 Before the last line it prints the card's name and power limit and a
 JSON line with every kernel's numbers; the last line is
@@ -267,6 +280,11 @@ rank: the pipeline phase (for its Fisher artifacts), the ddp phase's (b)
 in two ranks (the same checks as over gloo), then the halo phase in two
 ranks and, with four cards, in four (a 2-D brick); its last line is
 ``{"ok": true, "cards": N, ...}``.
+
+    python3 chip_smoke.py --eqv2
+
+builds the kernels and runs the eqv2 phase alone; its kernels line holds
+the four so2 kernels' rows.
 
     python3 chip_smoke.py --f64-reference
 
@@ -355,6 +373,25 @@ SOURCES.update({
     'probe_window': dict(source=PROBE_FEATS,
                          replaces='tools/test_mosaic_feats.py:123'),
 })
+# the 'equiformer_v2' family's edge frame: the JAX package has no
+# such family, so these replace no Pallas kernel; 'replaces' names the
+# plain version each stands beside (SO2_PLAIN: the line's definition)
+SO2_SRC = 'sevennet_finetuning_tpu_torch/csrc/so2.cu'
+SO2_OPS = 'sevennet_finetuning_tpu_torch/ops/so2.py'
+SO2_PLAIN = {'so2_rotate': 'def rotate_in_plain(',
+             'so2_rotate_grad': 'def rotate_in_plain(',
+             's2_act': 'class S2Act(', 's2_act_bwd': 'class S2Act('}
+SO2 = tuple(SO2_PLAIN)
+
+
+def _line_of(path: str, text: str) -> int:
+    lines = (ROOT / path).read_text().splitlines()
+    return next(i + 1 for i, line in enumerate(lines) if text in line)
+
+
+SOURCES.update({name: dict(source=SO2_SRC,
+                           replaces=f'{SO2_OPS}:{_line_of(SO2_OPS, text)}')
+                for name, text in SO2_PLAIN.items()})
 PROBES = tuple(k for k in SOURCES if k.startswith('probe_'))
 # the case of a probe row that the kernels line reports (its table case)
 PROBE_CASE = {'probe_copy_tiled': 'em te=256',
@@ -375,6 +412,7 @@ PATH_KERNELS = {
     + NEIGHBOR,
     'ddp': ('segment_sum', 'cg_agg', 'cg_multi', 'cg_gagg', 'cg_gmulti'),
     'halo': ('segment_sum', 'cg_agg', 'cg_multi'),
+    'eqv2': ('segment_sum',) + NEIGHBOR + SO2,
 }
 # the path whose count a kernel's "launches" reports: the train step for
 # the kernels of the sorted convolution, the unsorted pass for cg_quad
@@ -382,6 +420,7 @@ KERNEL_PATH = {name: 'train' for name in SOURCES}
 KERNEL_PATH['cg_quad'] = 'unsorted'
 KERNEL_PATH.update({name: 'probes' for name in PROBES})
 KERNEL_PATH.update({name: 'md' for name in NEIGHBOR})
+KERNEL_PATH.update({name: 'eqv2' for name in SO2})
 # the model kernels' family of a device kernel's name (the first match):
 # the entry point whose launches run it, so the instances of a template
 # add up to one profile row (the profiled paths launch no probe)
@@ -394,7 +433,7 @@ KERNEL_FAMILIES = (
 # launches of one reEWC train step (PERF.md explains each count)
 TRAIN_CENSUS = {'cg_agg': 5, 'cg_multi': 10, 'cg_gagg': 5, 'cg_gmulti': 5,
                 'segment_sum': 13, 'cg_quad': 0,
-                **{k: 0 for k in PROBES + NEIGHBOR}}
+                **{k: 0 for k in PROBES + NEIGHBOR + SO2}}
 # launches of one reEWC train step with per-block remat (the remat phase;
 # PERF.md explains each count).  Each block runs its convolution four
 # times (the forward; the force pass's recompute for its VJP; the outer
@@ -407,7 +446,7 @@ TRAIN_CENSUS = {'cg_agg': 5, 'cg_multi': 10, 'cg_gagg': 5, 'cg_gmulti': 5,
 # width 480, block 0 at 128), four times a block
 REMAT_TRAIN_CENSUS = {'cg_agg': 20, 'cg_multi': 20, 'cg_gagg': 5,
                       'cg_gmulti': 5, 'segment_sum': 24, 'cg_quad': 0,
-                      **{k: 0 for k in PROBES + NEIGHBOR}}
+                      **{k: 0 for k in PROBES + NEIGHBOR + SO2}}
 # the remat phase: two runs of the same steps (remat on and off; 'auto'
 # under REMAT_AUTO_BUDGET_GB, at which batch 8's estimate of 4.6 GiB
 # resolves to remat) run the same kernels on the same values but for the
@@ -429,7 +468,7 @@ REMAT_TIMED_STEPS = 3
 # the parameter gradient of a loss on fij (PERF.md explains each count)
 UNSORTED_CENSUS = {'cg_agg': 0, 'cg_multi': 0, 'cg_gagg': 0, 'cg_gmulti': 0,
                    'segment_sum': 20, 'cg_quad': 77,
-                   **{k: 0 for k in PROBES + NEIGHBOR}}
+                   **{k: 0 for k in PROBES + NEIGHBOR + SO2}}
 UNSORTED_MODES = {'msg': 19, 'x': 20, 'sh': 19, 'w': 19}
 # unsorted against sorted on the same graph: only the order of float32
 # sums differs (the per-edge messages are summed after a sort by dst, the
@@ -3426,6 +3465,196 @@ def _family_runs(cap):
     return counts, calcs, s900
 
 
+# the EquiformerV2 cell's configuration, its 1,152-atom structure (the
+# first 96-atom structure of its source file replicated 3 x 2 x 2, rattled
+# 0.02 A as the cell rattles it) and a weight seed past 2**32, as a
+# benchmark run's seed may be
+EQV2_CONFIG = ROOT / 'benchmark/configs/equiformer_v2_31m.json'
+EQV2_REPS = (3, 2, 2)
+EQV2_SEED = 2 ** 33 + 29
+# launches of the edge-frame kernels in one request (8 blocks; PERF.md):
+# so2_rotate 3 a block forward (the source and target rotations, the
+# rotation back) and 3 in its backward, and 1 each way for the edge-degree
+# embedding's rotation back; so2_rotate_grad 3 a block and 1; the S2
+# activation once a block each way
+EQV2_CENSUS = {'so2_rotate': 50, 'so2_rotate_grad': 25, 's2_act': 8,
+               's2_act_bwd': 8, 'neighbor_count': 1, 'neighbor_fill': 1}
+# the so2 kernels against their plain versions on the same card tensors:
+# float32 sums of 25 (rotations) to 324 (grid) terms in another order
+EQV2_KERNEL_TOL = 1e-5
+
+
+def _so2_row(name, shape, got, want, fn, plain, n_bytes, n_flop, mask=None):
+    """One so2 kernel case: ``got`` / ``want`` (the kernel's and the plain
+    version's outputs, compared on ``mask``'s rows), timed with the plain
+    version and bounded."""
+    if mask is not None:
+        got, want = got[mask], want[mask]
+    err = compare(f'{name} [{shape}]', got, want, EQV2_KERNEL_TOL)
+    b_ms, b_by = bound_ms(n_bytes, n_flop)
+    row = dict(shape=shape, max_abs_err=err, ms=cuda_ms(fn),
+               plain_ms=cuda_ms(plain), library_ms=None, bound_ms=b_ms,
+               bound_by=b_by, device_us=device_us_per_call(fn))
+    log(f'  {name} [{shape}]: kernel {row["ms"]:.4f} ms, plain '
+        f'{row["plain_ms"]:.4f} ms, bound {b_ms * 1e3:.1f} us ({b_by}), '
+        f'{100 * b_ms / row["ms"]:.1f}% of it')
+    return row
+
+
+def eqv2_census(counts):
+    """The launches of an EquiformerV2 request (``counts``) that are not
+    zero, which must be ``EQV2_CENSUS`` and at least one segment sum."""
+    got = {k: v for k, v in counts.items() if v}
+    want = dict(EQV2_CENSUS, segment_sum=counts['segment_sum'])
+    if got != want or counts['segment_sum'] < 1:
+        raise AssertionError(f'eqv2 request: launches {got}, expected '
+                             f'{EQV2_CENSUS} and segment sums')
+    return got
+
+
+def phase_eqv2(rows, device='cuda', reps=EQV2_REPS):
+    """The 'equiformer_v2' family at the cell's published widths on its
+    1,152-atom request (nearest 20 within 12 A: 23,040 live edges in
+    25,408 slots) with seeded weights: (1) the launch census of one
+    ``Calculator.calculate``, the counts zeroed just before it
+    (``EQV2_CENSUS``; segment sums counted), and ms a request and peak
+    memory; (2) each so2 kernel's wrapper against its plain version on
+    the same card tensors at the request's shapes (the rotations into the
+    frame of 2 x 128 channels and back of 128, the edge-degree
+    embedding's 5 rows, the rotation's D cotangent, the S2 activation of
+    64 channels and its backward; within ``EQV2_KERNEL_TOL`` x max|plain|),
+    timed beside the plain version and bounded (rows appended to
+    ``rows``).  ``device`` and ``reps`` (the replication) serve a
+    rehearsal on the CPU at a small size.  Returns the request's launch
+    counts."""
+    import numpy as np
+    import torch
+
+    from benchmark import inputs, program
+    from benchmark.reference import equiformer_v2 as ref_eqv2
+    from sevennet_finetuning_tpu_torch import keys as K
+    from sevennet_finetuning_tpu_torch.model.nequip import (
+        EDGE_SRC_INV_PERM, compute_edge_vec)
+    from sevennet_finetuning_tpu_torch.ops import _cuda, so2
+
+    t_phase = time.perf_counter()
+    cfg = program.model_config(json.loads(EQV2_CONFIG.read_text()))
+    calc = program.calculator(
+        cfg, ref_eqv2.init_weights(cfg, EQV2_SEED, device), device)
+    src = next(s for s in inputs.read_extxyz(FT900)
+               if len(s['numbers']) == 96)
+    struct = inputs.to_program(inputs.rattle(
+        inputs.replicate(src, reps), 0.02,
+        np.random.default_rng(EQV2_SEED)))
+    calc.calculate(struct)                   # warm-up: tables, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = calc.calculate(struct)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts = {k: _cuda.LAUNCHES[k] for k in _cuda.KERNELS}
+    got = eqv2_census(counts)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        calc.calculate(struct)
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f'[eqv2] {len(struct.species)} atoms: launches {got}; '
+        f'{first_ms:.1f} ms, then {[round(t, 1) for t in times]} ms a '
+        f'request; peak {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} '
+        f'GiB; energy {res["energy"]:.6e}')
+
+    # the request's graph and frames, features of the blocks' widths
+    b = calc.batch(struct)
+    dst, srcs = b[K.EDGE_IDX][0], b[K.EDGE_IDX][1]
+    perm, inv = b[K.EDGE_SRC_PERM], b[EDGE_SRC_INV_PERM]
+    n = b[K.POS].shape[0]
+    live = b[K.EDGE_MASK] > 0
+    vec = compute_edge_vec(b)
+    vec = torch.where(live[:, None], vec, torch.tensor(
+        [1.0, 0.0, 0.0], device=vec.device))
+    s = calc.spec
+    D = so2.edge_rotation(vec, s.lmax, s.mmax).contiguous()   # [E, K, d]
+    E, Kk, d = D.shape
+    C = s.channels
+    n_live = int(live.sum())
+    gen = torch.Generator(device=device).manual_seed(EQV2_SEED)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    top = n - 1
+    s32, d32 = srcs.clamp(max=top).int(), dst.clamp(max=top).int()
+    x = randn(n, d, C)
+    # D's block-diagonal multiply-adds a channel (sum_l rows_l (2l + 1))
+    rot = sum(sum(1 for r in so2.row_degrees(s.lmax, s.mmax) if r == l)
+              * (2 * l + 1) for l in range(s.lmax + 1))
+    tag = f'{len(struct.species)} atoms, E={E} ({n_live} live)'
+
+    out = torch.empty((E, Kk, 2 * C), device=device)
+    rows.setdefault('so2_rotate', []).append(_so2_row(
+        'so2_rotate', f'rotate in, 2 x C={C}, {tag}',
+        so2.rotate_in(D, x, srcs, dst, perm, inv),
+        so2.rotate_in_plain(D, x, srcs, dst, perm, inv),
+        lambda: (so2._rotate(D, x, s32, False, out[:, :, :C]),
+                 so2._rotate(D, x, d32, False, out[:, :, C:])),
+        lambda: so2.rotate_in_plain(D, x, srcs, dst, perm, inv),
+        4 * (E * Kk * d + n * d * C + E * Kk * 2 * C), 2 * 2 * E * rot * C,
+        mask=live))
+    v = s.num_heads * s.attn_value
+    for k_rows, label in ((Kk, 'rotate back'),
+                          (s.sizes[0], 'edge-degree rotate back')):
+        Dr = D[:, :k_rows]
+        y = randn(E, k_rows, v if k_rows == Kk else C)
+        c = y.shape[2]
+        back = torch.empty((E, d, c), device=device)
+        rot_r = sum(2 * r + 1 for r in so2.row_degrees(s.lmax, s.mmax)
+                    [:k_rows])
+        rows.setdefault('so2_rotate', []).append(_so2_row(
+            'so2_rotate', f'{label}, C={c}, {tag}', so2.rotate_back(Dr, y),
+            torch.bmm(Dr.transpose(1, 2), y),
+            lambda: so2._rotate(Dr, y, None, True, back),
+            lambda: torch.bmm(Dr.transpose(1, 2), y),
+            4 * (E * k_rows * d + E * k_rows * c + E * d * c),
+            2 * E * rot_r * c))
+    ct = randn(E, Kk, C)
+    dD = torch.empty((E, Kk, d), device=device)
+    xs = x[s32.long()]
+    rows.setdefault('so2_rotate_grad', []).append(_so2_row(
+        'so2_rotate_grad', f"D's cotangent, C={C}, {tag}",
+        so2._rotate_grad(ct, None, x, s32, dD, False),
+        torch.bmm(ct, xs.transpose(1, 2)),
+        lambda: so2._rotate_grad(ct, None, x, s32, dD, False),
+        lambda: torch.bmm(ct, xs.transpose(1, 2)),
+        4 * (E * Kk * C + n * d * C + E * Kk * d), 2 * E * rot * C,
+        mask=live))
+    to, frm = so2.grid_matrices(s.lmax, s.mmax, s.grid_resolution,
+                                torch.device(device), torch.float32)
+    P = to.shape[0]
+    h = s.attn_hidden
+    g = randn(E, Kk, h).requires_grad_(True)
+    cg = randn(E, Kk, h)
+    a = so2.S2ActCard.apply(g, to, frm)
+    p = so2.S2Act.apply(g, to, frm)
+    rows.setdefault('s2_act', []).append(_so2_row(
+        's2_act', f'attention grid {P} points, C={h}, {tag}', a.detach(),
+        p.detach(), lambda: so2.S2ActCard.apply(g.detach(), to, frm),
+        lambda: so2.S2Act.apply(g.detach(), to, frm),
+        4 * 2 * E * Kk * h, 2 * 2 * E * h * P * Kk))
+    ga, = torch.autograd.grad(a, g, cg, retain_graph=True)
+    gp, = torch.autograd.grad(p, g, cg, retain_graph=True)
+    rows.setdefault('s2_act_bwd', []).append(_so2_row(
+        's2_act_bwd', f'attention grid {P} points, C={h}, {tag}', ga, gp,
+        lambda: torch.autograd.grad(a, g, cg, retain_graph=True),
+        lambda: torch.autograd.grad(p, g, cg, retain_graph=True),
+        4 * 3 * E * Kk * h, 3 * 2 * E * h * P * Kk))
+    del calc, b, D, x, out
+    torch.cuda.empty_cache()
+    log(f'[eqv2] phase {time.perf_counter() - t_phase:.1f} s')
+    return counts
+
+
 def pair_e3gnn_inputs(s, g, type_map, device):
     """The input dict LAMMPS pair_e3gnn builds for one cell
     (pair_e3gnn.cpp:205-215), on ``device``."""
@@ -4452,6 +4681,49 @@ def f64_reference(n_steps=6):
         log(f'  {key[5:]:36s} {scale:.3e} | {cf:.2e} | {jf:.2e} | {cj:.2e}')
 
 
+def kernel_rows(rows, path_counts):
+    """The kernels line: one row per kernel at its interior-block /
+    widest shape; every measured shape is under "cases".  "launches" is
+    the count on the path named by "path" (one train step, one unsorted
+    pass, one run of the two probes' entry points, or one EquiformerV2
+    request); "launches_per_path" holds every path's: the five serve
+    requests' total, one train step's, one unsorted pass's, the probes'
+    run.  Each path of ``path_counts`` must have launched every kernel
+    of ``PATH_KERNELS``."""
+    for path, counts in path_counts.items():
+        for name in PATH_KERNELS[path]:
+            if counts.get(name, 0) == 0:
+                raise AssertionError(f'{name} was never launched on the '
+                                     f'{path} path')
+    # the probes' rows: the case of PROBE_CASE (em te=256; the ring of 8
+    # rows, 4 slots, split 2), else the first (te=256, the feature
+    # probes' only case); 8a and 8c also give their worst factor against
+    # torch.mul over the sweep; the so2 kernels' first case (the
+    # EquiformerV2 request's rotation into the frame, its grid)
+    kernels = []
+    for name, cases in rows.items():
+        c = (cases[2] if name == 'segment_sum' else
+             cases[-1] if name in NEIGHBOR else
+             cases[0] if name in SO2 else
+             next(c for c in cases
+                  if c['shape'].startswith(PROBE_CASE.get(name, '')))
+             if name in PROBES else
+             next(c for c in cases if c['shape'].startswith('block 1')))
+        kernels.append(dict(
+            name=name, route='cuda', **SOURCES[name],
+            path=KERNEL_PATH[name],
+            launches=path_counts[KERNEL_PATH[name]][name],
+            launches_per_path={path: counts.get(name, 0)
+                               for path, counts in path_counts.items()},
+            max_abs_err=c['max_abs_err'], ms=c['ms'],
+            plain_ms=c['plain_ms'], bound_ms=c['bound_ms'],
+            bound_by=c['bound_by'], library_ms=c['library_ms'],
+            shape=c['shape'], cases=cases))
+        if 'factor' in c:
+            kernels[-1]['worst_factor'] = max(k['factor'] for k in cases)
+    return kernels
+
+
 def main():
     import torch
 
@@ -4489,6 +4761,15 @@ def main():
         with neighbor_builder('ckdtree'):
             f64_reference()
         return 0
+    if sys.argv[1:] == ['--eqv2']:
+        rows = {}
+        kernels = kernel_rows(rows, {'eqv2': phase_eqv2(rows)})
+        print(card, flush=True)
+        print(json.dumps({'kernels': kernels}), flush=True)
+        print(json.dumps({'ok': True, 'device': {
+            'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+            'count': torch.cuda.device_count()}}), flush=True)
+        return 0
     probe_rows, probe_counts = phase_probes()
     # the phases but md build their host graphs with the cKDTree neighbor
     # list, as the port did before it had the native one (the train,
@@ -4513,7 +4794,8 @@ def main():
                            'ddp': phase_ddp(work.name),
                            'unsorted': phase_unsorted(batch),
                            'probes': probe_counts,
-                           'families': phase_families(rows)}
+                           'families': phase_families(rows),
+                           'eqv2': phase_eqv2(rows)}
         path_counts['md'] = phase_md(rows)
         path_counts['halo'] = phase_halo(work.name)
         with neighbor_builder('ckdtree'):
@@ -4521,41 +4803,10 @@ def main():
     finally:
         work.cleanup()
 
-    # one row per kernel at its interior-block / widest shape; every
-    # measured shape is under "cases".  "launches" is the count on the
-    # path named by "path" (one train step, one unsorted pass, or one run
-    # of the two probes' entry points); "launches_per_path" holds every
-    # path's: the five serve requests' total, one train step's, one
-    # unsorted pass's, the probes' run
-    for path, names in PATH_KERNELS.items():
-        for name in names:
-            if path_counts[path].get(name, 0) == 0:
-                raise AssertionError(f'{name} was never launched on the '
-                                     f'{path} path')
-    # the probes' rows: the case of PROBE_CASE (em te=256; the ring of 8
-    # rows, 4 slots, split 2), else the first (te=256, the feature
-    # probes' only case); 8a and 8c also give their worst factor against
-    # torch.mul over the sweep
-    kernels = []
-    for name, cases in {**rows, **probe_rows}.items():
-        c = (cases[2] if name == 'segment_sum' else
-             cases[-1] if name in NEIGHBOR else
-             next(c for c in cases
-                  if c['shape'].startswith(PROBE_CASE.get(name, '')))
-             if name in PROBES else
-             next(c for c in cases if c['shape'].startswith('block 1')))
-        kernels.append(dict(
-            name=name, route='cuda', **SOURCES[name],
-            path=KERNEL_PATH[name],
-            launches=path_counts[KERNEL_PATH[name]][name],
-            launches_per_path={path: counts.get(name, 0)
-                               for path, counts in path_counts.items()},
-            max_abs_err=c['max_abs_err'], ms=c['ms'],
-            plain_ms=c['plain_ms'], bound_ms=c['bound_ms'],
-            bound_by=c['bound_by'], library_ms=c['library_ms'],
-            shape=c['shape'], cases=cases))
-        if 'factor' in c:
-            kernels[-1]['worst_factor'] = max(k['factor'] for k in cases)
+    if set(path_counts) != set(PATH_KERNELS):
+        raise AssertionError(f'paths {sorted(path_counts)} counted, '
+                             f'{sorted(PATH_KERNELS)} expected')
+    kernels = kernel_rows({**rows, **probe_rows}, path_counts)
     print(card, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

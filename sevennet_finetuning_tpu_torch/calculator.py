@@ -28,6 +28,7 @@ import torch
 from . import keys as K
 from . import resolve_device, tracing
 from .data.vasp import Structure
+from .model.build import build_model
 from .model.graph import (
     bucket_capacity,
     collate,
@@ -37,12 +38,11 @@ from .model.graph import (
 from .model.nequip import (
     EDGE_SRC_INV_PERM,
     ModelSpec,
-    NequIP,
     apply_model,
     batch_to_torch,
     load_jax_params,
 )
-from .ops.neighbor import CellList, pack_edges
+from .ops.neighbor import CellList, nearest_edges, pack_edges
 
 STRESS_COEFF_KBAR = 1602.1766208
 
@@ -95,7 +95,7 @@ class Calculator:
         self.device = resolve_device(device)
         self.spec = spec
         self.type_map = dict(spec.type_map)
-        self.model = load_jax_params(NequIP(spec), params).to(self.device)
+        self.model = load_jax_params(build_model(spec), params).to(self.device)
         self.model.requires_grad_(False)
         self.d3 = None
         if d3 is not None:
@@ -148,7 +148,8 @@ class Calculator:
         with tracing.span('graph.build'):
             if self.device.type == 'cuda':
                 return self._card_batch(s)
-            g = structure_to_graph(s, self.spec.cutoff, self.type_map)
+            g = structure_to_graph(s, self.spec.cutoff, self.type_map,
+                                   self.spec.max_neighbors)
             n_node = bucket_capacity(len(s), margin=1.0)
             n_edge = bucket_capacity(g[K.EDGE_IDX].shape[1])
             b = collate([g], n_node=n_node, n_edge=n_edge, n_graph=1)
@@ -161,10 +162,35 @@ class Calculator:
         pass."""
         nodes = node_batch(s, self.type_map, self.device)
         cells = CellList(s.cell, s.pbc, self.spec.cutoff, s.pos, self.device)
-        n_live, reads = cells.count(nodes[K.POS])
+        k = self.spec.max_neighbors
+        n_live, reads = cells.count(nodes[K.POS], cap=k)
         tracing.count('host_syncs', reads)
         tracing.count('graph.build.device')
-        return with_edges(nodes, n_live, cells.fill)
+        if k is None:
+            return with_edges(nodes, n_live, cells.fill)
+        with tracing.span('graph.cap'):
+            tracing.count('graph.cap.candidates', cells.candidates)
+            tracing.count('graph.cap.edges', n_live)
+            return with_edges(nodes, n_live,
+                              self._nearest_fill(cells, nodes[K.POS], s, k,
+                                                 n_live))
+
+    def _nearest_fill(self, cells: CellList, pos: torch.Tensor,
+                      s: Structure, k: int, n_live: int):
+        """The fill of a capped card build: the candidates into buffers
+        of their own, then each atom's ``k`` nearest (``nearest_edges``)."""
+        def fill(edge_idx, shift):
+            n_cand = cells.candidates
+            idx = torch.empty((2, n_cand), dtype=torch.int32,
+                              device=self.device)
+            sh = torch.empty((n_cand, 3), dtype=torch.float32,
+                             device=self.device)
+            cells.fill(idx, sh)
+            cell = torch.as_tensor(np.asarray(s.cell, np.float64),
+                                   device=self.device)
+            nearest_edges(idx, sh, pos, cell, cells.bufs['atom_cnt'],
+                          cells.bufs['atom_off'], k, edge_idx, shift, n_live)
+        return fill
 
     def calculate(self, s: Structure) -> Dict[str, np.ndarray]:
         """energy (eV), energies (eV/atom), forces (eV/A),

@@ -49,7 +49,7 @@ import torch
 
 from ..data.elements import z_to_symbol
 from ..irreps import Irreps
-from ..model.nequip import ModelSpec, _linear_w
+from ..model.nequip import ModelSpec, _linear_w, require_model_spec
 from ..ops.activations import moment2_const
 from ..ops.fused_conv import _group_ccat, layout_from_spec
 from ..ops.linear import apply_linear
@@ -579,6 +579,7 @@ def build_torch_model(spec: ModelSpec, params):
 def export_serial(spec: ModelSpec, params, out_path: str,
                   version: str = 'sevennet_finetuning_tpu_torch-0.1.0'):
     """Build, script, freeze and save the deploy artifact + metadata."""
+    require_model_spec(spec, 'TorchScript export')
     model = build_torch_model(spec, params)
     model.eval()
     scripted = torch.jit.script(model)

@@ -52,7 +52,7 @@ import torch
 
 from ..data.elements import z_to_symbol
 from ..irreps import Irreps
-from ..model.nequip import ModelSpec, _linear_w
+from ..model.nequip import ModelSpec, _linear_w, require_model_spec
 from ..ops.fused_conv import layout_from_spec
 from .torchscript_export import (
     _dense_fctp_species,
@@ -395,6 +395,7 @@ def comm_size_of(spec: ModelSpec) -> int:
 def export_parallel(spec: ModelSpec, params, out_dir: str,
                     version: str = 'sevennet_finetuning_tpu_torch-0.1.0'):
     """Script, freeze and save deployed_parallel_{i}.pt + metadata."""
+    require_model_spec(spec, 'TorchScript export')
     segs = build_torch_segments(spec, params)
     chem = ' '.join(
         z_to_symbol(z) for z, _ in sorted(spec.type_map,

@@ -95,6 +95,8 @@ INTERACTION_TYPE: Final[str] = 'interaction_type'
 ACTIVATION_SCALAR: Final[str] = 'act_scalar'
 ACTIVATION_GATE: Final[str] = 'act_gate'
 CORRELATION: Final[str] = 'correlation'
+# each destination keeps its nearest sources within the cutoff
+MAX_NEIGHBORS: Final[str] = 'max_neighbors'
 _NORMALIZE_SPH: Final[str] = '_normalize_sph'
 # current reference restricts the last interaction layer to even scalars
 # (reference: sevenn/model_build.py:303-352); older deployed artifacts

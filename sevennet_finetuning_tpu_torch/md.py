@@ -157,6 +157,16 @@ class MDResult:
         return [e + k for e, k in zip(self.energies, self.kinetic)]
 
 
+def _refuse_capped(spec, loop: str):
+    """A device MD loop keeps a skin list at cutoff + skin for a segment;
+    a graph of each atom's nearest neighbours changes within it."""
+    if spec.max_neighbors is not None:
+        raise NotImplementedError(
+            f'{loop}: a model with max_neighbors ({spec.max_neighbors}) '
+            'needs each step\'s nearest-neighbour graph, which a skin list '
+            'cannot hold; MD with it is not implemented')
+
+
 class VelocityVerlet:
     def __init__(
         self,
@@ -416,6 +426,7 @@ class VelocityVerlet:
         delegates the same skin logic to LAMMPS neighbor lists)."""
         if self.calc is None:
             raise ValueError('run_device needs a single-device Calculator')
+        _refuse_capped(self.calc.spec, 'run_device')
         from . import keys as K
 
         n = len(self.s.pos)
@@ -511,6 +522,7 @@ class VelocityVerlet:
                                     make_halo_forward)
 
         spec = self.calc.spec
+        _refuse_capped(spec, 'run_device_halo')
         n_dev = self.halo_cfg['n_dev']
         skin = float(self.skin)
 

@@ -2,7 +2,9 @@
 
 Port of ``sevennet_finetuning_tpu/model/build.py`` (reference:
 sevenn/model_build.py:186-445) for every interaction type: 'nequip',
-'mace', 'gaunt', 'gaunt_gate' and 'custom' (a plugin block).  Per-layer
+'mace', 'gaunt', 'gaunt_gate' and 'custom' (a plugin block); and
+'equiformer_v2' (``model/equiformer_v2``), whose widths take fairchem's
+key names.  Per-layer
 output irreps are inferred from the tensor product of node and filter
 irreps, capped at lmax, with the family's parity rule in hidden layers
 and scalars only ('even', l=0) at the last layer; an ``irreps_manual``
@@ -13,11 +15,13 @@ from __future__ import annotations
 
 from typing import Dict
 
+from torch import nn
+
 from .. import keys as K
 from ..irreps import Irreps, tp_out_irreps
 from ..ops.linear import linear_spec
-from .nequip import (EdgeEmbedSpec, ModelSpec, ReadoutSpec, build_gaunt_block,
-                     build_mace_block, build_nequip_block)
+from .nequip import (EdgeEmbedSpec, ModelSpec, NequIP, ReadoutSpec,
+                     build_gaunt_block, build_mace_block, build_nequip_block)
 
 
 def _load_callback(path: str, module: str, function: str):
@@ -35,7 +39,23 @@ def _load_callback(path: str, module: str, function: str):
     return getattr(importlib.import_module(module), function)
 
 
+def build_model(spec) -> nn.Module:
+    """The parameter module of a spec from ``build_model_spec``: ``NequIP``
+    for a ``ModelSpec``, the family's own for another spec type."""
+    if isinstance(spec, ModelSpec):
+        return NequIP(spec)
+    from .equiformer_v2 import EquiformerV2
+
+    return EquiformerV2(spec)
+
+
 def build_model_spec(config: Dict) -> ModelSpec:
+    """The spec of a flat config: a ``ModelSpec``, or for 'equiformer_v2'
+    the family's ``EqV2Spec``."""
+    if config.get(K.INTERACTION_TYPE) == 'equiformer_v2':
+        from .equiformer_v2 import eqv2_spec
+
+        return eqv2_spec(config)
     num_species = config[K.NUM_SPECIES]
     channel = config.get(K.NODE_FEATURE_MULTIPLICITY, 32)
     lmax = config.get(K.LMAX, 1)
@@ -285,6 +305,7 @@ def build_model_spec(config: Dict) -> ModelSpec:
     scale = tuple(scale) if isinstance(scale, (list, tuple)) else (float(scale),)
 
     type_map = config[K.TYPE_MAP]
+    k = config.get(K.MAX_NEIGHBORS)
     return ModelSpec(
         num_species=num_species,
         type_map=tuple(sorted(type_map.items())),
@@ -295,4 +316,5 @@ def build_model_spec(config: Dict) -> ModelSpec:
         scale=scale,
         train_shift_scale=config.get(K.TRAIN_SHIFT_SCALE, False),
         use_bias_in_linear=biases,
+        max_neighbors=None if k is None else int(k),
     )

@@ -17,6 +17,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 
 from .. import keys as K
+from .. import tracing
 from ..data.neighborlist import neighbor_list
 from ..data.vasp import Structure
 
@@ -57,18 +58,53 @@ def structure_nodes(
     return g
 
 
+def nearest_neighbors(idx_i: np.ndarray, idx_j: np.ndarray,
+                      shift: np.ndarray, pos: np.ndarray, cell: np.ndarray,
+                      k: int):
+    """(idx_i, idx_j, shift) of each destination i's ``k`` nearest sources,
+    ordered by (i, distance, j, image): the card build's rule
+    (``ops.neighbor.nearest_edges``) run on the host's list."""
+    import torch
+
+    from ..ops.neighbor import nearest_edges
+
+    counts = np.bincount(idx_i, minlength=len(pos))
+    n_live = int(np.minimum(counts, k).sum())
+    idx = torch.empty((2, n_live + 1), dtype=torch.int32)
+    sh = torch.empty((n_live + 1, 3), dtype=torch.float32)
+    nearest_edges(
+        torch.as_tensor(np.stack([idx_i, idx_j]), dtype=torch.int32),
+        torch.as_tensor(shift, dtype=torch.float32),
+        torch.as_tensor(np.asarray(pos, np.float32)),
+        torch.as_tensor(np.asarray(cell, np.float64).reshape(3, 3)),
+        torch.as_tensor(counts, dtype=torch.int32),
+        torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]),
+                        dtype=torch.int32), k, idx, sh, n_live)
+    return idx[0, :n_live].numpy(), idx[1, :n_live].numpy(), \
+        sh[:n_live].numpy()
+
+
 def structure_to_graph(
     s: Structure,
     cutoff: float,
     type_map: Dict[int, int],
+    max_neighbors: Optional[int] = None,
 ) -> Dict[str, np.ndarray]:
     """One Structure -> unpadded numpy graph with labels.
 
     Edge convention matches the reference (reference:
     sevenn/train/dataload.py:36-48): edge_index[0]=i, edge_index[1]=j,
     edge_vec = pos[j] + shift.cell - pos[i]; messages flow j -> i.
+    ``max_neighbors``: each i keeps its nearest (``nearest_neighbors``).
     """
     idx_i, idx_j, shift, _ = neighbor_list(s.pos, s.cell, s.pbc, cutoff)
+    if max_neighbors is not None:
+        with tracing.span('graph.cap'):
+            n_cand = len(idx_i)
+            idx_i, idx_j, shift = nearest_neighbors(
+                idx_i, idx_j, shift, s.pos, s.cell, max_neighbors)
+            tracing.count('graph.cap.candidates', n_cand)
+            tracing.count('graph.cap.edges', len(idx_i))
     g = structure_nodes(s, type_map)
     g[K.EDGE_IDX] = np.stack([idx_i, idx_j]).astype(np.int32)
     g[K.CELL_SHIFT] = shift.astype(np.float32)

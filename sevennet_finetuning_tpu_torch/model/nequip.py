@@ -174,6 +174,8 @@ class ModelSpec:
     scale: Tuple[float, ...]
     train_shift_scale: bool = False
     use_bias_in_linear: bool = False
+    # each destination keeps its nearest sources within the cutoff
+    max_neighbors: Optional[int] = None
 
     @property
     def cutoff(self) -> float:
@@ -448,6 +450,7 @@ def init_params(spec: ModelSpec, seed: int = 0
     ``init_params``, numpy draws from ``np.random.default_rng(seed)`` in
     its order, so the same spec and seed give the same arrays bit for
     bit.  Load them with ``load_jax_params``."""
+    require_model_spec(spec, 'init_params (the training path)')
     rng = np.random.default_rng(seed)
     p: Dict[str, Dict[str, np.ndarray]] = {
         'edge_embedding': {'bessel_coeffs': bessel_init(
@@ -510,12 +513,18 @@ class NequIP(nn.Module):
     def forward(self, data: Dict[str, torch.Tensor]):
         return apply_model(self, data)
 
+    def energy_network(self, data, edge_vec, remat=False):
+        """``energy_network`` of this model (``apply_model``'s family
+        dispatch: another family's module brings its own)."""
+        return energy_network(self, data, edge_vec, remat=remat)
+
 
 def load_jax_params(model: NequIP, params_np) -> NequIP:
     """Copy a JAX parameter dict ({'0_convolution': {'weight_nn_w0': ...},
     ...}, numpy arrays) onto the model; every group, name and shape must
     match exactly."""
-    want = param_shapes(model.spec)
+    want = {group: {name: tuple(v.shape) for name, v in names.items()}
+            for group, names in model.params.items()}
     if set(params_np) != set(want):
         raise KeyError(f'parameter groups differ: missing '
                        f'{sorted(set(want) - set(params_np))}, extra '
@@ -549,6 +558,17 @@ def trainable_mask(spec: ModelSpec) -> Dict[str, Dict[str, bool]]:
     mask['rescale_atomic_energy']['shift'] = spec.train_shift_scale
     mask['rescale_atomic_energy']['scale'] = spec.train_shift_scale
     return mask
+
+
+def require_model_spec(spec, what: str):
+    """NotImplementedError for ``what`` on a spec of a family that is not
+    a ``ModelSpec`` ('equiformer_v2', ``model/equiformer_v2``: it serves
+    energies, forces and stress through the Calculator only)."""
+    if not isinstance(spec, ModelSpec):
+        raise NotImplementedError(
+            f'{what} is not implemented for {type(spec).__name__}: that '
+            'family serves energies, forces and stress through the '
+            'Calculator only')
 
 
 def _linear_w(p) -> list:
@@ -1046,7 +1066,7 @@ def apply_model(model: NequIP, data: Dict[str, torch.Tensor],
     with tracing.span('model.forward'):
         edge_vec = compute_edge_vec(data).detach().requires_grad_(True)
         with torch.enable_grad():
-            out = energy_network(model, data, edge_vec, remat=remat)
+            out = model.energy_network(data, edge_vec, remat=remat)
     with tracing.span('model.grad'), torch.enable_grad():
         fij, = torch.autograd.grad(out[K.PRED_TOTAL_ENERGY].sum(), edge_vec)
     with tracing.span('model.forces_stress'):

@@ -32,7 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
 SOURCES = ('segment_sum', 'cg_agg', 'cg_gagg', 'cg_gmulti', 'cg_quad',
-           'neighbor_cells', 'probe_copy', 'probe_feats')
+           'neighbor_cells', 'so2', 'probe_copy', 'probe_feats')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -64,6 +64,15 @@ SIGNATURES = {
     # pointers, the geometry and the sizes are host arrays
     'neighbor_count': ('neighbor_count_f32', (_P,) * 5),
     'neighbor_fill': ('neighbor_fill_f32', (_P,) * 5 + (_I, _P)),
+    # the 'equiformer_v2' family's edge frame (ops/so2.py): strides and
+    # sizes as ints
+    'so2_rotate': ('so2_rotate_f32',
+                   (_P, _I, _P, _P, _I, _I, _P) + (_I,) * 7 + (_P,)),
+    'so2_rotate_grad': ('so2_rotate_grad_f32',
+                        (_P, _P) + (_I,) * 3 + (_P, _P) + (_I,) * 3
+                        + (_P,) + (_I,) * 4 + (_P,)),
+    's2_act': ('s2_act_f32', (_P,) * 4 + (_I,) * 4 + (_P,)),
+    's2_act_bwd': ('s2_act_bwd_f32', (_P,) * 5 + (_I,) * 4 + (_P,)),
     # the measurement probes of tools/ (csrc/probe_copy.cu,
     # csrc/probe_feats.cu)
     'probe_copy_tiled': ('probe_copy_tiled_f32',
@@ -81,6 +90,7 @@ SIGNATURES = {
 SHARED_SOURCES = {
     'cg_gmulti': ('cg_multi',),
     'neighbor_cells': ('neighbor_count', 'neighbor_fill'),
+    'so2': ('so2_rotate', 'so2_rotate_grad', 's2_act', 's2_act_bwd'),
     'probe_copy': ('probe_copy_tiled', 'probe_colsum', 'probe_copy_ring'),
     'probe_feats': ('probe_transpose', 'probe_split', 'probe_dot',
                     'probe_window')}

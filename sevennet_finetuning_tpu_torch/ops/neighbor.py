@@ -6,7 +6,11 @@ live as long as it does.  A rebuild is ``count`` (the wrapping, the
 images' bins and each home atom's neighbor count, then one read of the
 edge total), ``fill`` (the edges of atoms 0..n-1 into slots [0, total)
 of the batch's buffers, grouped by ascending destination) and
-``pack_edges`` (the collate layout past them).  Its plain version is the
+``pack_edges`` (the collate layout past them).  A configuration with
+``max_neighbors`` counts with ``cap`` (the same read also brings the
+capped total), fills the candidates into buffers of their own and keeps
+each destination's nearest (``nearest_edges``) before ``pack_edges``.
+Its plain version is the
 host core it follows, ``data.native.neighbor_list_native``: the same
 algorithm, the same inputs, the same edges.
 
@@ -131,10 +135,12 @@ class CellList:
         self.dims = _cuda.host_ints((self.n, self.n_img, self.bins,
                                      *map(int, self.pbc), *self.reps))
 
-    def count(self, pos: torch.Tensor) -> Tuple[int, int]:
+    def count(self, pos: torch.Tensor, cap=None) -> Tuple[int, int]:
         """The count pass over the first ``n`` rows of ``pos`` ([>= n, 3]
         float32 on the card), then the read of the edge total: (edges,
-        reads), a second read where the grid outgrew its bins."""
+        reads), a second read where the grid outgrew its bins.  With
+        ``cap``, edges counts at most ``cap`` an atom, read with the
+        total, which ``candidates`` keeps."""
         _cuda.require(pos, 'pos', torch.float32)
         if pos.dim() != 2 or pos.shape[1] != 3 or pos.shape[0] < self.n:
             raise ValueError(f'pos: expected [>= {self.n}, 3], got '
@@ -146,10 +152,17 @@ class CellList:
             _cuda.check('neighbor_count', fn(
                 pos.data_ptr(), self.ptrs, self.geom, self.dims,
                 _cuda.stream_ptr(pos.device)))
-            total, need = self.bufs['status'].tolist()
+            status = self.bufs['status']
+            if cap is not None:
+                status = torch.cat([status, self.bufs['atom_cnt'].clamp(
+                    max=cap).sum().view(1)])
+            total, need, *capped = status.tolist()
             reads += 1
             if not need:
-                return int(total), reads
+                if cap is None:
+                    return int(total), reads
+                self.candidates = int(total)
+                return int(capped[0]), reads
             self.bins = int(need * BIN_GROWTH) + 1
             self._alloc()
 
@@ -178,3 +191,43 @@ def pack_edges(edge_idx: torch.Tensor, shift: torch.Tensor,
     mask[:n_live] = 1.0
     mask[n_live:] = 0.0
     return sort_perm(edge_idx[1])
+
+
+# the largest |shift| component the image key of ``nearest_edges`` orders
+IMAGE_RANGE = 1024
+
+
+def nearest_edges(cand_idx: torch.Tensor, cand_shift: torch.Tensor,
+                  pos: torch.Tensor, cell: torch.Tensor, counts: torch.Tensor,
+                  offsets: torch.Tensor, k: int, edge_idx: torch.Tensor,
+                  shift: torch.Tensor, n_live: int) -> None:
+    """Each destination's ``k`` nearest of the candidates (grouped by
+    ascending destination, atom a's at ``offsets[a]``, ``counts[a]`` of
+    them), ordered by (destination, distance, source, image), into slots
+    [0, n_live) of ``edge_idx`` / ``shift`` (``n_live`` = sum min(counts,
+    k)); the rest go to slot ``n_live``, which ``pack_edges`` overwrites.
+    The distance is the squared length in float64 of pos[j] - pos[i] +
+    shift . cell from the float32 positions (the model's) and the float64
+    cell; images order by the shift, lexicographically.  Three stable
+    sorts on the tensors' device, no read (the host build runs it too)."""
+    w = 2 * IMAGE_RANGE + 1
+    img = (cand_shift.long() + IMAGE_RANGE)
+    tie = (cand_idx[1].long() * w + img[:, 0]) * w * w \
+        + img[:, 1] * w + img[:, 2]
+    dst, src = cand_idx[0].long(), cand_idx[1].long()
+    p, s = pos.double(), cand_shift.double()
+    v = p[src] - p[dst] + (s[:, 0:1] * cell[0] + s[:, 1:2] * cell[1]
+                           + s[:, 2:3] * cell[2])
+    d2 = (v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1]) + v[:, 2] * v[:, 2]
+    order = torch.sort(tie, stable=True).indices
+    order = order[torch.sort(d2[order], stable=True).indices]
+    order = order[torch.sort(dst[order], stable=True).indices]
+    dst = dst[order]
+    rank = torch.arange(order.shape[0], device=order.device) \
+        - offsets.long()[dst]
+    kept = counts.clamp(max=k).long()
+    start = torch.cumsum(kept, 0) - kept
+    slot = torch.where(rank < k, start[dst] + rank,
+                       torch.full_like(rank, n_live))
+    edge_idx[:, slot] = cand_idx[:, order]
+    shift[slot] = cand_shift[order]

@@ -1,7 +1,8 @@
 """Radial basis functions and cutoff envelopes.
 
 Port of ``sevennet_finetuning_tpu/ops/radial.py``: trainable Bessel
-basis, polynomial cutoff (DimeNet form) and the XPLOR switching function.
+basis, polynomial cutoff (DimeNet form) and the XPLOR switching function;
+and the Gaussian basis with no envelope of the 'equiformer_v2' family.
 """
 
 from __future__ import annotations
@@ -61,3 +62,12 @@ def xplor_cutoff(r: torch.Tensor, cutoff: float,
     )
     sw = torch.where(r < cutoff, sw, torch.zeros_like(sw))
     return torch.where(r < cutoff_on, torch.ones_like(sw), sw)
+
+
+def gaussian_basis(r: torch.Tensor, stop: float, num: int,
+                   width: float = 2.0) -> torch.Tensor:
+    """exp(-(r - mu_k)^2 / (2 (width * spacing)^2)) at ``num`` centres
+    mu_k evenly from 0 to ``stop`` (fairchem's GaussianSmearing)."""
+    mu = torch.linspace(0.0, stop, num, dtype=r.dtype, device=r.device)
+    coeff = -0.5 / (width * stop / (num - 1)) ** 2
+    return torch.exp(coeff * (r[..., None] - mu) ** 2)

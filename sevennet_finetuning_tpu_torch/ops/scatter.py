@@ -27,6 +27,10 @@ on CPU tensors.  Destinations >= n (the padding sentinel) are dropped.
   ``index_add_`` atomics on the card).  The sentinel dst = n_node drops,
   as XLA's ``segment_sum`` drops it.
 
+- ``segment_softmax``: softmax of per-edge logits over each ascending
+  destination's edges (the attention of the 'equiformer_v2' family),
+  its sums on the sorted kernel.
+
 Every backward here calls only Functions of this module, so the family
 is closed under ``create_graph=True``: a double backward (the train
 step's force loss) stays on the kernel and runs no accumulating scatter.
@@ -228,3 +232,18 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor,
     elif inv is None:
         inv = inverse_perm(perm)
     return GatherRows.apply(x, idx, perm, inv)
+
+
+def segment_softmax(logits: torch.Tensor, dst: torch.Tensor,
+                    n_rows: int) -> torch.Tensor:
+    """Softmax of ``logits`` [E, H] over the edges of each destination
+    (ascending ``dst``; the sentinel rows >= n_rows read 0), shifted by the
+    detached per-destination maximum, 1e-16 added to each sum
+    (torch_geometric's softmax)."""
+    idx = dst.clamp(max=n_rows).long()[:, None].expand_as(logits)
+    top = logits.new_full((n_rows + 1, logits.shape[1]), -torch.inf)
+    top = top.scatter_reduce(0, idx, logits.detach(), 'amax')
+    ex = torch.exp(logits - top.gather(0, idx))
+    total = segment_sum_sorted(ex, dst, n_rows)
+    return ex / (gather_zero_oob(total, dst) + 1e-16) \
+        * (dst < n_rows).to(logits.dtype)[:, None]

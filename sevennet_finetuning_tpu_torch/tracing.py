@@ -26,6 +26,14 @@ instrumented boundaries (one thread: the caller's):
   ``gaunt_conv_fft`` with the counter ``gaunt.grid_bytes``, the bytes of
   its per-edge sample grids (E x mul x M^2 elements); ``gaunt.pb`` around
   ``apply_gaunt_pb`` (``nodes``, ``correlation``);
+- ``model/equiformer_v2.py``: ``eqv2.edge_embed`` (the edge frames, the
+  Gaussians and the edge-degree embedding; ``edges``), ``eqv2.attn``
+  around each block's graph attention (``edges``, ``block``), ``eqv2.ffn``
+  around each block's grid FFN (``nodes``, ``block``) and ``eqv2.head``
+  (``nodes``); a configuration with ``max_neighbors`` adds ``graph.cap``
+  inside ``graph.build`` (the nearest-neighbour cap, host or card) with
+  the counters ``graph.cap.candidates`` (pairs within the cutoff) and
+  ``graph.cap.edges`` (kept);
 - ``parallel/halo.py``: ``halo.swap`` around each ``DistTransport.swap``
   (``stage``, ``rows``; a backward's reverse swap too, from autograd's
   thread) with the counter ``halo.swap_bytes``, the bytes the rank sends.

@@ -51,6 +51,7 @@ from ..model.nequip import (
     batch_to_torch,
     detach_outputs,
     load_jax_params,
+    require_model_spec,
     trainable_mask,
 )
 from .loss import build_loss_fn, loss_specs_from_config
@@ -90,6 +91,7 @@ class Trainer:
 
     def __init__(self, model: NequIP, config: Dict, fisher=None,
                  opt_params=None, device=None, data_parallel: bool = False):
+        require_model_spec(model.spec, 'training')
         if data_parallel and not dp.is_distributed():
             raise ValueError('data_parallel needs an initialized '
                              'torch.distributed process group')

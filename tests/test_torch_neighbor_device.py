@@ -532,3 +532,129 @@ def test_card_calculator_matches_host_build(name, reps, card,
           f"{int(card_batch[K.EDGE_MASK].sum())} edges, the host's order: "
           f"{'same' if same else 'differs'}; gaps {gaps}")
     assert max(gaps.values()) <= 1e-6, gaps
+
+
+# --- the nearest-neighbour cap (``max_neighbors``) ----------------------
+
+CAP_CUTOFF = 12.0
+CAP_K = 20
+
+
+def _capped_calculator(device='cpu', cap=CAP_K):
+    """A SevenNet-0-shaped Calculator on HfO2 at 12 A keeping each atom's
+    ``cap`` nearest sources."""
+    from sevennet_finetuning_tpu_torch.calculator import Calculator
+    from sevennet_finetuning_tpu_torch.model.build import build_model_spec
+    from sevennet_finetuning_tpu_torch.model.nequip import init_params
+
+    spec = build_model_spec({'_number_of_species': 2,
+                             '_type_map': {8: 0, 72: 1},
+                             'cutoff': CAP_CUTOFF, 'max_neighbors': cap})
+    return Calculator(spec, init_params(spec, 0), device=device)
+
+
+@pytest.mark.parametrize('reps', [(1, 1, 1), (2, 1, 1)], ids=['96', '192'])
+def test_capped_card_assembly_matches_host_batch(reps):
+    """``nearest_edges`` (the card build's cap: three stable sorts, the
+    kept slots from the counts, no read) over the host core's candidates,
+    on the CPU, against ``Calculator.batch``'s host build with
+    ``max_neighbors``: the same batch, key for key and bit for bit."""
+    from sevennet_finetuning_tpu_torch import keys as K
+    from sevennet_finetuning_tpu_torch.calculator import (node_batch,
+                                                          with_edges)
+    from sevennet_finetuning_tpu_torch.ops.neighbor import nearest_edges
+
+    s = _rattled(reps, seed=11)
+    calc = _capped_calculator()
+    want = calc.batch(s)
+    i, j, shift = _native(s, CAP_CUTOFF)
+    order = np.argsort(i, kind='stable')
+    i, j, shift = i[order], j[order], shift[order]
+    counts = np.bincount(i, minlength=len(s))
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    n_live = int(np.minimum(counts, CAP_K).sum())
+    assert n_live == CAP_K * len(s)
+    nodes = node_batch(s, calc.type_map, calc.device)
+
+    def fill(idx, sh):
+        idx.fill_(-7)
+        sh.fill_(9.5)
+        nearest_edges(torch.as_tensor(np.stack([i, j]), dtype=torch.int32),
+                      torch.as_tensor(shift, dtype=torch.float32),
+                      nodes[K.POS], torch.as_tensor(s.cell),
+                      torch.as_tensor(counts, dtype=torch.int32),
+                      torch.as_tensor(offsets, dtype=torch.int32), CAP_K,
+                      idx, sh, n_live)
+
+    got = with_edges(nodes, n_live, fill)
+    _assert_same_batch(got, want)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize('reps', [(2, 1, 1), (3, 2, 2)],
+                         ids=['192', '1152'])
+def test_card_capped_build_matches_host_build(reps, card, record_property):
+    """The card build with the cap (count with the capped total in its
+    one read, the fill into candidate buffers, ``nearest_edges``,
+    ``pack_edges``) against the host build with the cap at 12 A: the
+    same batch key for key, bit for bit; one read; the counters."""
+    from sevennet_finetuning_tpu_torch import keys as K
+    from sevennet_finetuning_tpu_torch import tracing
+    from sevennet_finetuning_tpu_torch.model.graph import (
+        bucket_capacity, collate, structure_to_graph)
+    from sevennet_finetuning_tpu_torch.model.nequip import batch_to_torch
+
+    s = _rattled(reps, seed=sum(reps))
+    calc = _capped_calculator('cuda')
+    tracing.reset()
+    tracing.enable()
+    try:
+        got = calc.batch(s)
+        counts = tracing.counters()
+    finally:
+        tracing.disable()
+        tracing.reset()
+    assert counts['host_syncs'] == 1
+    assert counts['graph.cap.edges'] == CAP_K * len(s)
+    assert counts['graph.cap.candidates'] > 20 * counts['graph.cap.edges']
+    g = structure_to_graph(s, CAP_CUTOFF, calc.type_map, CAP_K)
+    b = collate([g], n_node=bucket_capacity(len(s), margin=1.0),
+                n_edge=bucket_capacity(g[K.EDGE_IDX].shape[1]), n_graph=1)
+    want = batch_to_torch(b, card)
+    for k in (K.INFO, K.USER_LABEL, K.DATA_WEIGHT):
+        want.pop(k, None)
+    record_property('candidates', counts['graph.cap.candidates'])
+    _assert_same_batch({k: got[k] for k in want}, want)
+
+
+@pytest.mark.card
+def test_uncapped_card_build_launches_as_before(card):
+    """A configuration without ``max_neighbors`` launches what the build
+    without the cap launches: the kernels of ``Calculator.batch`` equal, by
+    name and number, those of the build assembled by hand from ``count``
+    (no cap), ``with_edges`` and the fill pass."""
+    from sevennet_finetuning_tpu_torch import keys as K
+    from sevennet_finetuning_tpu_torch.calculator import (node_batch,
+                                                          with_edges)
+    from sevennet_finetuning_tpu_torch.ops.neighbor import CellList
+
+    calc = _calculator(CUTOFF, 'cuda')
+    s = _rattled((2, 1, 1), seed=3)
+
+    def by_hand():
+        nodes = node_batch(s, calc.type_map, calc.device)
+        cells = CellList(s.cell, s.pbc, CUTOFF, s.pos, calc.device)
+        n_live, _ = cells.count(nodes[K.POS])
+        return with_edges(nodes, n_live, cells.fill)
+
+    def kernels(fn):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sorted(e.name for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    assert kernels(lambda: calc.batch(s)) == kernels(by_hand)
