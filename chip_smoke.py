@@ -261,7 +261,7 @@ phases and exits non-zero if any fails:
               0 replicated 3 x 2 x 2; the nearest 20 within 12 A, 23,040
               live edges in 25,408 slots): one ``Calculator.calculate``
               with the launch counts zeroed before it must launch
-              so2_rotate 50, so2_rotate_grad 25, s2_act 8, s2_act_bwd 8,
+              so2_rotate 34, so2_rotate_grad 17, s2_act 8, s2_act_bwd 8,
               the card build's count and fill once each and segment sums;
               ms a request and peak memory; then each so2 kernel's wrapper
               on the request's graph and frames against its plain version
@@ -3473,11 +3473,13 @@ EQV2_CONFIG = ROOT / 'benchmark/configs/equiformer_v2_31m.json'
 EQV2_REPS = (3, 2, 2)
 EQV2_SEED = 2 ** 33 + 29
 # launches of the edge-frame kernels in one request (8 blocks; PERF.md):
-# so2_rotate 3 a block forward (the source and target rotations, the
-# rotation back) and 3 in its backward, and 1 each way for the edge-degree
-# embedding's rotation back; so2_rotate_grad 3 a block and 1; the S2
-# activation once a block each way
-EQV2_CENSUS = {'so2_rotate': 50, 'so2_rotate_grad': 25, 's2_act': 8,
+# so2_rotate 2 a block forward (the source and target rotations in one
+# launch, the rotation back) and 2 in its backward (the transposed pair in
+# one launch, the plain rotation), and 1 each way for the edge-degree
+# embedding's rotation back; so2_rotate_grad 2 a block (the pair in one
+# launch, the rotation back's) and 1; the S2 activation once a block each
+# way
+EQV2_CENSUS = {'so2_rotate': 34, 'so2_rotate_grad': 17, 's2_act': 8,
                's2_act_bwd': 8, 'neighbor_count': 1, 'neighbor_fill': 1}
 # the so2 kernels against their plain versions on the same card tensors:
 # float32 sums of 25 (rotations) to 324 (grid) terms in another order
@@ -3520,8 +3522,11 @@ def phase_eqv2(rows, device='cuda', reps=EQV2_REPS):
     (``EQV2_CENSUS``; segment sums counted), and ms a request and peak
     memory; (2) each so2 kernel's wrapper against its plain version on
     the same card tensors at the request's shapes (the rotations into the
-    frame of 2 x 128 channels and back of 128, the edge-degree
-    embedding's 5 rows, the rotation's D cotangent, the S2 activation of
+    frame of 2 x 128 channels in one launch and back of 128, the
+    edge-degree embedding's 5 rows, the backward's rotations (the
+    transposed pair, the plain rotation), D's cotangent (one leg, the
+    pair in one launch, the rotation back's; on D's degree blocks, 0 off
+    them), the S2 activation of
     64 channels and its backward; within ``EQV2_KERNEL_TOL`` x max|plain|),
     timed beside the plain version and bounded (rows appended to
     ``rows``).  ``device`` and ``reps`` (the replication) serve a
@@ -3593,12 +3598,12 @@ def phase_eqv2(rows, device='cuda', reps=EQV2_REPS):
     tag = f'{len(struct.species)} atoms, E={E} ({n_live} live)'
 
     out = torch.empty((E, Kk, 2 * C), device=device)
+    halves = (out[:, :, :C], out[:, :, C:])
     rows.setdefault('so2_rotate', []).append(_so2_row(
-        'so2_rotate', f'rotate in, 2 x C={C}, {tag}',
+        'so2_rotate', f'rotate in, 2 x C={C} (one launch), {tag}',
         so2.rotate_in(D, x, srcs, dst, perm, inv),
         so2.rotate_in_plain(D, x, srcs, dst, perm, inv),
-        lambda: (so2._rotate(D, x, s32, False, out[:, :, :C]),
-                 so2._rotate(D, x, d32, False, out[:, :, C:])),
+        lambda: so2._rotate(D, (x, x), (s32, d32), False, halves),
         lambda: so2.rotate_in_plain(D, x, srcs, dst, perm, inv),
         4 * (E * Kk * d + n * d * C + E * Kk * 2 * C), 2 * 2 * E * rot * C,
         mask=live))
@@ -3614,21 +3619,77 @@ def phase_eqv2(rows, device='cuda', reps=EQV2_REPS):
         rows.setdefault('so2_rotate', []).append(_so2_row(
             'so2_rotate', f'{label}, C={c}, {tag}', so2.rotate_back(Dr, y),
             torch.bmm(Dr.transpose(1, 2), y),
-            lambda: so2._rotate(Dr, y, None, True, back),
+            lambda: so2._rotate(Dr, (y,), (None,), True, (back,)),
             lambda: torch.bmm(Dr.transpose(1, 2), y),
             4 * (E * k_rows * d + E * k_rows * c + E * d * c),
             2 * E * rot_r * c))
-    ct = randn(E, Kk, C)
+    # the backward's rotations: D^T of both halves of the message's
+    # cotangent (one launch), and D of rotate back's cotangent (no gather)
+    ct2 = randn(E, Kk, 2 * C)
+    cts = (ct2[:, :, :C], ct2[:, :, C:])
+    g2 = torch.empty((2, E, d, C), device=device)
+    Dt = D.transpose(1, 2)
+    rows['so2_rotate'].append(_so2_row(
+        'so2_rotate', f'rotate back, 2 x C={C} (one launch), {tag}',
+        torch.stack(so2._rotate(D, cts, (None, None), True, (g2[0], g2[1]))),
+        torch.stack([torch.bmm(Dt, h) for h in cts]),
+        lambda: so2._rotate(D, cts, (None, None), True, (g2[0], g2[1])),
+        lambda: [torch.bmm(Dt, h) for h in cts],
+        4 * (E * Kk * d + E * Kk * 2 * C + 2 * E * d * C),
+        2 * 2 * E * rot * C))
+    cb = randn(E, d, v)
+    fwd = torch.empty((E, Kk, v), device=device)
+    rows['so2_rotate'].append(_so2_row(
+        'so2_rotate', f'rotate in, no gather, C={v}, {tag}',
+        so2._rotate(D, (cb,), (None,), False, (fwd,))[0], torch.bmm(D, cb),
+        lambda: so2._rotate(D, (cb,), (None,), False, (fwd,)),
+        lambda: torch.bmm(D, cb),
+        4 * (E * Kk * d + E * d * v + E * Kk * v), 2 * E * rot * v))
+    # D's cotangent: compared on its degree blocks (exactly 0 off them,
+    # the cotangents of D's structural zeros)
+    sup = torch.zeros((Kk, d), dtype=torch.bool, device=device)
+    for r, (first, count) in enumerate(so2.row_spans(d, Kk)):
+        sup[r, first:first + count] = True
+
+    def on_support(t):
+        if torch.count_nonzero(t[:, ~sup]):
+            raise AssertionError("so2_rotate_grad: D's cotangent is not 0 "
+                                 'off its degree blocks')
+        return t[:, sup]
+
+    ct = ct2[:, :, :C].contiguous()
     dD = torch.empty((E, Kk, d), device=device)
-    xs = x[s32.long()]
+    xs, xt = x[s32.long()], x[d32.long()]
     rows.setdefault('so2_rotate_grad', []).append(_so2_row(
-        'so2_rotate_grad', f"D's cotangent, C={C}, {tag}",
-        so2._rotate_grad(ct, None, x, s32, dD, False),
-        torch.bmm(ct, xs.transpose(1, 2)),
-        lambda: so2._rotate_grad(ct, None, x, s32, dD, False),
+        'so2_rotate_grad', f"D's cotangent, one leg, C={C}, {tag}",
+        on_support(so2._rotate_grad((ct,), (None,), (x,), (s32,), dD,
+                                    False)),
+        torch.bmm(ct, xs.transpose(1, 2))[:, sup],
+        lambda: so2._rotate_grad((ct,), (None,), (x,), (s32,), dD, False),
         lambda: torch.bmm(ct, xs.transpose(1, 2)),
         4 * (E * Kk * C + n * d * C + E * Kk * d), 2 * E * rot * C,
         mask=live))
+    rows['so2_rotate_grad'].append(_so2_row(
+        'so2_rotate_grad', f"D's cotangent, 2 x C={C} (one launch), {tag}",
+        on_support(so2._rotate_grad(cts, (None, None), (x, x), (s32, d32),
+                                    dD, False)),
+        (torch.bmm(cts[0], xs.transpose(1, 2))
+         + torch.bmm(cts[1], xt.transpose(1, 2)))[:, sup],
+        lambda: so2._rotate_grad(cts, (None, None), (x, x), (s32, d32), dD,
+                                 False),
+        lambda: torch.bmm(cts[0], xs.transpose(1, 2))
+        + torch.bmm(cts[1], xt.transpose(1, 2)),
+        4 * (E * Kk * 2 * C + n * d * C + E * Kk * d), 2 * 2 * E * rot * C,
+        mask=live))
+    yb = randn(E, Kk, v)
+    rows['so2_rotate_grad'].append(_so2_row(
+        'so2_rotate_grad', f"rotate back's D cotangent, C={v}, {tag}",
+        on_support(so2._rotate_grad((yb,), (None,), (cb,), (None,), dD,
+                                    False)),
+        torch.bmm(yb, cb.transpose(1, 2))[:, sup],
+        lambda: so2._rotate_grad((yb,), (None,), (cb,), (None,), dD, False),
+        lambda: torch.bmm(yb, cb.transpose(1, 2)),
+        4 * (E * Kk * v + E * d * v + E * Kk * d), 2 * E * rot * v))
     to, frm = so2.grid_matrices(s.lmax, s.mmax, s.grid_resolution,
                                 torch.device(device), torch.float32)
     P = to.shape[0]

@@ -65,12 +65,13 @@ SIGNATURES = {
     'neighbor_count': ('neighbor_count_f32', (_P,) * 5),
     'neighbor_fill': ('neighbor_fill_f32', (_P,) * 5 + (_I, _P)),
     # the 'equiformer_v2' family's edge frame (ops/so2.py): strides and
-    # sizes as ints
+    # sizes as ints, D's row spans a host array, two legs' pointers
     'so2_rotate': ('so2_rotate_f32',
-                   (_P, _I, _P, _P, _I, _I, _P) + (_I,) * 7 + (_P,)),
+                   (_P, _I, _P, _I, _I) + (_P,) * 4 + (_I, _I, _P, _P)
+                   + (_I,) * 6 + (_P,)),
     'so2_rotate_grad': ('so2_rotate_grad_f32',
-                        (_P, _P) + (_I,) * 3 + (_P, _P) + (_I,) * 3
-                        + (_P,) + (_I,) * 4 + (_P,)),
+                        (_P, _I, _I) + (_P,) * 4 + (_I, _I) + (_P,) * 4
+                        + (_I, _I, _P) + (_I,) * 5 + (_P,)),
     's2_act': ('s2_act_f32', (_P,) * 4 + (_I,) * 4 + (_P,)),
     's2_act_bwd': ('s2_act_bwd_f32', (_P,) * 5 + (_I,) * 4 + (_P,)),
     # the measurement probes of tools/ (csrc/probe_copy.cu,

@@ -17,10 +17,12 @@ block).  Per edge:
   ``m_major(lmax, mmax)``: m = 0 for l = 0..lmax, then +1 and -1 for l =
   1..lmax, then +2 and -2, as fairchem's SO(2) convolution reads them.
 - ``rotate_in`` / ``rotate_back``: node features into the edge frames
-  (both ends, the gathers folded in) and edge-frame rows back, on the card
-  by ``csrc/so2.cu`` (``EdgeRotate``, ``EdgeRotateBack``; their
-  cotangents by ``so2_rotate_grad`` and the scatter kernels), on the CPU
-  by their plain versions (gathers and batched products).
+  (both ends in one launch, the gathers folded in) and edge-frame rows
+  back, on the card by ``csrc/so2.cu`` (``EdgeRotate``,
+  ``EdgeRotateBack``; their cotangents by ``so2_rotate_grad`` and the
+  scatter kernels), which read and write only D's degree blocks
+  (``row_spans``); on the CPU by their plain versions (gathers and
+  batched products).
 - ``so2_linear``: the SO(2) linear map of m-major coefficients [E, K, C]:
   m = 0 by one linear map (with bias), m > 0 by the complex form
   y+ = W_r x+ - W_i x-, y- = W_r x- + W_i x+; an optional radial weight a
@@ -246,43 +248,104 @@ def so2_linear(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
 
 # -- the edge rotation on the card ---------------------------------------------
 
-def _rotate(D: torch.Tensor, x: torch.Tensor, idx, transpose: bool,
-            out: torch.Tensor) -> torch.Tensor:
-    """``so2_rotate`` into ``out`` [E, n_out, >= C] (its channels may be a
-    slice of a wider row): x [rows, n_in, C] (rows gathered by ``idx``,
-    int32, or one an edge), D [E, K, d] rows (a slice of rows allowed)."""
-    E, n_out = out.shape[0], out.shape[1]
-    n_in, C = x.shape[1], x.shape[2]
-    for name, t in (('D', D), ('x', x), ('out', out)):
-        if not t.is_cuda or t.dtype != torch.float32 or t.stride(2) != 1:
-            raise ValueError(f'so2_rotate: {name} must be float32 on the '
-                             'card with contiguous rows')
-    if D.stride(1) != D.shape[2]:
-        raise ValueError('so2_rotate: D rows must be contiguous')
+@lru_cache(maxsize=None)
+def row_spans(d: int, rows: int) -> Tuple[Tuple[int, int], ...]:
+    """(first column, count) of each of the first ``rows`` m-major rows of
+    an edge frame D [E, K, d], d = (lmax + 1)^2: row k of degree l is
+    non-zero only in its degree's block l^2..(l+1)^2 - 1 (D(R) is
+    block-diagonal by degree).  ``m_major(lmax, mmax)`` is a prefix of
+    ``m_major(lmax, lmax)`` for every mmax, so the first rows' degrees
+    do not depend on mmax."""
+    lmax = math.isqrt(d) - 1
+    if (lmax + 1) ** 2 != d or not 1 <= rows <= d:
+        raise ValueError(f'so2_rotate: D of {rows} rows and {d} columns is '
+                         'not an edge frame')
+    return tuple((l * l, 2 * l + 1) for l in row_degrees(lmax, lmax)[:rows])
+
+
+@lru_cache(maxsize=None)
+def _host_spans(d: int, rows: int):
+    """``row_spans`` as the kernels' host array."""
+    return _cuda.host_ints([v for span in row_spans(d, rows) for v in span])
+
+
+def _card_f32(name: str, t: torch.Tensor, what: str) -> None:
+    if not t.is_cuda or t.dtype != torch.float32 or t.stride(-1) != 1:
+        raise ValueError(f'{name}: {what} must be float32 on the card with '
+                         'contiguous channels')
+
+
+def _legs(name: str, ts) -> None:
+    """The legs of one launch share shapes and strides."""
+    if len(ts) not in (1, 2) or any(
+            t.shape != ts[0].shape or t.stride() != ts[0].stride()
+            for t in ts):
+        raise ValueError(f'{name}: one or two legs of one shape and stride')
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _rotate(D: torch.Tensor, xs, idxs, transpose: bool, outs):
+    """``so2_rotate`` of one or two legs in one launch, D read once:
+    outs[i] [E, n_out, >= C] (its channels may be a slice of a wider row)
+    = D xs[i] (n_out = K) or D^T xs[i] (``transpose``, n_out = d), xs[i]
+    [rows, n_in, C] gathered by idxs[i] (int32) or one row an edge.  D [E,
+    K, d] holds the first K rows of the m-major order (a prefix slice
+    allowed, as the edge-degree embedding's m = 0 rows); only its degree
+    blocks are read."""
+    E, K, d = D.shape
+    _legs('so2_rotate', xs)
+    _legs('so2_rotate', outs)
+    _card_f32('so2_rotate', D, 'D')
+    for x, out in zip(xs, outs):
+        _card_f32('so2_rotate', x, 'x')
+        _card_f32('so2_rotate', out, 'out')
+    x, out = xs[0], outs[0]
+    n_in, n_out = (K, d) if transpose else (d, K)
+    if x.shape[1] != n_in or out.shape[:2] != (E, n_out):
+        raise ValueError(f'so2_rotate: x rows of {x.shape[1]}, out of '
+                         f'{tuple(out.shape[:2])} for D {tuple(D.shape)}')
+    if D.stride(1) != d or D.storage_offset() % D.stride(0):
+        raise ValueError('so2_rotate: D must hold contiguous rows, the '
+                         'first of the m-major order')
+    legs = len(xs)
     _cuda.LAUNCHES['so2_rotate'] += 1
     _cuda.check('so2_rotate', _cuda.kernel('so2_rotate')(
-        D.data_ptr(), D.stride(0), x.data_ptr(),
-        idx.data_ptr() if idx is not None else None, x.stride(0),
-        x.stride(1), out.data_ptr(), out.stride(0), out.stride(1), E, n_in,
-        n_out, C, int(transpose), _cuda.stream_ptr(x.device)))
-    return out
+        D.data_ptr(), D.stride(0), _host_spans(d, K), K, d, x.data_ptr(),
+        xs[-1].data_ptr(), _ptr(idxs[0]), _ptr(idxs[-1]), x.stride(0),
+        x.stride(1), out.data_ptr(), outs[-1].data_ptr(), out.stride(0),
+        out.stride(1), E, x.shape[2], int(transpose), legs,
+        _cuda.stream_ptr(x.device)))
+    return outs
 
 
-def _rotate_grad(a, ia, b, ib, out, accumulate: bool):
-    """``so2_rotate_grad``: out[e, i, j] (+)= sum_c a[ia(e), i, c] b[ib(e),
-    j, c]; a, b with contiguous channels, out [E, na, nb] contiguous."""
+def _rotate_grad(As, ias, Bs, ibs, out, accumulate: bool):
+    """``so2_rotate_grad`` of one or two legs in one launch: out[e, k, i]
+    (+)= sum over the legs and channels of As[ias(e), k, c] Bs[ibs(e), i,
+    c] on D's degree blocks (i in row k's span, ``row_spans``), 0 off them
+    (or left as it was, with ``accumulate``): the cotangent of an edge
+    frame D [E, K, d] (out, contiguous) through ``_rotate``, whose
+    structural zeros ``edge_rotation``'s backward multiplies by zeros."""
     _cuda.require(out, 'out', torch.float32)
-    E, na, nb = out.shape
-    for name, t in (('a', a), ('b', b)):
-        if not t.is_cuda or t.dtype != torch.float32 or t.stride(2) != 1:
-            raise ValueError(f'so2_rotate_grad: {name} must be float32 on '
-                             'the card with contiguous channels')
+    E, K, d = out.shape
+    _legs('so2_rotate_grad', As)
+    _legs('so2_rotate_grad', Bs)
+    for a, b in zip(As, Bs):
+        _card_f32('so2_rotate_grad', a, 'a')
+        _card_f32('so2_rotate_grad', b, 'b')
+    a, b = As[0], Bs[0]
+    if a.shape[1:] != (K, b.shape[2]) or b.shape[1] != d:
+        raise ValueError(f'so2_rotate_grad: a {tuple(a.shape)}, b '
+                         f'{tuple(b.shape)} for out {tuple(out.shape)}')
     _cuda.LAUNCHES['so2_rotate_grad'] += 1
     _cuda.check('so2_rotate_grad', _cuda.kernel('so2_rotate_grad')(
-        a.data_ptr(), ia.data_ptr() if ia is not None else None, a.stride(0),
-        a.stride(1), na, b.data_ptr(), ib.data_ptr() if ib is not None
-        else None, b.stride(0), b.stride(1), nb, out.data_ptr(), na * nb, E,
-        a.shape[2], int(accumulate), _cuda.stream_ptr(out.device)))
+        _host_spans(d, K), K, d, a.data_ptr(), As[-1].data_ptr(),
+        _ptr(ias[0]), _ptr(ias[-1]), a.stride(0), a.stride(1), b.data_ptr(),
+        Bs[-1].data_ptr(), _ptr(ibs[0]), _ptr(ibs[-1]), b.stride(0),
+        b.stride(1), out.data_ptr(), K * d, E, a.shape[2], len(As),
+        int(accumulate), _cuda.stream_ptr(out.device)))
     return out
 
 
@@ -323,19 +386,19 @@ def rotate_back(D: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 class EdgeRotate(torch.autograd.Function):
     """[D x[src] | D x[dst]] [E, K, 2C] of node features x [N, d, C]:
-    the gathers folded into the kernel (``src`` / ``dst`` int32, clamped
-    into range); the backward gives D's cotangent by ``so2_rotate_grad``
-    and x's as D^T of the message's cotangent, summed at the sources
-    (``scatter_rows`` by ``perm`` / ``inv``) and destinations (the sorted
-    segment sum) on their kernels."""
+    both legs in one launch, the gathers folded into the kernel (``src``
+    / ``dst`` int32, clamped into range); the backward gives D's
+    cotangent by one ``so2_rotate_grad`` of both legs and x's as D^T of
+    the message's cotangent (one launch for both halves), summed at the
+    sources (``scatter_rows`` by ``perm`` / ``inv``) and destinations (the
+    sorted segment sum) on their kernels."""
 
     @staticmethod
     def forward(ctx, D, x, src, dst, src_s, dst_s, perm, inv):
         E, K = D.shape[0], D.shape[1]
         n, d, C = x.shape
         out = torch.empty((E, K, 2 * C), dtype=x.dtype, device=x.device)
-        _rotate(D, x, src, False, out[:, :, :C])
-        _rotate(D, x, dst, False, out[:, :, C:])
+        _rotate(D, (x, x), (src, dst), False, (out[:, :, :C], out[:, :, C:]))
         ctx.save_for_backward(D, x, src, dst, src_s, dst_s, perm, inv)
         return out
 
@@ -347,38 +410,37 @@ class EdgeRotate(torch.autograd.Function):
         ct = ct.contiguous()
         n, d, C = x.shape
         E = D.shape[0]
-        dD = torch.empty(D.shape, dtype=D.dtype, device=D.device)
-        _rotate_grad(ct[:, :, :C], None, x, src, dD, False)
-        _rotate_grad(ct[:, :, C:], None, x, dst, dD, True)
-        gs = _rotate(D, ct[:, :, :C], None, True,
-                     torch.empty((E, d, C), dtype=x.dtype, device=x.device))
-        gt = _rotate(D, ct[:, :, C:], None, True,
-                     torch.empty((E, d, C), dtype=x.dtype, device=x.device))
-        dx = scatter_rows(gs.reshape(E, d * C), src_s, n, perm, inv) \
-            + segment_sum_sorted(gt.reshape(E, d * C), dst_s, n)
+        halves = (ct[:, :, :C], ct[:, :, C:])
+        dD = _rotate_grad(halves, (None, None), (x, x), (src, dst),
+                          torch.empty(D.shape, dtype=D.dtype,
+                                      device=D.device), False)
+        g = torch.empty((2, E, d, C), dtype=x.dtype, device=x.device)
+        _rotate(D, halves, (None, None), True, (g[0], g[1]))
+        dx = scatter_rows(g[0].reshape(E, d * C), src_s, n, perm, inv) \
+            + segment_sum_sorted(g[1].reshape(E, d * C), dst_s, n)
         return dD, dx.reshape(n, d, C), None, None, None, None, None, None
 
 
 class EdgeRotateBack(torch.autograd.Function):
-    """D^T y [E, d, C] of edge-frame rows y [E, K, C] (D [E, K, d], a slice
-    of its rows allowed)."""
+    """D^T y [E, d, C] of edge-frame rows y [E, K, C] (D [E, K, d], a
+    prefix of its rows allowed)."""
 
     @staticmethod
     def forward(ctx, D, y):
         y = y.contiguous()
         ctx.save_for_backward(D, y)
-        return _rotate(D, y, None, True,
-                       torch.empty((y.shape[0], D.shape[2], y.shape[2]),
-                                   dtype=y.dtype, device=y.device))
+        out = torch.empty((y.shape[0], D.shape[2], y.shape[2]),
+                          dtype=y.dtype, device=y.device)
+        return _rotate(D, (y,), (None,), True, (out,))[0]
 
     @staticmethod
     def backward(ctx, ct):
         D, y = ctx.saved_tensors
         ct = ct.contiguous()
-        dD = _rotate_grad(y, None, ct, None,
+        dD = _rotate_grad((y,), (None,), (ct,), (None,),
                           torch.empty(D.shape, dtype=D.dtype,
                                       device=D.device), False)
-        dy = _rotate(D, ct, None, False, torch.empty_like(y))
+        dy = _rotate(D, (ct,), (None,), False, (torch.empty_like(y),))[0]
         return dD, dy
 
 

@@ -157,6 +157,36 @@ def test_edge_frame_is_the_references_wigner_d():
                           pole[rows].expand(64, -1), atol=1e-10)
 
 
+@pytest.mark.parametrize('lmax,mmax,rows', [(4, 2, None), (4, 4, None),
+                                             (5, 2, None), (4, 2, 5)])
+def test_row_spans_hold_every_non_zero_of_the_edge_frame(lmax, mmax, rows):
+    """Each m-major row's span (``row_spans``, the table the rotation
+    kernels read) is its degree's block, and every entry of
+    ``edge_rotation`` outside the spans is exactly 0 (float32 and
+    float64, random directions and both poles); ``rows``: a prefix slice,
+    the edge-degree embedding's m = 0 rows."""
+    order = so2.m_major(lmax, mmax)
+    k = len(order) if rows is None else rows
+    d = (lmax + 1) ** 2
+    spans = so2.row_spans(d, k)
+    assert len(spans) == k
+    for i, (first, count) in zip(order, spans):
+        l = math.isqrt(i)
+        assert (first, count) == (l * l, 2 * l + 1)
+        assert first <= i < first + count
+    off = torch.ones(k, d, dtype=torch.bool)
+    for r, (first, count) in enumerate(spans):
+        off[r, first:first + count] = False
+    g = torch.Generator().manual_seed(lmax * 10 + mmax)
+    for dtype in (torch.float32, torch.float64):
+        v = torch.randn(200, 3, generator=g, dtype=dtype)
+        v[0] = torch.tensor([0.0, 3.0, 0.0])
+        v[1] = torch.tensor([0.0, -0.5, 0.0])
+        D = so2.edge_rotation(v, lmax, mmax)[:, :k]
+        assert torch.count_nonzero(D[:, off]) == 0
+        assert torch.count_nonzero(D[:, ~off]) > 0.9 * D[:, ~off].numel()
+
+
 def test_grid_pair_inverts_band_limited_coefficients():
     for lmax, mmax in ((4, 4), (4, 2)):
         to, frm = so2.grid_matrices(lmax, mmax, 18, torch.device('cpu'),
@@ -282,9 +312,10 @@ def card():
     return torch.device('cuda', 0)
 
 
-def _frame_inputs(device, n=40, E=700, C=32, seed=0):
+def _frame_inputs(device, lmax=4, mmax=2, n=40, E=700, C=32, seed=0):
     """Node features, edge frames and a dst-sorted edge list with padded
-    slots (the sentinel n), as a batch holds them."""
+    slots (the sentinel n, 37 of them, so E = 700 is not a multiple of
+    the kernels' 8 edges a block), as a batch holds them."""
     from sevennet_finetuning_tpu_torch.ops.scatter import sort_perm
 
     g = torch.Generator().manual_seed(seed)
@@ -296,9 +327,8 @@ def _frame_inputs(device, n=40, E=700, C=32, seed=0):
     src = torch.cat([src, pad]).int().to(device)
     perm, inv = sort_perm(src)
     v = torch.randn(E, 3, generator=g).to(device)
-    D = so2.edge_rotation(v, 4, 2)
-    x = torch.randn(n, 25, C, generator=g).to(device)
-    return D, x, src, dst, perm, inv
+    x = torch.randn(n, (lmax + 1) ** 2, C, generator=g).to(device)
+    return v, x, src, dst, perm, inv
 
 
 def _grads(out, inputs, seed=1):
@@ -307,32 +337,103 @@ def _grads(out, inputs, seed=1):
     return torch.autograd.grad((out * w).sum(), inputs)
 
 
+def _off_support(D):
+    """The entries of D [E, K, d] outside its rows' degree blocks."""
+    off = torch.ones(D.shape[1:], dtype=torch.bool, device=D.device)
+    for r, (first, count) in enumerate(so2.row_spans(D.shape[2],
+                                                     D.shape[1])):
+        off[r, first:first + count] = False
+    return off
+
+
+def _close(got, want, C):
+    """Float32 sums in another order: 1e-5 relative and absolute at up to
+    48 channels; at the cell's 128, sums of 2C products near 30 round
+    apart by 2e-5, so chip_smoke's kernel tolerance, 1e-5 x max|plain|."""
+    if C <= 48:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        err = (got - want).detach().abs().max()
+        assert float(err) <= 1e-5 * float(want.detach().abs().max())
+
+
+def _same_on_support(got, want, C):
+    """D's cotangent on the degree blocks, exactly 0 off them: the kernels
+    leave out the cotangents of D's structural zeros, which
+    ``edge_rotation``'s backward multiplies by zeros."""
+    off = _off_support(got)
+    _close(got[:, ~off], want[:, ~off], C)
+    assert torch.count_nonzero(got[:, off]) == 0
+
+
 @pytest.mark.card
-def test_rotation_kernels_match_their_plain_version(card):
-    """``EdgeRotate`` / ``EdgeRotateBack`` (the gathers folded in, the
-    sums at the sources and destinations on the scatter kernels) against
-    the plain gathers and batched products on the card: values and both
-    inputs' cotangents, float32 sums in another order (1e-5 relative)."""
-    D, x, src, dst, perm, inv = _frame_inputs(card)
-    D.requires_grad_(True)
+@pytest.mark.parametrize('lmax,mmax,C', [(4, 2, 48), (4, 2, 128),
+                                         (4, 4, 48), (5, 2, 128),
+                                         (4, 2, 45)])
+def test_rotation_kernels_match_their_plain_version(card, lmax, mmax, C):
+    """``EdgeRotate`` / ``EdgeRotateBack`` (the gathers folded in, both
+    legs a launch, the sums at the sources and destinations on the
+    scatter kernels) against the plain gathers and batched products on
+    the card, float32 sums in another order (``_close``): values, x's
+    and y's cotangents, D's on its degree blocks (0 off them), the edge
+    vectors' through ``edge_rotation``; the 5-row slice; C = 45 takes the
+    kernels' scalar channels; two launches give the same bits."""
+    v, x, src, dst, perm, inv = _frame_inputs(card, lmax, mmax, C=C)
+    D = so2.edge_rotation(v, lmax, mmax).detach().requires_grad_(True)
     x.requires_grad_(True)
     got = so2.rotate_in(D, x, src, dst, perm, inv)
     want = so2.rotate_in_plain(D, x, src, dst, perm, inv)
     live = (dst < x.shape[0])
-    torch.testing.assert_close(got[live], want[live], rtol=1e-5, atol=1e-5)
+    _close(got[live], want[live], C)
+    assert torch.equal(got, so2.rotate_in(D, x, src, dst, perm, inv))
     gd, gx = _grads(got * live[:, None, None], (D, x))
     wd, wx = _grads(want * live[:, None, None], (D, x))
-    torch.testing.assert_close(gd, wd, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(gx, wx, rtol=1e-5, atol=1e-5)
+    _same_on_support(gd, wd, C)
+    _close(gx, wx, C)
+    again = so2.rotate_in(D, x, src, dst, perm, inv) * live[:, None, None]
+    assert torch.equal(gd, _grads(again, (D, x))[0])
     for rows in (None, 5):
         Dr = D if rows is None else D[:, :rows]
-        y = torch.randn(D.shape[0], Dr.shape[1], 48, device=card,
+        y = torch.randn(D.shape[0], Dr.shape[1], C, device=card,
                         requires_grad=True)
         got = so2.rotate_back(Dr, y)
         want = torch.bmm(Dr.transpose(1, 2), y)
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-        for a, b in zip(_grads(got, (D, y)), _grads(want, (D, y))):
-            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        _close(got, want, C)
+        (gd, gy), (wd, wy) = _grads(got, (D, y)), _grads(want, (D, y))
+        _same_on_support(gd, wd, C)
+        _close(gy, wy, C)
+    # the edge vectors' cotangent, which the forces read: into the frame,
+    # a product of the two legs, back out
+    vec = v.clone().requires_grad_(True)
+
+    def composed(card_path):
+        Dv = so2.edge_rotation(vec, lmax, mmax)
+        rin = so2.rotate_in if card_path else so2.rotate_in_plain
+        m = rin(Dv, x.detach(), src, dst, perm, inv) * live[:, None, None]
+        m = m[:, :, :C] * m[:, :, C:]
+        return (so2.rotate_back(Dv, m) if card_path else
+                torch.bmm(Dv.transpose(1, 2), m))
+
+    gv, = _grads(composed(True), (vec,))
+    wv, = _grads(composed(False), (vec,))
+    assert float((gv - wv).abs().max()) <= 1e-5 * float(wv.abs().max())
+
+
+@pytest.mark.card
+def test_rotation_grad_accumulates_on_the_support(card):
+    """``so2_rotate_grad`` with ``accumulate``: out + A (x) B on the degree
+    blocks, out unchanged off them."""
+    v, x, src, dst, perm, inv = _frame_inputs(card, C=64)
+    D = so2.edge_rotation(v, 4, 2)
+    a = torch.randn(D.shape[0], D.shape[1], 64, device=card)
+    base = torch.randn(D.shape, device=card)
+    s32 = src.clamp(max=x.shape[0] - 1)
+    got = so2._rotate_grad((a,), (None,), (x,), (s32,), base.clone(), True)
+    want = base + torch.bmm(a, x[s32.long()].transpose(1, 2))
+    off = _off_support(D)
+    torch.testing.assert_close(got[:, ~off], want[:, ~off], rtol=1e-5,
+                               atol=1e-5)
+    assert torch.equal(got[:, off], base[:, off])
 
 
 @pytest.mark.card
